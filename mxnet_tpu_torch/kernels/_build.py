@@ -1,0 +1,85 @@
+"""Build the CUDA kernels of ``csrc/`` at first use and load them.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
+``nvcc`` into its own shared library under ``kernels/_build/`` (listed
+in ``.gitignore``), then loaded with ``ctypes``.  No PyTorch header is
+included, so a build takes seconds rather than minutes.  Libraries are
+named by a hash of their source and flags, so an edited source builds
+anew.  :func:`load` builds one source if needed; each source has its
+own lock, so loads of different sources from several threads run their
+``nvcc`` at once.
+
+Nothing here runs at import: the CPU tests import every module, and
+this machine may have no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+__all__ = ["load", "SOURCES"]
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_HERE, "csrc")
+_OUT = os.path.join(_HERE, "_build")
+
+SOURCES = ("flash_fwd", "paged_attention")
+
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC")
+
+_libs = {}
+_locks = {name: threading.Lock() for name in SOURCES}
+
+
+def _nvcc():
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("mxnet_tpu_torch: nvcc not found (set "
+                           "CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _compile(name):
+    """Path of the library for ``csrc/<name>.cu``, built unless it
+    exists."""
+    src = os.path.join(_CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        h = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
+    so = os.path.join(_OUT, "%s-%s.so" % (name, h.hexdigest()[:16]))
+    if os.path.exists(so):
+        return so
+    os.makedirs(_OUT, exist_ok=True)
+    tmp = "%s.%d.tmp" % (so, os.getpid())
+    out = subprocess.run([_nvcc(), *FLAGS, "-o", tmp, src],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if out.returncode != 0:
+        raise RuntimeError("nvcc failed for %s.cu:\n%s"
+                           % (name, out.stdout.decode(errors="replace")))
+    os.replace(tmp, so)
+    return so
+
+
+def load(name):
+    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _locks[name]:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(_compile(name))
+        return _libs[name]
+
+
+def check(err, what):
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError("%s: CUDA launch failed with error %d"
+                           % (what, err))
