@@ -3,10 +3,15 @@
 NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds every kernel of the serving path from ``kernels/csrc``;
+2. builds every kernel from ``kernels/csrc`` (one ``nvcc`` per source,
+   all at once);
 3. holds each kernel against its plain PyTorch version on the card at
-   the path's shapes, each check with its stated tolerance;
-4. drives the main path with every launch counter set to 0: the
+   the paths' shapes, each check with its stated tolerance: paged
+   attention and the flash forward at the serving shapes, and the flash
+   forward (with dropout), dQ and dK/dV at BERT-base's (B=16, T=512,
+   H=12, dh=64) in f32 and bf16, causal or not, with a padding mask or
+   without, at dropout 0 and 0.1;
+4. drives the serving path with every launch counter set to 0: the
    ``full`` serving preset (GPT vocab 32000, d_model 768, 12 heads, 12
    layers, d_ff 3072, max_len 512, bf16, weight-only int8, random
    weights from a seed) serving the preset's 64-request mix through
@@ -16,18 +21,29 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    launched;
 5. holds the paged kernel against its plain version on inputs captured
    from the live engine (its real pools, block table and positions);
-6. times each kernel, its plain version and a library call at the
-   path's shapes (CUDA events, L2 flushed between launches) beside the
-   least time the card could take for the same work, and profiles 20
-   engine steps (torch.profiler) for the device's busy and idle time;
-7. checks a small float32 engine on the card against ``generate`` on
+6. drives the training paths, each with the counters set to 0 just
+   before it and read just after: 20 steps of BERT-base masked-LM
+   pretraining (bs 16 x 512, dropout 0.1, bf16, AdamW, no remat) on
+   one synthetic batch, asserting finite, falling loss and 12 launches
+   of each flash kernel per step, then one step with remat against one
+   without from the same state; and 12 steps of causal GPT training at
+   the ``full`` width (bs 8 x 512); a small f32 BERT trains 3 steps on
+   the card and on the CPU from the same weights, losses compared;
+7. times each kernel, its plain version and a library call at the
+   paths' shapes (CUDA events, L2 flushed between launches) beside the
+   least time the card could take for the same work, times the BERT
+   step (ms, tokens/s) and profiles 20 engine steps and 20 BERT steps
+   (torch.profiler) for the device's busy and idle time;
+8. checks a small float32 engine on the card against ``generate`` on
    the CPU, and prints the full-width float32 engine-vs-``generate``
    token agreement as information;
-8. prints the ``kernels`` JSON line and, last, the device line.
+9. prints the ``kernels`` JSON line and, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA device, when a
 kernel does not build or launch, or when any check fails.
 """
+import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -66,6 +82,50 @@ LSE_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 PAGED_ROUND = 8e-3
 PAGED_TOL_TEXT = "1e-5 + 8e-3 * (plain version on |v|)"
 
+# BERT-base masked-LM pretraining, the training workload of
+# docs/perf.md:157-166 (bs 16 x 512, dropout 0.1, bf16 compute, f32
+# master params, AdamW lr 1e-4 wd 0.01, no remat)
+BERT = dict(vocab_size=30522, max_len=512, d_model=768, n_heads=12,
+            n_layers=12, d_ff=3072, dropout=0.1, dtype="bfloat16",
+            param_dtype="float32", remat=False, use_flash=True)
+BERT_B, BERT_T, BERT_STEPS, BERT_WARM, BERT_PROFILE = 16, 512, 20, 5, 20
+GPT_B, GPT_STEPS, GPT_WARM = 8, 12, 2
+# training kernels against their plain versions: f32 differs by
+# summation order only, 1e-4 on dQ/dK/dV at unit-scale inputs (the JAX
+# tests' bar, tests/test_flash_backward.py:47; the forward keeps 1e-5).
+# The bf16 forward is held against the plain version run in f32 on the
+# same bf16 inputs, so the logits are not rounded on either side; the
+# kernel rounds each kept, scaled p~ to bf16 before P~V (2^-8 relative
+# at most, so at most 2^-8 x sum_j p_j |v_j| per element: the plain
+# version on |v|) and rounds O to bf16 (2^-8 of |O|).  The limit is
+# 2^-8 x (that + |O|) with 2% and 1e-5 to spare for f32 summation
+# order; its lse, f32 on both sides, keeps the f32 1e-4.
+FWD_ROUND = 2.0 ** -8 * 1.02
+FWD_TOL_TEXT = "1e-5 + 1.02*2^-8*(|O| + f32 plain version on |v|)"
+# bf16 backward: kernel and plain version round P~ (before dV) and dS
+# (before dQ and dK) to bf16 at the same places and sum in f32, so they
+# differ by one output ulp (at most 2^-7 of |plain|) plus the terms whose rounding
+# f32 summation noise flips to the next bf16 value, each at most 2^-7 x
+# the largest term |P~ or dS| x |dO, Q or K| of its sum; the limit
+# allows 4 such flips per element.  Besides, dS = P*(dP - delta)*scale
+# cancels where P sits on one key (dP ~ delta), and there its f32 noise
+# (a few ulps of |dP| + |delta|) is all of dS and can flip its sign: the
+# limit adds 2^-20 x the sum of P~*|dO| (dV) or P*(|dP| + |delta|)*scale
+# (dQ, dK) times the largest |dO, K or Q|, plus 1e-6.
+BWD_TOL_F32 = 1e-4
+BF16_ULP = 2.0 ** -7
+BWD_FLIPS = 4
+F32_NOISE = 2.0 ** -20
+BWD_TOL_TEXT = ("f32 1e-4*(1+|plain|); bf16 2^-7*|plain| + 4*2^-7*max|P~ "
+                "or dS|*max|dO, Q or K| + 2^-20*sum(P*(|dP|+|delta|)*scale "
+                "or P~)*max|K, Q or dO| + 1e-6")
+# the small f32 model trained on the card and on the CPU: losses agree
+# within f32 summation-order noise carried through 3 AdamW steps
+SMALL_LOSS_TOL = 1e-4
+# remat on vs off: the recompute runs the same kernels on the same
+# inputs, so only library algorithm choice or atomics can differ
+REMAT_LOSS_TOL, REMAT_GRAD_TOL = 1e-5, 1e-3
+
 
 def log(*a):
     print(*a, flush=True)
@@ -102,7 +162,8 @@ def workload(seed=0):
 def check(name, got, ref, failures, tol=None, limit=None):
     """Hold ``got`` against ``ref``: |got - ref| <= ``limit`` per
     element, by default ``tol * (1 + |ref|)``.  Logs the largest error,
-    the limit and the typical output size, mean |ref|."""
+    the limit, the largest error / limit and the typical output size,
+    mean |ref|."""
     got, ref = got.float(), ref.float()
     err = (got - ref).abs()
     if limit is None:
@@ -111,9 +172,9 @@ def check(name, got, ref, failures, tol=None, limit=None):
     else:
         what = "limit %.2e..%.2e" % (float(limit.min()), float(limit.max()))
     ok = bool((err <= limit).all()) and bool(torch.isfinite(got).all())
-    log("check %-44s max_abs_err %.3e  %s  mean|ref| %.3e  %s"
-        % (name, float(err.max()), what, float(ref.abs().mean()),
-           "ok" if ok else "FAIL"))
+    log("check %-44s max_abs_err %.3e  %s  err/limit %.3f  mean|ref| %.3e"
+        "  %s" % (name, float(err.max()), what, float((err / limit).max()),
+                  float(ref.abs().mean()), "ok" if ok else "FAIL"))
     if not ok:
         failures.append(name)
     return float(err.max())
@@ -226,11 +287,32 @@ def flash_inputs(dev, T, dtype, use_mask, seed):
     return q, k, v, mask
 
 
-def flash_work(q, causal):
+def attn_pairs(q, mask, causal):
+    """(query, key) pairs the attention needs on these inputs: keys the
+    mask keeps, at or below the diagonal when causal, every head."""
+    B, T, H, _ = q.shape
+    keep = (torch.ones(B, T, device=q.device) if mask is None
+            else mask.float())
+    per_key = (T - torch.arange(T, device=q.device).float() if causal
+               else torch.full((T,), float(T), device=q.device))
+    return H * int((keep * per_key).sum())
+
+
+def flash_work(q, mask, causal, kind="fwd"):
+    """(bytes, flops) of a flash kernel: each input read once, each
+    output written once, K and V only at the keys the mask keeps (a
+    masked key reaches no output); q, dO, the per-query f32 rows (lse,
+    delta), the mask and every output in full.  4*dh FLOPs per needed
+    pair for the forward, 6*dh for dQ (S, dP, dS K), 8*dh for dK/dV
+    (S, dP, dV, dK)."""
     B, T, H, dh = q.shape
-    pairs = T * (T + 1) // 2 if causal else T * T
-    nbytes = 4 * q.numel() * q.element_size() + B * T + B * H * T * 4
-    return nbytes, 4 * B * H * dh * pairs
+    big = q.numel() * q.element_size()
+    kept = 1.0 if mask is None else float(mask.float().mean())
+    stats = B * H * T * 4                      # one (B, H, T) f32 row
+    n_full, n_stats, per_pair = {"fwd": (2, 1, 4), "dq": (3, 2, 6),
+                                 "dkv": (4, 2, 8)}[kind]
+    nbytes = (n_full + 2 * kept) * big + n_stats * stats + B * T
+    return nbytes, per_pair * dh * attn_pairs(q, mask, causal)
 
 
 def bound(nbytes, flops, dtype):
@@ -239,25 +321,19 @@ def bound(nbytes, flops, dtype):
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
-def profile_steps(ServingEngine, params, cfg, reqs, dev, warm=60, n=20):
-    """Information: one torch.profiler window of ``n`` engine steps
-    (bf16/w8, float KV) after ``warm`` steps — host time per step,
-    device busy time per step, the device's idle share, and the kernels
-    that take the most device time."""
+def profile_window(step, n, what):
+    """Information: one torch.profiler window of ``n`` calls of
+    ``step`` — host time per step, device busy time per step, the
+    device's idle share, and the kernels that take the most device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    eng = ServingEngine(params, cfg, num_slots=SLOTS, page_size=PAGE,
-                        prefill_chunk=CHUNK, device=dev)
-    for p, n_new in reqs:
-        eng.submit(p, n_new)
-    for _ in range(warm):
-        eng.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            eng.step()
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     by_name = {}
@@ -270,15 +346,304 @@ def profile_steps(ServingEngine, params, cfg, reqs, dev, warm=60, n=20):
         log("info: profile: the profiler recorded no device time "
             "(not measured)")
         return
-    log("info: profile of %d engine steps: %.3f ms/step wall, %.3f "
+    log("info: profile of %d %s: %.3f ms/step wall, %.3f "
         "ms/step device busy, device idle share %.3f, %d kernels/step"
-        % (n, wall_ms, busy_ms, 1.0 - busy_ms / wall_ms,
+        % (n, what, wall_ms, busy_ms, 1.0 - busy_ms / wall_ms,
            sum(c for _, c in by_name.values()) // n))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (t, c) in top:
         log("info:   %7.3f ms/step %5.1f%%  %4d/step  %s"
             % (t / 1e3 / n, 100.0 * t / 1e3 / n / busy_ms, c // n,
                name[:90]))
+
+
+def profile_steps(ServingEngine, params, cfg, reqs, dev, warm=60, n=20):
+    """Profile ``n`` engine steps (bf16/w8, float KV) after ``warm``."""
+    eng = ServingEngine(params, cfg, num_slots=SLOTS, page_size=PAGE,
+                        prefill_chunk=CHUNK, device=dev)
+    for p, n_new in reqs:
+        eng.submit(p, n_new)
+    for _ in range(warm):
+        eng.step()
+    profile_window(eng.step, n, "engine steps")
+
+
+# --------------------------------------------------------------- training --
+def train_inputs(dev, dtype, use_mask, seed, B=BERT_B):
+    """q, k, v, dO at BERT-base's head shape and, with ``use_mask``, a
+    padding mask whose rows keep a prefix of T/2..T keys."""
+    g = torch.Generator().manual_seed(seed)
+    T, H, dh = BERT_T, HEADS, D // HEADS
+    q, k, v, do = (torch.randn(B, T, H, dh, generator=g).to(dev, dtype)
+                   for _ in range(4))
+    mask = None
+    if use_mask:
+        lens = torch.randint(T // 2, T + 1, (B,), generator=g)
+        lens[0] = T
+        mask = (torch.arange(T)[None, :] < lens[:, None]).to(dev)
+    return q, k, v, do, mask
+
+
+def fwd_limit(FA, q, k, v, kw):
+    """The bf16 forward's yardstick (see FWD_ROUND): (O, lse) of the
+    plain version run in f32 on the same bf16 inputs, and the
+    per-element limit on |kernel O - that O|."""
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    o, lse = FA.flash_fwd_reference(qf, kf, vf, **kw)
+    on_abs_v = FA.flash_fwd_reference(qf, kf, vf.abs(), **kw)[0]
+    return o, lse, FWD_ROUND * (on_abs_v + o.abs()) + 1e-5
+
+
+def bwd_limits(FA, q, k, v, do, lse, delta, refs, kw):
+    """Per-element bf16 limits on |kernel - plain| for dQ, dK and dV
+    (see BF16_ULP); ``refs`` are the plain versions' (dQ, dK, dV)."""
+    p, p_drop, dp, ds = FA._bwd_dense(q, k, v, do, lse, delta, kw["mask"],
+                                      kw["causal"], kw["dropout"],
+                                      kw["seed"])
+    scale = q.shape[-1] ** -0.5
+    ads, apd = ds.abs(), p_drop.abs()
+    mag = p * (dp.abs() + delta.abs()[..., None]) * scale
+    ak, aq, ado = (x.float().abs().amax(1)[:, None] for x in (k, q, do))
+
+    def per_row(x):                          # (B, H, T) -> (B, T, H, 1)
+        return x.transpose(1, 2)[..., None]
+
+    terms = ((ads.amax(-1), mag.sum(-1), ak),      # dQ: sums over keys
+             (ads.amax(-2), mag.sum(-2), aq),      # dK: sums over queries
+             (apd.amax(-2), apd.sum(-2), ado))     # dV: sums over queries
+    return [(BWD_FLIPS * BF16_ULP * per_row(big)
+             + F32_NOISE * per_row(tot)) * a + 1e-6
+            + BF16_ULP * r.float().abs()
+            for (big, tot, a), r in zip(terms, refs)]
+
+
+def check_training_kernels(FA, dev, failures):
+    """The forward (with dropout), dQ and dK/dV kernels against their
+    plain versions at BERT-base's shapes, over dtype x causal x mask x
+    dropout.  Returns the largest errors of the training path's own
+    case (bf16, not causal, padding mask, dropout 0.1) by kernel."""
+    errs = {}
+    cases = itertools.product((torch.float32, torch.bfloat16), (False, True),
+                              (True, False), (0.0, 0.1))
+    for i, (dtype, causal, use_mask, dropout) in enumerate(cases):
+        dn = str(dtype).split(".")[-1]
+        q, k, v, do, mask = train_inputs(dev, dtype, use_mask, seed=41 + i)
+        seed = torch.tensor([1001 + i], dtype=torch.int32, device=dev)
+        kw = dict(mask=mask, causal=causal, dropout=dropout, seed=seed)
+        o, lse = FA.flash_fwd(q, k, v, **kw)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        refs = (FA.flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw),
+                *FA.flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw))
+        tag = ("train %s B=16 T=512 causal=%d mask=%d drop=%.1f"
+               % (dn, causal, use_mask, dropout))
+        if dtype == torch.float32:
+            o_r, lse_r = FA.flash_fwd_reference(q, k, v, **kw)
+            e = {"flash_fwd": check(tag + " O", o, o_r, failures,
+                                    tol=TOL[("flash", dn)])}
+            lims = [None] * 3
+        else:
+            o_r, lse_r, o_lim = fwd_limit(FA, q, k, v, kw)
+            e = {"flash_fwd": check(tag + " O (vs f32 plain)", o, o_r,
+                                    failures, limit=o_lim)}
+            lims = bwd_limits(FA, q, k, v, do, lse, delta, refs, kw)
+        check(tag + " lse", lse, lse_r, failures, tol=LSE_TOL["float32"])
+        got = [check(tag + " " + name, x, r, failures,
+                     tol=BWD_TOL_F32 if lim is None else None, limit=lim)
+               for name, x, r, lim in zip(("dQ", "dK", "dV"), (dq, dk, dv),
+                                          refs, lims)]
+        e["flash_bwd_dq"] = got[0]
+        e["flash_bwd_dkv"] = max(got[1:])
+        if dn == "bfloat16" and not causal and use_mask and dropout > 0:
+            errs = e
+    return errs
+
+
+def counters(FA):
+    return {"flash_fwd": FA.flash_fwd.launches,
+            "flash_bwd_dq": FA.flash_bwd_dq.launches,
+            "flash_bwd_dkv": FA.flash_bwd_dkv.launches}
+
+
+def zero_counters(FA, PA):
+    FA.flash_fwd.launches = 0
+    FA.flash_bwd_dq.launches = 0
+    FA.flash_bwd_dkv.launches = 0
+    PA.paged_attention.launches = 0
+
+
+def bert_batch(seed=0):
+    """One synthetic MLM batch at bs 16 x 512: tokens from a seeded
+    numpy draw, 15% of the kept positions labelled (their token
+    replaced by [MASK] = 103), a padded tail on every fourth row, and
+    type ids in two segments."""
+    rng = np.random.RandomState(seed)
+    B, T = BERT_B, BERT_T
+    tokens = rng.randint(1000, BERT["vocab_size"], (B, T))
+    lens = np.full(B, T)
+    lens[::4] = rng.randint(T // 2, T, len(lens[::4]))
+    mask = np.arange(T)[None, :] < lens[:, None]
+    pick = (rng.rand(B, T) < 0.15) & mask
+    labels = np.where(pick, tokens, -100)
+    tokens = np.where(mask, np.where(pick, 103, tokens), 0)
+    split = rng.randint(T // 4, 3 * T // 4, B)
+    type_ids = (np.arange(T)[None, :] >= split[:, None]) & mask
+    return {"tokens": tokens, "labels": labels, "mask": mask,
+            "type_ids": type_ids.astype(np.int64)}
+
+
+def train_path(name, init_state, step, batch, dev, steps, warm, FA, PA,
+               per_step, seed):
+    """Drive ``steps`` training steps with every counter set to 0 just
+    before and read just after; assert finite, falling loss and
+    ``per_step`` launches of each flash kernel per step.  Returns
+    (state, losses, launches, seconds per step after ``warm``)."""
+    state = init_state(seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    zero_counters(FA, PA)
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, loss = step(state, batch, gen)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    per = (time.perf_counter() - t0) / (steps - warm)
+    launches = counters(FA)
+    losses = [float(x) for x in losses]
+    log("%s: %d steps, losses %s" % (name, steps, " ".join(
+        "%.4f" % x for x in losses)))
+    log("%s launches: %s (%d layers x %d steps = %d each expected)"
+        % (name, json.dumps(launches), per_step, steps, per_step * steps))
+    if not all(np.isfinite(losses)):
+        raise Failed("%s: loss not finite" % name)
+    if not losses[-1] < losses[0]:
+        raise Failed("%s: loss did not fall (%.4f -> %.4f)"
+                     % (name, losses[0], losses[-1]))
+    for kname, n in launches.items():
+        if n != per_step * steps:
+            raise Failed("%s: %s launched %d times, expected %d"
+                         % (name, kname, n, per_step * steps))
+    return state, losses, launches, per
+
+
+def check_remat(T_, cfg, params, batch, dev, failures):
+    """One step with remat and one without from the same params and the
+    same generator seed: the same loss and gradients."""
+    from mxnet_tpu_torch.convert import tree_leaves
+    out = []
+    for remat in (False, True):
+        init_state, step = T_.make_train_step(
+            dataclasses.replace(cfg, remat=remat), device=dev)
+        state = init_state(params=params)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        state, loss = step(state, batch, gen)
+        out.append((float(loss), [p.grad for p in tree_leaves(state[0])]))
+        del state
+    (l0, g0), (l1, g1) = out
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(g1, g0))
+    ok = abs(l1 - l0) <= REMAT_LOSS_TOL * abs(l0) and worst <= REMAT_GRAD_TOL
+    log("check remat vs no remat (BERT-base, one step): loss %.6f vs %.6f, "
+        "largest grad diff / leaf max %.3e (tol %.0e)  %s"
+        % (l1, l0, worst, REMAT_GRAD_TOL, "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("remat vs no remat")
+
+
+def check_small_f32(T_, dev, failures):
+    """A small f32 BERT (dh 64, dropout 0) trains 3 steps on the card
+    and on the CPU from the same weights; the losses must agree."""
+    cfg = T_.bert_tiny(d_model=128, n_heads=2, d_ff=256, max_len=128,
+                       dtype="float32", dropout=0.0, remat=False)
+    params = T_.init_params(5, cfg, device="cpu")
+    rng = np.random.RandomState(5)
+    tokens = rng.randint(1, cfg.vocab_size, (4, 128))
+    mask = np.ones((4, 128), bool)
+    mask[1, 90:] = False
+    labels = np.where((rng.rand(4, 128) < 0.15) & mask, tokens, -100)
+    batch = {"tokens": tokens, "labels": labels, "mask": mask}
+    runs = []
+    for where in (dev, "cpu"):
+        init_state, step = T_.make_train_step(cfg, device=where)
+        state = init_state(params=params)
+        runs.append([float(step(state, batch, None)[1]) for _ in range(3)])
+    ok = all(abs(a - b) <= SMALL_LOSS_TOL * (1 + abs(b))
+             for a, b in zip(*runs))
+    log("check small f32 BERT 3 steps, card vs CPU: %s vs %s (tol %.0e)  %s"
+        % (" ".join("%.6f" % x for x in runs[0]),
+           " ".join("%.6f" % x for x in runs[1]), SMALL_LOSS_TOL,
+           "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("small f32 BERT card vs CPU")
+
+
+def sdpa_ms(q, k, v, do, mask, causal, dropout, flush):
+    """Yardstick only (never called by the port): torch SDPA forward
+    time, and its backward through autograd as fwd+bwd minus fwd."""
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    gt = do.transpose(1, 2)
+    am = None if mask is None else mask[:, None, None, :]
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am,
+                                              dropout_p=dropout,
+                                              is_causal=causal)
+
+    def fwd_bwd():
+        qt.grad = kt.grad = vt.grad = None
+        fwd().backward(gt)
+
+    f = cuda_ms(fwd, flush=flush)
+    return f, cuda_ms(fwd_bwd, flush=flush) - f
+
+
+def time_training_kernels(FA, dev, flush):
+    """Times of the three flash kernels at BERT-base's shapes (bf16,
+    dropout 0.1): the path's own case (padding mask, not causal) as
+    rows, the causal case as information.  Returns {name: row}."""
+    rows = {}
+    for causal, use_mask in ((False, True), (True, False)):
+        q, k, v, do, mask = train_inputs(dev, torch.bfloat16, use_mask, 60)
+        seed = torch.tensor([77], dtype=torch.int32, device=dev)
+        kw = dict(mask=mask, causal=causal, dropout=0.1, seed=seed)
+        o, lse = FA.flash_fwd(q, k, v, **kw)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        lib_f, lib_b = sdpa_ms(q, k, v, do, mask, causal, 0.1, flush)
+        calls = {
+            "flash_fwd": (lambda: FA.flash_fwd(q, k, v, **kw),
+                          lambda: FA.flash_fwd_reference(q, k, v, **kw),
+                          "fwd", lib_f),
+            "flash_bwd_dq": (
+                lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                lambda: FA.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                  **kw), "dq", lib_b),
+            "flash_bwd_dkv": (
+                lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+                lambda: FA.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                   **kw), "dkv", lib_b)}
+        for name, (kern, plain, kind, lib) in calls.items():
+            b_ms, b_by = bound(*flash_work(q, mask, causal, kind), q.dtype)
+            row = {"ms": cuda_ms(kern, flush=flush),
+                   "plain_ms": cuda_ms(plain, iters=5, flush=flush),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                   "shape": "bf16 B=16 T=512 H=12 dh=64 dropout 0.1 %s"
+                            % ("causal" if causal else "padding mask")}
+            if causal:
+                log("info: %s causal: %s" % (name, json.dumps(row)))
+            else:
+                rows[name] = row
+    log("info: library_ms of the backward kernels is torch SDPA's "
+        "backward (fwd+bwd minus fwd), which computes dQ, dK and dV "
+        "together")
+    return rows
 
 
 # ------------------------------------------------------------------- main --
@@ -326,6 +691,7 @@ def main():
     from mxnet_tpu_torch.kernels import flash_attention as FA
     from mxnet_tpu_torch.kernels import paged_attention as PA
     from mxnet_tpu_torch.models import gpt as G
+    from mxnet_tpu_torch.models import transformer as T_
     from mxnet_tpu_torch.serving import ServingEngine
     from mxnet_tpu_torch.serving import engine as E
 
@@ -367,8 +733,9 @@ def main():
         check(tag + " lse", lse, lse_r, failures, tol=LSE_TOL[dn])
         if T == 192 and dtype == torch.bfloat16:
             errs["flash"] = e
+    errs_train = check_training_kernels(FA, dev, failures)
 
-    # ---- 4. the main path, counters from 0
+    # ---- 4. the serving path, counters from 0
     cfg = G.gpt_config(vocab_size=VOCAB, max_len=MAX_LEN, d_model=D,
                        n_heads=HEADS, n_layers=LAYERS, d_ff=FF,
                        dtype="bfloat16", dropout=0.0)
@@ -397,8 +764,7 @@ def main():
     if len(longest) < 4:
         raise Failed("the mix has fewer than 4 prompts of 192 tokens")
     prompts = np.stack([reqs[i][0] for i in longest])
-    FA.flash_fwd.launches = 0
-    PA.paged_attention.launches = 0
+    zero_counters(FA, PA)
     try:
         outs16, run16 = serve(G, ServingEngine, params, cfg, reqs, False,
                               dev, spy)
@@ -412,7 +778,7 @@ def main():
         E.paged_attention = orig
     launches = {"paged_attention": PA.paged_attention.launches,
                 "flash_fwd": FA.flash_fwd.launches}
-    log("main path launches:", json.dumps(launches))
+    log("serving path launches:", json.dumps(launches))
     steps = run16["steps"] + run8["steps"]
     log("paged_attention launches per engine step: %.2f (%d layers)"
         % (launches["paged_attention"] / steps, LAYERS))
@@ -422,7 +788,8 @@ def main():
         raise Failed("generate returned %s" % (tuple(gen.shape),))
     for name, n in launches.items():
         if n <= 0:
-            raise Failed("%s was never launched on the main path" % name)
+            raise Failed("%s was never launched on the serving path"
+                         % name)
     gen_np = gen.cpu().numpy()
     agree = np.mean([np.mean(outs16[i][192:256] ==
                              gen_np[j, 192:192 + outs16[i].size - 192])
@@ -450,7 +817,42 @@ def main():
         if key == "bfloat16":
             errs["paged"] = e
 
-    # ---- 6. timings at the path's shapes
+    # ---- 6. the training paths, each with its own counters from 0
+    bert_cfg = T_.bert_base(**BERT)
+    init_state, step = T_.make_train_step(bert_cfg, learning_rate=1e-4,
+                                          weight_decay=0.01, device=dev)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in bert_batch().items()}
+    log("BERT batch: %d x %d tokens, %d labelled, %d padded"
+        % (BERT_B, BERT_T, int((batch["labels"] >= 0).sum()),
+           int((~batch["mask"]).sum())))
+    state, bert_losses, bert_launches, bert_s = train_path(
+        "BERT-base train", init_state, step, batch, dev, BERT_STEPS,
+        BERT_WARM, FA, PA, LAYERS, seed=0)
+    log("BERT-base train step: %.3f ms, %.1f tokens/s (host clock over "
+        "steps %d-%d, synchronised), peak memory %.2f GiB"
+        % (bert_s * 1e3, BERT_B * BERT_T / bert_s, BERT_WARM + 1,
+           BERT_STEPS, torch.cuda.max_memory_allocated() / 2**30))
+    check_remat(T_, bert_cfg, state[0], batch, dev, failures)
+
+    gpt_train_cfg = G.gpt_config(vocab_size=VOCAB, max_len=MAX_LEN,
+                                 d_model=D, n_heads=HEADS, n_layers=LAYERS,
+                                 d_ff=FF, dtype="bfloat16", dropout=0.1,
+                                 remat=False)
+    g_init, g_step = G.make_train_step(gpt_train_cfg, device=dev)
+    rng = np.random.RandomState(1)
+    gmask = np.ones((GPT_B, MAX_LEN), bool)
+    gmask[:2, 400:] = False
+    gbatch = {"tokens": rng.randint(1, VOCAB, (GPT_B, MAX_LEN)) * gmask,
+              "mask": gmask}
+    _, _, gpt_launches, gpt_s = train_path(
+        "GPT causal train", g_init, g_step, gbatch, dev, GPT_STEPS,
+        GPT_WARM, FA, PA, LAYERS, seed=1)
+    log("GPT causal train step (bs %d x %d): %.3f ms (host clock over "
+        "steps %d-%d, synchronised)" % (GPT_B, MAX_LEN, gpt_s * 1e3,
+                                        GPT_WARM + 1, GPT_STEPS))
+    check_small_f32(T_, dev, failures)
+
+    # ---- 7. timings at the paths' shapes
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     kernels = []
     q, pool, s, bt, pos = captured["bfloat16"]
@@ -480,7 +882,7 @@ def main():
     log("info: paged int8 captured step: kernel %.4f ms, plain %.4f ms, "
         "bound %.4f ms (%s)" % (ms8, plain8, b8[0], b8[1]))
 
-    for T in (192, 512):
+    for T in (192, 512):                   # the generate prefill's shapes
         q, k, v, _ = flash_inputs(dev, T, torch.bfloat16, False, seed=30)
         ms = cuda_ms(lambda: FA.flash_fwd(q, k, v, causal=True),
                      flush=flush)
@@ -490,22 +892,36 @@ def main():
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True), flush=flush)
-        b_ms, b_by = bound(*flash_work(q, True), q.dtype)
-        row = {"name": "flash_fwd", "route": "cuda",
-               "source": "mxnet_tpu_torch/kernels/csrc/flash_fwd.cu",
-               "replaces": "mxnet_tpu/kernels/flash_attention.py:169",
-               "launches": launches["flash_fwd"],
-               "max_abs_err": errs["flash"],
-               "tolerance": TOL[("flash", "bfloat16")],
-               "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-               "bound_by": b_by, "library_ms": lib,
-               "shape": "bf16 causal B=4 T=%d H=12 dh=64" % T}
-        if T == 192:                       # the generate prefill's shape
-            kernels.append(row)
-        else:
-            log("info: flash T=512:", json.dumps(row))
+        b_ms, b_by = bound(*flash_work(q, None, True), q.dtype)
+        log("info: flash_fwd serving prefill:", json.dumps({
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib,
+            "max_abs_err": errs["flash"] if T == 192 else None,
+            "shape": "bf16 causal B=4 T=%d H=12 dh=64" % T}))
+
+    by_path = {"serving": launches,
+               "bert": bert_launches, "gpt": gpt_launches}
+    sources = {"flash_fwd": ("flash_fwd.cu", 169),
+               "flash_bwd_dq": ("flash_bwd.cu", 333),
+               "flash_bwd_dkv": ("flash_bwd.cu", 354)}
+    for name, row in time_training_kernels(FA, dev, flush).items():
+        src, line = sources[name]
+        counts = {p: c[name] for p, c in by_path.items() if name in c}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mxnet_tpu_torch/kernels/csrc/" + src,
+            "replaces": "mxnet_tpu/kernels/flash_attention.py:%d" % line,
+            "launches": sum(counts.values()), "launches_by_path": counts,
+            "max_abs_err": errs_train[name],
+            "tolerance": (FWD_TOL_TEXT if name == "flash_fwd"
+                          else BWD_TOL_TEXT),
+            **row})
 
     profile_steps(ServingEngine, params, cfg, reqs, dev)
+    profile_window(lambda: step(state, batch, torch.Generator(
+        device=dev).manual_seed(3)), BERT_PROFILE,
+        "BERT-base train steps")
+    del state
 
     # ---- 7. small float32 engine on the card vs generate on the CPU
     tiny = G.gpt_tiny(dtype="float32", vocab_size=128, max_len=64,

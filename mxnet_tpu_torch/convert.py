@@ -3,8 +3,11 @@
 The port never re-initialises the reference's weights: JAX's random
 streams cannot be reproduced in torch, so parity tests (and anyone
 moving a checkpoint) copy the JAX tree to host numpy arrays and hand
-it to :func:`from_jax`.  Nothing here imports JAX:
-any leaf with ``__array__`` is read through ``numpy.asarray``.
+it to :func:`from_jax`; :func:`to_numpy` maps a torch tree back to host
+arrays (to compare trained parameters, for example).  :func:`tree_map`
+and :func:`tree_leaves` walk such nested dict/list trees.  Nothing here
+imports JAX: any leaf with ``__array__`` is read through
+``numpy.asarray``.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import torch
 
 from . import resolve_device
 
-__all__ = ["from_jax"]
+__all__ = ["from_jax", "to_numpy", "tree_map", "tree_leaves"]
 
 
 def _leaf(x, device):
@@ -28,18 +31,44 @@ def _leaf(x, device):
     return t.to(device)
 
 
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of a nested dict/list/tuple tree,
+    keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree):
+    """The leaves of a nested dict/list/tuple tree, in the order
+    :func:`tree_map` visits them."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
 def from_jax(tree, device=None):
     """Map a nested dict/list/tuple tree of arrays leaf for leaf onto
     torch tensors on ``device`` — including the ``{"q": int8, "s": f32}``
     leaves of ``quantize_decode_params`` — keeping the structure, the
     dtypes and the values bit for bit."""
     dev = resolve_device(device)
+    return tree_map(lambda t: _leaf(t, dev), tree)
 
-    def go(t):
-        if isinstance(t, dict):
-            return {k: go(v) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return type(t)(go(v) for v in t)
-        return _leaf(t, dev)
 
-    return go(tree)
+def to_numpy(tree):
+    """The inverse of :func:`from_jax` for a tree of tensors: each leaf
+    detached, copied to the host and returned as a numpy array of its
+    dtype.  numpy has no bfloat16, so a bfloat16 leaf comes back as
+    float32, which holds its value exactly."""
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+
+    return tree_map(leaf, tree)

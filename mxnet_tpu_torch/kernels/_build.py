@@ -7,7 +7,9 @@ included, so a build takes seconds rather than minutes.  Libraries are
 named by a hash of their source and flags, so an edited source builds
 anew.  :func:`load` builds one source if needed; each source has its
 own lock, so loads of different sources from several threads run their
-``nvcc`` at once.
+``nvcc`` at once.  The hash covers every header of ``csrc/`` that a
+source includes (``#include "x.cuh"``, followed transitively), so an
+edited header builds anew too.
 
 Nothing here runs at import: the CPU tests import every module, and
 this machine may have no ``nvcc``.
@@ -17,20 +19,23 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 
-__all__ = ["load", "SOURCES"]
+__all__ = ["load", "source_hash", "SOURCES"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _OUT = os.path.join(_HERE, "_build")
 
-SOURCES = ("flash_fwd", "paged_attention")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_attention")
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _libs = {}
 _locks = {name: threading.Lock() for name in SOURCES}
@@ -47,13 +52,32 @@ def _nvcc():
     return found
 
 
+def source_hash(src):
+    """Hex digest of the source file ``src``, of every header it
+    includes with quotes that lies beside the including file (followed
+    transitively, each read once) and of the nvcc flags."""
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    seen, todo = set(), [os.path.abspath(src)]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        h.update(os.path.basename(path).encode() + b"\0" + text)
+        for inc in _INCLUDE.findall(text):
+            dep = os.path.join(os.path.dirname(path), inc.decode())
+            if os.path.exists(dep):
+                todo.append(dep)
+    return h.hexdigest()
+
+
 def _compile(name):
     """Path of the library for ``csrc/<name>.cu``, built unless it
     exists."""
     src = os.path.join(_CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
-    so = os.path.join(_OUT, "%s-%s.so" % (name, h.hexdigest()[:16]))
+    so = os.path.join(_OUT, "%s-%s.so" % (name, source_hash(src)[:16]))
     if os.path.exists(so):
         return so
     os.makedirs(_OUT, exist_ok=True)

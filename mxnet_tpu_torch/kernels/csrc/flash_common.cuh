@@ -1,0 +1,69 @@
+// Shared by flash_fwd.cu and flash_bwd.cu: the tile geometry, the
+// f32 <-> storage-type conversions and the positional-hash dropout.
+//
+// The hash is mxnet_tpu/kernels/flash_attention.py _dropout_keep (:47)
+// in native uint32 arithmetic: a murmur-style mix of (b*H + h, absolute
+// query position, absolute key position, seed).  The forward and both
+// backward kernels regenerate the same keep bit for a (q, k) pair from
+// positions alone, so no mask is stored and the three agree bit for bit
+// with the reference and with the plain torch version.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mxt_flash {
+
+constexpr int BQ = 32;        // query rows per tile
+constexpr int BK = 32;        // keys per tile
+constexpr int TPR = 4;        // threads per row (query row or key row)
+constexpr int NT = BQ * TPR;  // threads per block (BQ == BK)
+
+template <typename T> __device__ __forceinline__ float to_f(T x);
+template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T and back: where the reference casts with .astype(dtype)
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// The sum of a value over the TPR (= 4) neighbouring lanes of one row.
+__device__ __forceinline__ float row_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x;
+}
+
+// True when the pair (q_pos, k_pos) of head row bh is kept; thr is
+// min(int(rate * 2^32), 2^32 - 1), computed by the wrapper as the
+// reference computes it.
+__device__ __forceinline__ bool dropout_keep(uint32_t bh, uint32_t q_pos,
+                                             uint32_t k_pos, uint32_t seed,
+                                             uint32_t thr) {
+  uint32_t x = (q_pos * 2654435761u) ^ (k_pos * 97780813u) ^
+               (bh * 2246822519u) ^ seed;
+  x = (x ^ (x >> 16)) * 2246822519u;
+  x = (x ^ (x >> 13)) * 3266489917u;
+  x = x ^ (x >> 16);
+  return x >= thr;
+}
+
+// Dropout parameters as the wrapper passes them: on == 0 means no
+// dropout (seed is then not read); inv is float32(1 / (1 - rate)).
+struct Dropout {
+  const int* seed;
+  uint32_t thr;
+  float inv;
+  int on;
+};
+
+}  // namespace mxt_flash

@@ -4,9 +4,8 @@
 // _flash_fwd_tpu (pl.pallas_call at :169, body _kernel at :85): attention
 // over (B, T, H, dh) with an online softmax over key tiles, the (B, T)
 // key-padding mask, the causal bound that stops at the diagonal tile,
-// and the per-row logsumexp (B, H, T) f32 that the backward kernels of
-// the training slice will read.  Dropout is not compiled in: the wrapper
-// refuses dropout > 0 until the training slice ports the hash dropout.
+// the positional-hash attention dropout (:117-123), and the per-row
+// logsumexp (B, H, T) f32 that the backward kernels (flash_bwd.cu) read.
 //
 // What bounds it on an H100: at the serving path's shapes (B=4, H=12,
 // dh=64, T <= 512, bf16) it is bound by bytes: q, k, v and o are
@@ -23,43 +22,31 @@
 //     (bf16 -> f32 is exact), read by all 32 rows of the block: the
 //     q tile is loaded once and every K/V element is read from device
 //     memory T/32 times per head instead of T times;
-//   * online softmax in f32 registers, one rescale per tile; p is
-//     rounded to the input dtype before the PV product exactly where
-//     the Pallas kernel casts ``p.astype(v.dtype)``;
+//   * online softmax in f32 registers, one rescale per tile.  The
+//     denominator takes the undropped p; with dropout the kept p is
+//     scaled by 1/(1-rate) and the dropped p is 0 before the PV
+//     product, and p is rounded to the input dtype exactly where the
+//     Pallas kernel casts ``p.astype(v.dtype)``.  lse stays the
+//     undropped logsumexp, as in the reference;
 //   * masked keys score -1e30 like the TPU kernel, keys past T (the
 //     tail tile — any T works, there is no T % 128 guard) score -inf
 //     so they contribute nothing even to an all-masked row.
 // It runs on the CUDA cores in f32 FMA, far below the tensor-core
 // bound; PERF.md records its time beside the bound.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 32;        // query rows per block
-constexpr int BK = 32;        // keys per staged tile
-constexpr int TPR = 4;        // threads per query row
-constexpr int NT = BQ * TPR;  // threads per block
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+using namespace mxt_flash;
 
 template <typename T, int DH, bool CAUSAL>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int8_t* __restrict__ mask,
                  T* __restrict__ o, float* __restrict__ lse, int seq,
-                 int heads, float sm_scale) {
+                 int heads, float sm_scale, Dropout drop) {
   constexpr int DPT = DH / TPR;  // dims per thread
   __shared__ float ks[BK][DH];
   __shared__ float vs[BK][DH];
@@ -74,6 +61,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool qvalid = qpos < seq;
   const size_t rs = (size_t)heads * DH;  // token stride of (B, T, H, dh)
   const size_t base = (size_t)b * seq * rs + (size_t)h * DH;
+  const uint32_t seed = drop.on ? (uint32_t)drop.seed[0] : 0u;
 
   float qr[DPT], acc[DPT];
 #pragma unroll
@@ -113,8 +101,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float part = 0.f;
 #pragma unroll
       for (int i = 0; i < DPT; ++i) part += qr[i] * ks[j][sub + TPR * i];
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      part = row_sum(part);
       const int kp = k0 + j;
       const bool valid = ms[j] != 0 && (!CAUSAL || kp <= qpos);
       const float sj = kp >= seq ? -INFINITY : (valid ? part * sm_scale : -1e30f);
@@ -126,9 +113,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float psum = 0.f;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
-      const float p = expf(s[j] - mn);
-      psum += p;                      // the denominator takes p unrounded
-      s[j] = to_f(from_f<T>(p));      // p.astype(v.dtype) before PV
+      float p = expf(s[j] - mn);
+      psum += p;                      // the denominator takes p undropped
+      if (drop.on)
+        p = dropout_keep(bh, qpos, k0 + j, seed, drop.thr) ? p * drop.inv : 0.f;
+      s[j] = round_to<T>(p);          // p.astype(v.dtype) before PV
     }
     l = l * alpha + psum;
 #pragma unroll
@@ -153,38 +142,42 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DH>
 void launch(const void* q, const void* k, const void* v, const void* mask, void* o,
             void* lse, int B, int seq, int H, int causal, float sm_scale,
-            cudaStream_t st) {
+            Dropout drop, cudaStream_t st) {
   dim3 grid((seq + BQ - 1) / BQ, B * H);
   if (causal)
     flash_fwd_kernel<T, DH, true><<<grid, NT, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const int8_t*)mask, (T*)o,
-        (float*)lse, seq, H, sm_scale);
+        (float*)lse, seq, H, sm_scale, drop);
   else
     flash_fwd_kernel<T, DH, false><<<grid, NT, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const int8_t*)mask, (T*)o,
-        (float*)lse, seq, H, sm_scale);
+        (float*)lse, seq, H, sm_scale, drop);
 }
 
 }  // namespace
 
 // q, k, v, o: (B, T, H, dh) contiguous, f32 (bf16 == 0) or bf16
 // (bf16 == 1); mask: (B, T) int8, nonzero = key kept; lse: (B, H, T) f32.
-// dh must be 64 or 128.  Returns cudaGetLastError() after the launch
-// (an unsupported dh returns cudaErrorInvalidValue).
+// dropout != 0 applies the positional-hash dropout with the int32 seed
+// read from device memory at ``seed``, keep threshold ``thr`` and scale
+// ``inv``.  dh must be 64 or 128.  Returns cudaGetLastError() after the
+// launch (an unsupported dh returns cudaErrorInvalidValue).
 extern "C" int mxt_flash_fwd(const void* q, const void* k, const void* v,
                              const void* mask, void* o, void* lse, int B, int seq,
                              int H, int dh, int causal, int bf16, float sm_scale,
-                             void* stream) {
+                             const void* seed, int dropout, unsigned int thr,
+                             float inv, void* stream) {
   if (B * seq * H == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  const Dropout drop{(const int*)seed, thr, inv, dropout};
   if (dh == 64 && bf16)
-    launch<__nv_bfloat16, 64>(q, k, v, mask, o, lse, B, seq, H, causal, sm_scale, st);
+    launch<__nv_bfloat16, 64>(q, k, v, mask, o, lse, B, seq, H, causal, sm_scale, drop, st);
   else if (dh == 64)
-    launch<float, 64>(q, k, v, mask, o, lse, B, seq, H, causal, sm_scale, st);
+    launch<float, 64>(q, k, v, mask, o, lse, B, seq, H, causal, sm_scale, drop, st);
   else if (dh == 128 && bf16)
-    launch<__nv_bfloat16, 128>(q, k, v, mask, o, lse, B, seq, H, causal, sm_scale, st);
+    launch<__nv_bfloat16, 128>(q, k, v, mask, o, lse, B, seq, H, causal, sm_scale, drop, st);
   else if (dh == 128)
-    launch<float, 128>(q, k, v, mask, o, lse, B, seq, H, causal, sm_scale, st);
+    launch<float, 128>(q, k, v, mask, o, lse, B, seq, H, causal, sm_scale, drop, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -1,5 +1,10 @@
-"""Decoder-only (GPT-style) language model: prefill, cached decode and
-``generate``.  Port of ``mxnet_tpu/models/gpt.py``'s decode path.
+"""Decoder-only (GPT-style) language model: causal-LM training,
+prefill, cached decode and ``generate``.  Port of
+``mxnet_tpu/models/gpt.py``.
+
+Training (:func:`make_train_step`) reuses the transformer core's train
+step with ``causal=True`` and next-token labels; the functions from
+:func:`prepare_params` on are the decode path.
 
 Plain functions on tensors over a dict of parameter tensors.  The JAX
 reference casts each float32 master weight to the compute dtype at
@@ -25,10 +30,12 @@ from .. import resolve_device
 from ..kernels.flash_attention import flash_attention
 from . import transformer as T
 
-__all__ = ["gpt_config", "gpt_tiny", "init_params", "prepare_params",
-           "quantize_decode_params", "generate"]
+__all__ = ["gpt_config", "gpt_tiny", "init_params", "forward",
+           "make_train_step", "prepare_params", "quantize_decode_params",
+           "generate"]
 
 init_params = T.init_params
+forward = T.forward
 
 
 def gpt_config(**kw):
@@ -43,6 +50,39 @@ def gpt_tiny(**kw):
                 n_layers=2, d_ff=128, causal=True, type_vocab_size=1)
     base.update(kw)
     return T.TransformerConfig(**base)
+
+
+def make_train_step(cfg, mesh=None, learning_rate=1e-4, weight_decay=0.01,
+                    *, device=None):
+    """``(init_state, step)`` for causal-LM training on one device (see
+    ``transformer.make_train_step``); ``step(state, batch, generator)``
+    where batch = dict(tokens[, mask]).  Labels are the tokens shifted
+    left (next-token prediction); the last position and every position
+    whose next token is padding (the shifted mask) get -100."""
+    if not cfg.causal:
+        cfg = dataclasses.replace(cfg, causal=True)
+    dev = resolve_device(device)
+    init_state, mlm_step = T.make_train_step(
+        cfg, mesh=mesh, learning_rate=learning_rate,
+        weight_decay=weight_decay, device=dev)
+
+    def step(state, batch, generator):
+        tokens = torch.as_tensor(batch["tokens"]).to(dev).long()
+        mask = batch.get("mask")
+        mask = (torch.ones(tokens.shape, dtype=torch.bool, device=dev)
+                if mask is None else torch.as_tensor(mask).to(dev).bool())
+        B = tokens.shape[0]
+        labels = torch.cat([tokens[:, 1:],
+                            torch.full((B, 1), -100, dtype=tokens.dtype,
+                                       device=dev)], dim=1)
+        shifted = torch.cat([mask[:, 1:],
+                             torch.zeros(B, 1, dtype=torch.bool,
+                                         device=dev)], dim=1)
+        labels = torch.where(shifted, labels, -100)
+        return mlm_step(state, {"tokens": tokens, "labels": labels,
+                                "mask": mask}, generator)
+
+    return init_state, step
 
 
 def quantize_decode_params(params):

@@ -61,6 +61,26 @@ def test_from_jax_bfloat16_and_jax_arrays():
     np.testing.assert_array_equal(got["b"][0].numpy(), np.arange(4))
 
 
+@pytest.mark.parametrize("w8", [False, True])
+def test_to_numpy_inverts_from_jax(w8):
+    """``to_numpy`` gives back the tree ``from_jax`` was given, leaf for
+    leaf (structure, dtype, values); bf16 comes back as its exact f32
+    value."""
+    from mxnet_tpu_torch.convert import from_jax, to_numpy
+    jcfg, _ = configs()
+    tree = numpy_params(jcfg, 2)
+    if w8:
+        tree = quantized(tree)
+    back = to_numpy(from_jax(tree, "cpu"))
+    for a, ref, path in _pairs(back, tree):
+        assert isinstance(a, np.ndarray) and a.dtype == ref.dtype, path
+        np.testing.assert_array_equal(a, ref, err_msg=path)
+    x = torch.randn(3, 4).to(torch.bfloat16).requires_grad_()
+    got = to_numpy({"w": x})["w"]
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, x.detach().float().numpy())
+
+
 def test_init_params_matches_reference_tree():
     import jax
     from mxnet_tpu.models import transformer as JT
@@ -96,4 +116,7 @@ def test_entry_points_need_a_device(monkeypatch):
         from_jax({"w": np.ones(2)})
     with pytest.raises(RuntimeError):
         MT.resolve_device("cuda")
+    from mxnet_tpu_torch.models import transformer as T
+    with pytest.raises(RuntimeError):
+        T.make_train_step(tcfg)
     assert MT.resolve_device("cpu") == torch.device("cpu")

@@ -1,7 +1,8 @@
 """Port parity: ``mxnet_tpu_torch.kernels.flash_attention`` — its plain
 forward against the reference Pallas forward ``_flash_fwd_tpu`` in
 interpreter mode (O and lse) and against ``_reference_attention``; the
-CUDA kernel against the plain version on the card.  JAX is imported
+CUDA kernel against the plain version on the card.  The training half
+(dropout, backward) is tests/test_torch_flash_backward.py.  JAX is imported
 inside the parity tests only, so the ``cuda`` tests also run where JAX
 is absent (``pytest --noconftest -m cuda``).
 
@@ -76,13 +77,23 @@ def test_plain_matches_reference_attention_t40(FA, causal):
                                atol=_TOL)
 
 
-def test_dropout_is_the_training_slice():
+def test_dropout_is_the_training_slice(FA):
+    """Dropout came with the training slice: ``flash_attention`` with
+    dropout matches the reference's (Pallas forward, positional-hash
+    dropout, same seed), and a rate outside [0, 1) still raises."""
+    import jax.numpy as jnp
+    q, k, v, mask = _inputs(2, 128, 2, 64, True, seed=3)
+    ref = FA.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             jnp.asarray(mask), causal=True, dropout=0.1,
+                             dropout_seed=11)
     from mxnet_tpu_torch.kernels.flash_attention import flash_attention
-    x = torch.zeros(1, 4, 1, 8)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        flash_attention(x, x, x, dropout=0.1, dropout_seed=0)
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    out = flash_attention(*t, mask=torch.from_numpy(mask), causal=True,
+                          dropout=0.1, dropout_seed=11)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=_TOL,
+                               atol=_TOL)
     with pytest.raises(ValueError):
-        flash_attention(x, x, x, dropout=1.5)
+        flash_attention(*t, dropout=1.5)
 
 
 @pytest.mark.cuda
