@@ -7,10 +7,12 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    all at once);
 3. holds each kernel against its plain PyTorch version on the card at
    the paths' shapes, each check with its stated tolerance: paged
-   attention and the flash forward at the serving shapes, and the flash
+   attention and the flash forward at the serving shapes; the flash
    forward (with dropout), dQ and dK/dV at BERT-base's (B=16, T=512,
-   H=12, dh=64) in f32 and bf16, causal or not, with a padding mask or
-   without, at dropout 0 and 0.1;
+   H=12, dh=64) and at head dim 256 (B=2, T=512, H=4), in f32 and bf16,
+   causal or not, with a padding mask or without, at dropout 0 and 0.1;
+   the two grouped SGD kernels bit for bit on ResNet-50's parameter
+   group and on a group of odd sizes, clip on and off, wd 0 and 1e-4;
 4. drives the serving path with every launch counter set to 0: the
    ``full`` serving preset (GPT vocab 32000, d_model 768, 12 heads, 12
    layers, d_ff 3072, max_len 512, bf16, weight-only int8, random
@@ -29,15 +31,27 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    without from the same state; and 12 steps of causal GPT training at
    the ``full`` width (bs 8 x 512); a small f32 BERT trains 3 steps on
    the card and on the CPU from the same weights, losses compared;
-7. times each kernel, its plain version and a library call at the
+7. drives the Gluon path as an MXNet user writes it (``import
+   mxnet_tpu_torch as mx``): ResNet-50 v1 (7x7/s2 stem, 1000 classes,
+   f32, NCHW) on ``mx.gpu(0)`` with Xavier init from
+   ``np.random.seed(0)``, 20 ``gluon.Trainer`` steps (SGD lr 0.1,
+   momentum 0.9) on one synthetic 64 x 3 x 224 x 224 batch, TF32
+   convolutions (PyTorch's default, printed); then, on one step's
+   gradients and from one state, the Trainer's per-tensor update
+   against ``nd.multi_sgd_mom_update`` (and ``nd.sgd_update`` against
+   ``nd.multi_sgd_update``) over the whole group, bit for bit, each
+   grouped call one kernel launch; a thumbnail ResNet-18 trains 3 steps
+   on the card (TF32 off) and on the CPU from the same weights, losses
+   compared;
+8. times each kernel, its plain version and a library call at the
    paths' shapes (CUDA events, L2 flushed between launches) beside the
    least time the card could take for the same work, times the BERT
-   step (ms, tokens/s) and profiles 20 engine steps and 20 BERT steps
-   (torch.profiler) for the device's busy and idle time;
-8. checks a small float32 engine on the card against ``generate`` on
+   and ResNet steps and profiles 20 engine steps, 20 BERT steps and 20
+   ResNet steps (torch.profiler) for the device's busy and idle time;
+9. checks a small float32 engine on the card against ``generate`` on
    the CPU, and prints the full-width float32 engine-vs-``generate``
    token agreement as information;
-9. prints the ``kernels`` JSON line and, last, the device line.
+10. prints the ``kernels`` JSON line and, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA device, when a
 kernel does not build or launch, or when any check fails.
@@ -125,6 +139,28 @@ SMALL_LOSS_TOL = 1e-4
 # remat on vs off: the recompute runs the same kernels on the same
 # inputs, so only library algorithm choice or atomics can differ
 REMAT_LOSS_TOL, REMAT_GRAD_TOL = 1e-5, 1e-3
+
+# the dh-256 kernel checks and timings: as many (token, width) values
+# as BERT-base's attention for the timing (H=3 x dh 256 = 768)
+DH256_CHECK = dict(B=2, H=4)
+DH256_TIME = dict(B=16, H=3)
+
+# ResNet-50 v1 training, bench.py's non-AMP configuration (bench.py:27,
+# :46): batch 64 x 3 x 224 x 224, 1000 classes, f32 NCHW, SGD lr 0.1
+# momentum 0.9, the literal 7x7/s2 stem; depth not cut
+RESNET_B, RESNET_HW, RESNET_CLASSES = 64, 224, 1000
+RESNET_STEPS, RESNET_WARM, RESNET_PROFILE = 20, 5, 20
+RESNET_WINDOW = 5               # steps 6-20 timed in three windows
+RESNET_LR, RESNET_MOM = 0.1, 0.9
+# the thumbnail ResNet-18 trained 3 steps on the card and on the CPU
+# (f32, TF32 off, lr 0.01): a ReLU network's gradient jumps where a
+# pre-activation crosses zero, and f32 summation order moves some across
+# (tests/test_torch_gluon.py measures a 2^-20 change of the input moving
+# first-step gradients by 0.9%), so the losses agree within 3%
+# card vs CPU mean-loss limits of the thumbnail ResNet-18, times (1 + |loss|):
+# the first step (same weights, a forward) and the later ones, about 3x
+# the largest gaps of sound H100 runs (1e-6, then 6e-5 at losses < 0.1)
+SMALL_RESNET_LOSS_TOL = (1e-5, 2e-4)
 
 
 def log(*a):
@@ -369,11 +405,12 @@ def profile_steps(ServingEngine, params, cfg, reqs, dev, warm=60, n=20):
 
 
 # --------------------------------------------------------------- training --
-def train_inputs(dev, dtype, use_mask, seed, B=BERT_B):
-    """q, k, v, dO at BERT-base's head shape and, with ``use_mask``, a
-    padding mask whose rows keep a prefix of T/2..T keys."""
+def train_inputs(dev, dtype, use_mask, seed, B=BERT_B, H=HEADS, dh=D // HEADS):
+    """q, k, v, dO (B, 512, H, dh), BERT-base's head shape by default,
+    and, with ``use_mask``, a padding mask whose rows keep a prefix of
+    T/2..T keys."""
     g = torch.Generator().manual_seed(seed)
-    T, H, dh = BERT_T, HEADS, D // HEADS
+    T = BERT_T
     q, k, v, do = (torch.randn(B, T, H, dh, generator=g).to(dev, dtype)
                    for _ in range(4))
     mask = None
@@ -419,15 +456,18 @@ def bwd_limits(FA, q, k, v, do, lse, delta, refs, kw):
 
 def check_training_kernels(FA, dev, failures):
     """The forward (with dropout), dQ and dK/dV kernels against their
-    plain versions at BERT-base's shapes, over dtype x causal x mask x
-    dropout.  Returns the largest errors of the training path's own
-    case (bf16, not causal, padding mask, dropout 0.1) by kernel."""
+    plain versions over dtype x causal x mask x dropout, at BERT-base's
+    shapes (dh 64) and at head dim 256.  Returns the largest errors of
+    the training path's own case (bf16, dh 64, not causal, padding mask,
+    dropout 0.1) by kernel."""
     errs = {}
-    cases = itertools.product((torch.float32, torch.bfloat16), (False, True),
-                              (True, False), (0.0, 0.1))
-    for i, (dtype, causal, use_mask, dropout) in enumerate(cases):
+    cases = itertools.product((64, 256), (torch.float32, torch.bfloat16),
+                              (False, True), (True, False), (0.0, 0.1))
+    for i, (dh, dtype, causal, use_mask, dropout) in enumerate(cases):
         dn = str(dtype).split(".")[-1]
-        q, k, v, do, mask = train_inputs(dev, dtype, use_mask, seed=41 + i)
+        shape = {} if dh == 64 else dict(DH256_CHECK, dh=dh)
+        q, k, v, do, mask = train_inputs(dev, dtype, use_mask, seed=41 + i,
+                                         **shape)
         seed = torch.tensor([1001 + i], dtype=torch.int32, device=dev)
         kw = dict(mask=mask, causal=causal, dropout=dropout, seed=seed)
         o, lse = FA.flash_fwd(q, k, v, **kw)
@@ -437,8 +477,8 @@ def check_training_kernels(FA, dev, failures):
         torch.cuda.synchronize()
         refs = (FA.flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw),
                 *FA.flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw))
-        tag = ("train %s B=16 T=512 causal=%d mask=%d drop=%.1f"
-               % (dn, causal, use_mask, dropout))
+        tag = ("train %s B=%d T=512 H=%d dh=%d causal=%d mask=%d drop=%.1f"
+               % (dn, q.shape[0], q.shape[2], dh, causal, use_mask, dropout))
         if dtype == torch.float32:
             o_r, lse_r = FA.flash_fwd_reference(q, k, v, **kw)
             e = {"flash_fwd": check(tag + " O", o, o_r, failures,
@@ -456,8 +496,10 @@ def check_training_kernels(FA, dev, failures):
                                           refs, lims)]
         e["flash_bwd_dq"] = got[0]
         e["flash_bwd_dkv"] = max(got[1:])
-        if dn == "bfloat16" and not causal and use_mask and dropout > 0:
+        if dh == 64 and dn == "bfloat16" and not causal and use_mask \
+                and dropout > 0:
             errs = e
+        del q, k, v, do, o, dq, dk, dv, refs
     return errs
 
 
@@ -467,11 +509,13 @@ def counters(FA):
             "flash_bwd_dkv": FA.flash_bwd_dkv.launches}
 
 
-def zero_counters(FA, PA):
+def zero_counters(FA, PA, FO):
     FA.flash_fwd.launches = 0
     FA.flash_bwd_dq.launches = 0
     FA.flash_bwd_dkv.launches = 0
     PA.paged_attention.launches = 0
+    FO.fused_multi_sgd.sgd_launches = 0
+    FO.fused_multi_sgd.sgd_mom_launches = 0
 
 
 def bert_batch(seed=0):
@@ -494,7 +538,7 @@ def bert_batch(seed=0):
             "type_ids": type_ids.astype(np.int64)}
 
 
-def train_path(name, init_state, step, batch, dev, steps, warm, FA, PA,
+def train_path(name, init_state, step, batch, dev, steps, warm, FA, PA, FO,
                per_step, seed):
     """Drive ``steps`` training steps with every counter set to 0 just
     before and read just after; assert finite, falling loss and
@@ -504,7 +548,7 @@ def train_path(name, init_state, step, batch, dev, steps, warm, FA, PA,
     gen = torch.Generator(device=dev).manual_seed(seed)
     batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
     torch.cuda.synchronize()
-    zero_counters(FA, PA)
+    zero_counters(FA, PA, FO)
     losses = []
     t0 = time.perf_counter()
     for i in range(steps):
@@ -646,6 +690,413 @@ def time_training_kernels(FA, dev, flush):
     return rows
 
 
+def time_dh256(FA, dev, flush):
+    """Times of the three flash kernels at head dim 256 (bf16, B=16,
+    T=512, H=3: BERT-base's token count and width; padding mask,
+    dropout 0.1, not causal), their plain versions, bounds and torch
+    SDPA.  Returns {kernel name: row}."""
+    q, k, v, do, mask = train_inputs(dev, torch.bfloat16, True, 62,
+                                     dh=256, **DH256_TIME)
+    seed = torch.tensor([78], dtype=torch.int32, device=dev)
+    kw = dict(mask=mask, causal=False, dropout=0.1, seed=seed)
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    lib_f, lib_b = sdpa_ms(q, k, v, do, mask, False, 0.1, flush)
+    calls = {
+        "flash_fwd": (lambda: FA.flash_fwd(q, k, v, **kw),
+                      lambda: FA.flash_fwd_reference(q, k, v, **kw),
+                      "fwd", lib_f),
+        "flash_bwd_dq": (
+            lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+            lambda: FA.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                              **kw), "dq", lib_b),
+        "flash_bwd_dkv": (
+            lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+            lambda: FA.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                               **kw), "dkv", lib_b)}
+    rows = {}
+    for name, (kern, plain, kind, lib) in calls.items():
+        b_ms, b_by = bound(*flash_work(q, mask, False, kind), q.dtype)
+        rows[name] = {"ms": cuda_ms(kern, flush=flush),
+                      "plain_ms": cuda_ms(plain, iters=5, flush=flush),
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                      "shape": "bf16 B=16 T=512 H=3 dh=256 dropout 0.1 "
+                               "padding mask"}
+        log("info: %s dh256: %s" % (name, json.dumps(rows[name])))
+    return rows
+
+
+# ------------------------------------------------------------ grouped SGD --
+def resnet50_shapes(mx):
+    """The shapes of resnet50_v1's trainable parameters, in the
+    Trainer's order (a CPU net, deferred shapes resolved by one 32 x 32
+    forward)."""
+    net = mx.gluon.model_zoo.vision.resnet50_v1(classes=RESNET_CLASSES)
+    net.initialize(mx.init.Zero(), ctx=mx.cpu())
+    net(mx.nd.zeros((1, 3, 32, 32), ctx=mx.cpu()))
+    return [p.shape for p in net.collect_params().values()
+            if p.grad_req != "null"]
+
+
+def check_sgd_kernels(FO, dev, resnet_shapes, failures):
+    """Both grouped SGD kernels (with and without momentum) against their
+    plain version on the card, bit for bit (after adding +0.0, which
+    maps -0 to +0): on ResNet-50's parameter group and on a group of odd
+    sizes (float4 bodies, scalar tails, chunk edges), clip off and on,
+    wd 0 and 1e-4, rescale_grad 1/64, per-tensor lrs.  Returns each
+    kernel's largest |kernel - plain| over the ResNet-50 group's cases
+    (weights and momenta, after +0.0)."""
+    worst = {"fused_sgd_mom": 0.0, "fused_sgd": 0.0}
+    odd = [(1,), (3,), (1023,), (4097,), (5,), (64,), (3 * 4096 + 1,),
+           (7, 3, 3)]
+    for i, (group, shapes) in enumerate((("ResNet-50 group", resnet_shapes),
+                                         ("odd sizes", odd))):
+        for j, (mom, clip, wd) in enumerate(itertools.product(
+                (True, False), (-1.0, 1.0), (0.0, 1e-4))):
+            g = torch.Generator().manual_seed(100 * i + j)
+            ws = [torch.randn(s, generator=g).to(dev) for s in shapes]
+            gs = [10 * torch.randn(s, generator=g).to(dev) for s in shapes]
+            ms = [torch.randn(s, generator=g).to(dev) for s in shapes] \
+                if mom else None
+            ms2 = [m.clone() for m in ms] if mom else None
+            kw = dict(lrs=[RESNET_LR * (1 + k % 3) for k in range(len(ws))],
+                      wds=[wd] * len(ws), momentum=RESNET_MOM,
+                      rescale_grad=1.0 / RESNET_B, clip_gradient=clip)
+            o1, m1 = FO.fused_multi_sgd(ws, gs, ms, **kw)
+            o2, m2 = FO.fused_multi_sgd_reference(ws, gs, ms2, **kw)
+            torch.cuda.synchronize()
+            pairs = list(zip(o1, o2)) + (list(zip(m1, m2)) if mom else [])
+            bad = sum(int((a + 0.0).ne(b + 0.0).sum()) for a, b in pairs)
+            err = max(float(((a + 0.0) - (b + 0.0)).abs().max())
+                      for a, b in pairs if a.numel())
+            if i == 0:
+                key = "fused_sgd_mom" if mom else "fused_sgd"
+                worst[key] = max(worst[key], err)
+            name = ("sgd%s %s (%d tensors) clip=%g wd=%g" % (
+                "_mom" if mom else "", group, len(ws), clip, wd))
+            log("check %-52s elements differing %d, max_abs_err %.3e "
+                "(bit for bit)  %s" % (name, bad, err,
+                                       "ok" if bad == 0 else "FAIL"))
+            if bad:
+                failures.append(name)
+            del ws, gs, ms, ms2, o1, o2, m1, m2, pairs
+    return worst
+
+
+def device_kernels(fn, name="", calls=1):
+    """(device operations, device ms) per call of ``fn``, counting the
+    operations whose name contains ``name``, over ``calls`` calls under
+    torch.profiler; (None, None) when it records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+           and name in ev.name]
+    if not evs:
+        return None, None
+    return (len(evs) // calls,
+            sum(ev.time_range.elapsed_us() for ev in evs) / 1e3 / calls)
+
+
+def compare_update_routes(mx, FO, trainer, params, failures):
+    """On the current gradients and from one state (the weights and the
+    Trainer's momenta now): the Trainer's per-tensor update against
+    ``nd.multi_sgd_mom_update`` over the whole group with the Trainer's
+    own lrs, wds and rescale_grad, and ``nd.sgd_update`` (a momentum-0
+    Trainer) against ``nd.multi_sgd_update``; wd 0 and 1e-4, clip off
+    and on.  Weights and momenta must be bit-identical, and each grouped
+    call must launch its kernel once.  Returns the routes' host times
+    and device kernel counts."""
+    idx = {id(p): i for i, p in enumerate(trainer._params)}
+    w0 = [p.data()._data.detach().clone() for p in params]
+    m0 = [trainer._updater.states[idx[id(p)]]._data.clone() for p in params]
+    NDArray = mx.nd.NDArray
+
+    def restore():
+        for p, w in zip(params, w0):
+            p.set_data(NDArray(w))
+
+    def trainer_route(momentum, wd, clip):
+        opt = {"learning_rate": RESNET_LR, "momentum": momentum, "wd": wd}
+        if clip is not None:
+            opt["clip_gradient"] = clip
+        tr = mx.gluon.Trainer(params, "sgd", opt)
+        tr._updater = mx.optimizer.get_updater(tr.optimizer)
+        if momentum:
+            tr._updater.states = {i: NDArray(m.clone())
+                                  for i, m in enumerate(m0)}
+        return tr
+
+    def grouped_call(tr, momentum, clip):
+        o = tr.optimizer
+        kw = dict(lrs=[o._get_lr(i) for i in range(len(params))],
+                  wds=[o._get_wd(i) for i in range(len(params))],
+                  rescale_grad=1.0 / RESNET_B, num_weights=len(params))
+        if clip is not None:
+            kw["clip_gradient"] = clip
+        ws = [NDArray(w.clone()) for w in w0]
+        moms = [NDArray(m.clone()) for m in m0] if momentum else []
+        data = []
+        for i, p in enumerate(params):
+            data += [ws[i], p.grad()] + ([moms[i]] if momentum else [])
+        if momentum:
+            return (lambda: mx.nd.multi_sgd_mom_update(
+                *data, out=ws, momentum=momentum, **kw)), ws, moms
+        return (lambda: mx.nd.multi_sgd_update(*data, out=ws, **kw)), ws, moms
+
+    out = {}
+    for momentum in (RESNET_MOM, 0.0):
+        for wd, clip in ((0.0, None), (1e-4, 1.0)):
+            restore()
+            tr = trainer_route(momentum, wd, clip)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.step(RESNET_B)
+            torch.cuda.synchronize()
+            t_loop = time.perf_counter() - t0
+            want = [p.data()._data.clone() for p in params]
+            if momentum:
+                want += [tr._updater.states[i]._data.clone()
+                         for i in range(len(params))]
+            restore()
+            call, ws, moms = grouped_call(tr, momentum, clip)
+            counter = "sgd_mom_launches" if momentum else "sgd_launches"
+            n0 = getattr(FO.fused_multi_sgd, counter)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            t_group = time.perf_counter() - t0
+            launched = getattr(FO.fused_multi_sgd, counter) - n0
+            got = [w._data for w in ws] + [m._data for m in moms]
+            bad = sum(int((a + 0.0).ne(b + 0.0).sum())
+                      for a, b in zip(want, got))
+            name = ("ResNet-50 update routes momentum=%g wd=%g clip=%s"
+                    % (momentum, wd, clip))
+            ok = bad == 0 and launched == 1
+            log("check %s: Trainer per-tensor vs nd.multi_sgd%s_update, "
+                "elements differing %d (bit for bit), grouped kernel "
+                "launches %d (1 expected); host ms %.3f vs %.3f  %s"
+                % (name, "_mom" if momentum else "", bad, launched,
+                   t_loop * 1e3, t_group * 1e3, "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append(name)
+            if wd == 0.0:
+                restore()
+                n_loop, dev_loop = device_kernels(
+                    lambda: trainer_route(momentum, wd, clip).step(RESNET_B))
+                restore()
+                n_grp, dev_grp = device_kernels(
+                    grouped_call(tr, momentum, clip)[0])
+                out["momentum" if momentum else "plain"] = {
+                    "trainer_host_ms": t_loop * 1e3,
+                    "grouped_host_ms": t_group * 1e3,
+                    "trainer_device_kernels": n_loop,
+                    "trainer_device_ms": dev_loop,
+                    "grouped_device_kernels": n_grp,
+                    "grouped_device_ms": dev_grp}
+                log("info: update routes (momentum %g): %s"
+                    % (momentum, json.dumps(out["momentum" if momentum
+                                                else "plain"])))
+    restore()
+    return out
+
+
+def time_sgd_kernels(FO, params, flush):
+    """Times of both grouped SGD kernels on ResNet-50's group (copies of
+    its real weights, its gradients), updating in place as
+    ``nd.multi_sgd(_mom)_update(..., out=weights)`` does: ``ms`` is the
+    kernel's own device time (the profiler's mean over 20 calls; the run
+    fails if the profiler records none), ``wrapper_ms`` CUDA events
+    around the wrapper, whose host work the device waits for; the plain
+    version and, as a
+    yardstick of equal bytes, ``torch.optim.SGD(fused=True).step``
+    (PyTorch's convention, ``b = mu*b + g; w -= lr*b``, not MXNet's;
+    never called by the port).  Returns {kernel name: row}."""
+    ws = [p.data()._data.detach().clone() for p in params]
+    gs = [p.grad()._data for p in params]
+    n = sum(w.numel() for w in ws)
+    rows = {}
+    for name, mom in (("fused_sgd_mom", True), ("fused_sgd", False)):
+        ms = [torch.zeros_like(w) for w in ws] if mom else None
+        kw = dict(lrs=[RESNET_LR] * len(ws), wds=[0.0] * len(ws),
+                  momentum=RESNET_MOM if mom else 0.0,
+                  rescale_grad=1.0 / RESNET_B, out=ws)
+
+        def kern():
+            return FO.fused_multi_sgd(ws, gs, ms, **kw)
+
+        wrapper_ms = cuda_ms(kern, flush=flush)
+        ms_ = device_kernels(kern, "fused_sgd_kernel", calls=20)[1]
+        if ms_ is None:
+            raise Failed("%s: the profiler recorded no fused_sgd_kernel "
+                         "time" % name)
+        plain = cuda_ms(lambda: FO.fused_multi_sgd_reference(ws, gs, ms,
+                                                             **kw),
+                        iters=5, flush=flush)
+        lib_p = [w.clone().requires_grad_() for w in ws]
+        for p, g in zip(lib_p, gs):
+            p.grad = g.clone()
+        opt = torch.optim.SGD(lib_p, lr=RESNET_LR,
+                              momentum=RESNET_MOM if mom else 0.0,
+                              fused=True)
+        lib = cuda_ms(opt.step, flush=flush)
+        del opt, lib_p
+        nbytes = n * (20 if mom else 12)
+        b_ms, b_by = bound(nbytes, 0, torch.float32)
+        rows[name] = {"ms": ms_, "ms_from": "profiler, kernel only",
+                      "wrapper_ms": wrapper_ms, "plain_ms": plain,
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                      "library": "torch.optim.SGD(fused=True).step "
+                                 "(PyTorch's momentum convention; equal "
+                                 "bytes)",
+                      "shape": "ResNet-50 v1 group, in place: %d f32 "
+                               "tensors, %d values, %d bytes moved"
+                               % (len(ws), n, nbytes)}
+        log("info: %s: %s" % (name, json.dumps(rows[name])))
+    return rows
+
+
+# ----------------------------------------------------------------- gluon --
+def resnet_path(mx, FA, PA, FO, dev, failures, flush):
+    """The Gluon path: ResNet-50 v1 trained by ``gluon.Trainer`` on the
+    card as a reference-era user writes it, counters from 0 just before
+    and read just after (the 20 steps and the update-route comparison,
+    whose grouped ops launch the SGD kernels).  Then the SGD kernels'
+    times on the group and a 20-step profile.  Returns (launches,
+    numbers, SGD kernel rows)."""
+    torch.backends.cudnn.allow_tf32 = True       # PyTorch's default
+    tf32 = ("cudnn.allow_tf32=%s cuda.matmul.allow_tf32=%s"
+            % (torch.backends.cudnn.allow_tf32,
+               torch.backends.cuda.matmul.allow_tf32))
+    ctx = mx.gpu(0)
+    np.random.seed(0)
+    net = mx.gluon.model_zoo.vision.resnet50_v1(classes=RESNET_CLASSES)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    rng = np.random.RandomState(0)
+    x = mx.nd.array(rng.randn(RESNET_B, 3, RESNET_HW, RESNET_HW)
+                    .astype(np.float32), ctx=ctx)
+    y = mx.nd.array(rng.randint(0, RESNET_CLASSES, RESNET_B)
+                    .astype(np.float32), ctx=ctx)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": RESNET_LR,
+                                "momentum": RESNET_MOM})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step():
+        with mx.autograd.record():
+            L = loss_fn(net(x), y)
+        L.backward()
+        trainer.step(RESNET_B)
+        return L
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(FA, PA, FO)
+    losses, marks = [], []
+    for i in range(RESNET_STEPS + 1):
+        if i >= RESNET_WARM and (i - RESNET_WARM) % RESNET_WINDOW == 0:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        if i < RESNET_STEPS:
+            losses.append(step())
+    per = (marks[-1] - marks[0]) / (RESNET_STEPS - RESNET_WARM)
+    windows = [(b - a) / RESNET_WINDOW * 1e3 for a, b in zip(marks, marks[1:])]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(L.asnumpy().mean()) for L in losses]
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    n_vals = sum(int(np.prod(p.shape)) for p in params)
+    log("ResNet-50 v1 train (bs %d x 3 x %d x %d, f32, %s): %d trainable "
+        "tensors, %d values" % (RESNET_B, RESNET_HW, RESNET_HW, tf32,
+                                 len(params), n_vals))
+    log("ResNet-50 train: %d steps, losses %s" % (RESNET_STEPS, " ".join(
+        "%.4f" % v for v in losses)))
+    log("ResNet-50 train step: %.3f ms, %.1f images/s (host clock over "
+        "steps %d-%d, synchronised), peak memory %.2f GiB, %s"
+        % (per * 1e3, RESNET_B / per, RESNET_WARM + 1, RESNET_STEPS, peak,
+           tf32))
+    log("ResNet-50 train step by %d-step window: %s ms" % (
+        RESNET_WINDOW, " ".join("%.3f" % w for w in windows)))
+    if not all(np.isfinite(losses)):
+        raise Failed("ResNet-50: loss not finite")
+    if not losses[-1] < losses[0]:
+        raise Failed("ResNet-50: loss did not fall (%.4f -> %.4f)"
+                     % (losses[0], losses[-1]))
+    with mx.autograd.record():                   # one step's gradients
+        L = loss_fn(net(x), y)
+    L.backward()
+    routes = compare_update_routes(mx, FO, trainer, params, failures)
+    launches = {"fused_sgd": FO.fused_multi_sgd.sgd_launches,
+                "fused_sgd_mom": FO.fused_multi_sgd.sgd_mom_launches}
+    log("ResNet-50 path launches: %s (the Trainer updates per tensor; the "
+        "grouped ops launch the kernels)" % json.dumps(launches))
+    for name, n in launches.items():
+        if n <= 0:
+            raise Failed("%s was never launched on the ResNet-50 path"
+                         % name)
+    rows = time_sgd_kernels(FO, params, flush)
+    profile_window(step, RESNET_PROFILE, "ResNet-50 train steps")
+    torch.backends.cudnn.allow_tf32 = False
+    nums = {"ms_per_step": per * 1e3, "images_per_s": RESNET_B / per,
+            "window_ms_per_step": windows,
+            "peak_gib": peak, "losses": losses, "tensors": len(params),
+            "values": n_vals, "tf32": tf32, "routes": routes}
+    return launches, nums, rows
+
+
+def check_small_resnet(mx, dev, failures):
+    """A thumbnail ResNet-18 (10 classes) trains 3 Trainer steps at
+    32 x 32, batch 4, f32 with TF32 off, on the card and on the CPU from
+    the same weights; the mean losses must agree within
+    SMALL_RESNET_LOSS_TOL."""
+    from mxnet_tpu_torch.convert import set_block_params
+    rng = np.random.RandomState(5)
+    x = rng.randn(4, 3, 32, 32).astype(np.float32)
+    y = rng.randint(0, 10, 4).astype(np.float32)
+    np.random.seed(5)
+    cpu_net = mx.gluon.model_zoo.vision.resnet18_v1(classes=10,
+                                                    thumbnail=True)
+    cpu_net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    cpu_net(mx.nd.array(x, ctx=mx.cpu()))
+    arrays = {k: v.data().asnumpy()
+              for k, v in cpu_net._collect_params_with_prefix().items()}
+    card_net = mx.gluon.model_zoo.vision.resnet18_v1(classes=10,
+                                                     thumbnail=True)
+    set_block_params(card_net, arrays, ctx=mx.gpu(0))
+    runs = []
+    for net, ctx in ((card_net, mx.gpu(0)), (cpu_net, mx.cpu())):
+        tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                              {"learning_rate": 0.01, "momentum": 0.9})
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        X, Y = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+        out = []
+        for _ in range(3):
+            with mx.autograd.record():
+                L = loss_fn(net(X), Y)
+            L.backward()
+            tr.step(4)
+            out.append(float(L.asnumpy().mean()))
+        runs.append(out)
+    first, later = SMALL_RESNET_LOSS_TOL
+    gaps = [abs(a - b) for a, b in zip(*runs)]
+    ok = all(gap <= (first if i == 0 else later) * (1 + abs(b))
+             for i, (gap, b) in enumerate(zip(gaps, runs[1])))
+    log("check small ResNet-18 3 steps, card vs CPU (f32, TF32 off): %s vs "
+        "%s, gaps %s (tol %.0e then %.0e, times 1+|loss|)  %s"
+        % (" ".join("%.6f" % v for v in runs[0]),
+           " ".join("%.6f" % v for v in runs[1]),
+           " ".join("%.2e" % g for g in gaps), first, later,
+           "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("small ResNet-18 card vs CPU")
+
+
 # ------------------------------------------------------------------- main --
 def serve(G, ServingEngine, params, cfg, reqs, kv_int8, dev, spy=None):
     eng = ServingEngine(params, cfg, num_slots=SLOTS, page_size=PAGE,
@@ -687,8 +1138,10 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.kernels import _build
     from mxnet_tpu_torch.kernels import flash_attention as FA
+    from mxnet_tpu_torch.kernels import fused_optimizer as FO
     from mxnet_tpu_torch.kernels import paged_attention as PA
     from mxnet_tpu_torch.models import gpt as G
     from mxnet_tpu_torch.models import transformer as T_
@@ -734,6 +1187,7 @@ def main():
         if T == 192 and dtype == torch.bfloat16:
             errs["flash"] = e
     errs_train = check_training_kernels(FA, dev, failures)
+    errs_sgd = check_sgd_kernels(FO, dev, resnet50_shapes(mx), failures)
 
     # ---- 4. the serving path, counters from 0
     cfg = G.gpt_config(vocab_size=VOCAB, max_len=MAX_LEN, d_model=D,
@@ -764,7 +1218,7 @@ def main():
     if len(longest) < 4:
         raise Failed("the mix has fewer than 4 prompts of 192 tokens")
     prompts = np.stack([reqs[i][0] for i in longest])
-    zero_counters(FA, PA)
+    zero_counters(FA, PA, FO)
     try:
         outs16, run16 = serve(G, ServingEngine, params, cfg, reqs, False,
                               dev, spy)
@@ -827,7 +1281,7 @@ def main():
            int((~batch["mask"]).sum())))
     state, bert_losses, bert_launches, bert_s = train_path(
         "BERT-base train", init_state, step, batch, dev, BERT_STEPS,
-        BERT_WARM, FA, PA, LAYERS, seed=0)
+        BERT_WARM, FA, PA, FO, LAYERS, seed=0)
     log("BERT-base train step: %.3f ms, %.1f tokens/s (host clock over "
         "steps %d-%d, synchronised), peak memory %.2f GiB"
         % (bert_s * 1e3, BERT_B * BERT_T / bert_s, BERT_WARM + 1,
@@ -846,14 +1300,20 @@ def main():
               "mask": gmask}
     _, _, gpt_launches, gpt_s = train_path(
         "GPT causal train", g_init, g_step, gbatch, dev, GPT_STEPS,
-        GPT_WARM, FA, PA, LAYERS, seed=1)
+        GPT_WARM, FA, PA, FO, LAYERS, seed=1)
     log("GPT causal train step (bs %d x %d): %.3f ms (host clock over "
         "steps %d-%d, synchronised)" % (GPT_B, MAX_LEN, gpt_s * 1e3,
                                         GPT_WARM + 1, GPT_STEPS))
     check_small_f32(T_, dev, failures)
 
-    # ---- 7. timings at the paths' shapes
+    # ---- 7. the Gluon path: ResNet-50 v1 through Trainer, then the
+    # grouped update routes on one step's gradients (counters from 0)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    resnet_launches, resnet, sgd_rows = resnet_path(mx, FA, PA, FO, dev,
+                                                    failures, flush)
+    check_small_resnet(mx, dev, failures)
+
+    # ---- 8. timings at the paths' shapes
     kernels = []
     q, pool, s, bt, pos = captured["bfloat16"]
     ms = cuda_ms(lambda: PA.paged_attention(q, pool, s, bt, pos,
@@ -904,6 +1364,7 @@ def main():
     sources = {"flash_fwd": ("flash_fwd.cu", 169),
                "flash_bwd_dq": ("flash_bwd.cu", 333),
                "flash_bwd_dkv": ("flash_bwd.cu", 354)}
+    dh256 = time_dh256(FA, dev, flush)
     for name, row in time_training_kernels(FA, dev, flush).items():
         src, line = sources[name]
         counts = {p: c[name] for p, c in by_path.items() if name in c}
@@ -915,7 +1376,16 @@ def main():
             "max_abs_err": errs_train[name],
             "tolerance": (FWD_TOL_TEXT if name == "flash_fwd"
                           else BWD_TOL_TEXT),
-            **row})
+            **row, "dh256": dh256[name]})
+    for name, line in (("fused_sgd_mom", 144), ("fused_sgd", 134)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mxnet_tpu_torch/kernels/csrc/fused_sgd.cu",
+            "replaces": "mxnet_tpu/kernels/fused_optimizer.py:%d" % line,
+            "launches": resnet_launches[name],
+            "launches_by_path": {"resnet50": resnet_launches[name]},
+            "max_abs_err": errs_sgd[name], "tolerance": "bit for bit",
+            **sgd_rows[name]})
 
     profile_steps(ServingEngine, params, cfg, reqs, dev)
     profile_window(lambda: step(state, batch, torch.Generator(
@@ -923,7 +1393,7 @@ def main():
         "BERT-base train steps")
     del state
 
-    # ---- 7. small float32 engine on the card vs generate on the CPU
+    # ---- 9. small float32 engine on the card vs generate on the CPU
     tiny = G.gpt_tiny(dtype="float32", vocab_size=128, max_len=64,
                       dropout=0.0)
     tp = G.init_params(3, tiny, device="cpu")

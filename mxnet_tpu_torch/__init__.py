@@ -10,6 +10,11 @@ Entry points run on the CUDA device unless the caller passes
 instead of quietly dropping to the CPU (:func:`resolve_device`).  On a
 CPU tensor every kernel wrapper runs its plain PyTorch version; on a
 CUDA tensor it launches the hand-written kernel or raises.
+
+The MXNet surface reads as in the reference, ``import mxnet_tpu_torch
+as mx``: ``mx.nd``, ``mx.autograd``, ``mx.gluon``, ``mx.init`` /
+``mx.initializer``, ``mx.optimizer``, ``mx.cpu()`` and ``mx.gpu(i)``;
+the default context is the card.
 """
 from __future__ import annotations
 
@@ -41,3 +46,12 @@ def resolve_device(device=None):
         raise ValueError("mxnet_tpu_torch: unsupported device %r"
                          % (str(device),))
     return dev
+
+
+from . import base  # noqa: E402
+from .base import MXNetError  # noqa: E402,F401
+from .context import Context, cpu, gpu, current_context  # noqa: E402,F401
+from . import ndarray  # noqa: E402
+from . import ndarray as nd  # noqa: E402
+from . import autograd, initializer, optimizer, gluon  # noqa: E402
+from . import initializer as init  # noqa: E402

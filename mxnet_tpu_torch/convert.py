@@ -8,6 +8,12 @@ arrays (to compare trained parameters, for example).  :func:`tree_map`
 and :func:`tree_leaves` walk such nested dict/list trees.  Nothing here
 imports JAX: any leaf with ``__array__`` is read through
 ``numpy.asarray``.
+
+For Gluon blocks, :func:`set_block_params` writes a ``{structural name:
+array}`` dict (``features.0.weight``, as ``_collect_params_with_prefix``
+names them in both packages) into a port ``Block``; the reference's
+``save_parameters`` file also loads directly through the port's
+``load_parameters``.
 """
 from __future__ import annotations
 
@@ -16,7 +22,8 @@ import torch
 
 from . import resolve_device
 
-__all__ = ["from_jax", "to_numpy", "tree_map", "tree_leaves"]
+__all__ = ["from_jax", "to_numpy", "tree_map", "tree_leaves",
+           "set_block_params"]
 
 
 def _leaf(x, device):
@@ -72,3 +79,27 @@ def to_numpy(tree):
         return t.numpy()
 
     return tree_map(leaf, tree)
+
+
+def set_block_params(block, arrays, ctx=None):
+    """Write ``arrays`` ({structural name: array}) into the parameters of
+    the port ``Block`` ``block``, BatchNorm running statistics included.
+    Raises ``ValueError`` on a name missing from either side or on a
+    shape mismatch; a parameter not yet initialized (deferred) is created
+    from its value on ``ctx`` (default: the current context)."""
+    params = block._collect_params_with_prefix()
+    missing = sorted(set(params) - set(arrays))
+    extra = sorted(set(arrays) - set(params))
+    if missing or extra:
+        raise ValueError("set_block_params: missing %s, extra %s"
+                         % (missing[:8], extra[:8]))
+    for name, p in params.items():
+        value = np.asarray(arrays[name])
+        known = p.shape is not None and all(d > 0 for d in p.shape)
+        if known and tuple(p.shape) != value.shape:
+            raise ValueError("set_block_params: %s has shape %s, the value "
+                             "%s" % (name, tuple(p.shape), value.shape))
+        if p._data is None:
+            p._init_from_value(value, ctx=ctx)
+        else:
+            p.set_data(torch.from_numpy(np.array(value, copy=True)))

@@ -1,0 +1,61 @@
+"""Gluon losses: ``Loss`` and ``SoftmaxCrossEntropyLoss``.
+
+Port of those classes of ``mxnet_tpu/gluon/loss.py``: the per-sample
+loss, averaged over every axis but ``batch_axis``, with the optional
+``weight`` and ``sample_weight``.
+"""
+from __future__ import annotations
+
+from .block import HybridBlock
+
+__all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
+
+
+def _apply_weighting(F, loss, weight=None, sample_weight=None):
+    if sample_weight is not None:
+        loss = F.broadcast_mul(loss, sample_weight)
+    if weight is not None:
+        if not isinstance(weight, (float, int)):
+            raise TypeError("weight must be a number")
+        loss = loss * weight
+    return loss
+
+
+class Loss(HybridBlock):
+    def __init__(self, weight, batch_axis, **kwargs):
+        super().__init__(**kwargs)
+        self._weight = weight
+        self._batch_axis = batch_axis
+
+    def __repr__(self):
+        return "%s(batch_axis=%s, w=%s)" % (type(self).__name__,
+                                            self._batch_axis, self._weight)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError
+
+
+class SoftmaxCrossEntropyLoss(Loss):
+    """``-log_softmax(pred)[label]`` per sample (sparse labels), or
+    ``-sum(log_softmax(pred) * label)`` with dense ones."""
+
+    def __init__(self, axis=-1, sparse_label=True, from_logits=False,
+                 weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._axis = axis
+        self._sparse_label = sparse_label
+        self._from_logits = from_logits
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        if not self._from_logits:
+            pred = F.log_softmax(pred, axis=self._axis)
+        if self._sparse_label:
+            loss = -F.pick(pred, label, axis=self._axis, keepdims=True)
+        else:
+            label = label.reshape(pred.shape)
+            loss = -F.sum(pred * label, axis=self._axis, keepdims=True)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+SoftmaxCELoss = SoftmaxCrossEntropyLoss

@@ -27,15 +27,17 @@
 // wgmma and TMA are later work.  PERF.md records their times.
 //
 // Design (simple and correct first, the pattern of flash_fwd.cu):
-//   * dQ: one block of 128 threads per (b*h, 32-row q tile), four threads
-//     per query row holding dh/4 of q, dO and the f32 dQ accumulator;
-//     32-key tiles of K and V staged in shared memory as f32.  The loop
+//   * dQ: one block of 128 threads per (b*h, BQ-row q tile), TPR threads
+//     per query row holding dh/TPR of q, dO and the f32 dQ accumulator;
+//     BK-key tiles of K and V staged in shared memory as f32.  The loop
 //     over key tiles stops at the diagonal tile when causal.
-//   * dK/dV: one block per (b*h, 32-key tile), four threads per key row
-//     holding dh/4 of k, v and the two f32 accumulators; 32-row tiles of
-//     Q and dO (with their lse and delta) staged in shared memory.  The
-//     loop over query tiles starts at the diagonal tile when causal.
-//   * each score and each dP is a 4-lane shuffle reduce; every pair is
+//   * dK/dV: one block per (b*h, BK-key tile), TPR threads per key row
+//     holding dh/TPR of k, v and the two f32 accumulators; BQ-row tiles
+//     of Q and dO (with their lse and delta) staged in shared memory.
+//     The loop over query tiles starts at the diagonal tile when causal.
+//     (BQ = BK = 32, TPR = 4 at dh 64 and 128; 16 and 8 at dh 256, so
+//     the staged tiles stay within 48 KB: flash_common.cuh.)
+//   * each score and each dP is a TPR-lane shuffle reduce; every pair is
 //     visited once per kernel, no atomics, so results are deterministic.
 //   * masked keys, keys and queries past T, and pairs above the diagonal
 //     get P = 0 (the reference's jnp.where(valid, exp(...), 0)).
@@ -54,6 +56,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     const int8_t* __restrict__ mask, T* __restrict__ dq, int seq,
                     int heads, float sm_scale, Dropout drop) {
+  constexpr int TPR = Tile<DH>::TPR, BQ = Tile<DH>::BQ, BK = Tile<DH>::BK;
   constexpr int DPT = DH / TPR;
   __shared__ float ks[BK][DH];
   __shared__ float vs[BK][DH];
@@ -108,8 +111,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sp += qr[i] * ks[j][sub + TPR * i];
         dp += dor[i] * vs[j][sub + TPR * i];
       }
-      sp = row_sum(sp);
-      dp = row_sum(dp);
+      sp = row_sum<TPR>(sp);
+      dp = row_sum<TPR>(dp);
       const int kp = k0 + j;
       const bool valid = qvalid && ms[j] != 0 && (!CAUSAL || kp <= qpos);
       const float p = valid ? expf(sp * sm_scale - lse_r) : 0.f;
@@ -135,6 +138,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const int8_t* __restrict__ mask, T* __restrict__ dk,
                      T* __restrict__ dv, int seq, int heads, float sm_scale,
                      Dropout drop) {
+  constexpr int TPR = Tile<DH>::TPR, BQ = Tile<DH>::BQ, BK = Tile<DH>::BK;
   constexpr int DPT = DH / TPR;
   __shared__ float qs[BQ][DH];
   __shared__ float dos[BQ][DH];
@@ -195,8 +199,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sp += qs[i][sub + TPR * d] * kr[d];
         dp += dos[i][sub + TPR * d] * vr[d];
       }
-      sp = row_sum(sp);
-      dp = row_sum(dp);
+      sp = row_sum<TPR>(sp);
+      dp = row_sum<TPR>(dp);
       const int qp = q0 + i;
       const bool valid = kon && qp < seq && (!CAUSAL || kpos <= qp);
       const float p = valid ? expf(sp * sm_scale - ls[i]) : 0.f;
@@ -234,7 +238,7 @@ struct Args {
 
 template <typename T, int DH>
 void launch_dq(const Args& a, void* dq, cudaStream_t st) {
-  dim3 grid((a.seq + BQ - 1) / BQ, a.B * a.H);
+  dim3 grid((a.seq + Tile<DH>::BQ - 1) / Tile<DH>::BQ, a.B * a.H);
 #define MXT_DQ(C)                                                              \
   flash_bwd_dq_kernel<T, DH, C><<<grid, NT, 0, st>>>(                          \
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,           \
@@ -246,7 +250,7 @@ void launch_dq(const Args& a, void* dq, cudaStream_t st) {
 
 template <typename T, int DH>
 void launch_dkv(const Args& a, void* dk, void* dv, cudaStream_t st) {
-  dim3 grid((a.seq + BK - 1) / BK, a.B * a.H);
+  dim3 grid((a.seq + Tile<DH>::BK - 1) / Tile<DH>::BK, a.B * a.H);
 #define MXT_DKV(C)                                                             \
   flash_bwd_dkv_kernel<T, DH, C><<<grid, NT, 0, st>>>(                         \
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,           \
@@ -262,7 +266,7 @@ void launch_dkv(const Args& a, void* dk, void* dv, cudaStream_t st) {
 // contiguous, f32 (bf16 == 0) or bf16 (bf16 == 1); lse, delta: (B, H, T)
 // f32; mask: (B, T) int8, nonzero = key kept; dropout != 0 regenerates
 // the forward's keep mask from the int32 seed at ``seed`` (device
-// memory), threshold ``thr``, scale ``inv``.  dh must be 64 or 128.
+// memory), threshold ``thr``, scale ``inv``.  dh must be 64, 128 or 256.
 // Each returns cudaGetLastError() after its launch (an unsupported dh
 // returns cudaErrorInvalidValue).
 
@@ -281,6 +285,8 @@ extern "C" int mxt_flash_bwd_dq(const void* q, const void* k, const void* v,
   else if (dh == 64) launch_dq<float, 64>(a, dq, st);
   else if (dh == 128 && bf16) launch_dq<__nv_bfloat16, 128>(a, dq, st);
   else if (dh == 128) launch_dq<float, 128>(a, dq, st);
+  else if (dh == 256 && bf16) launch_dq<__nv_bfloat16, 256>(a, dq, st);
+  else if (dh == 256) launch_dq<float, 256>(a, dq, st);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
@@ -300,6 +306,8 @@ extern "C" int mxt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   else if (dh == 64) launch_dkv<float, 64>(a, dk, dv, st);
   else if (dh == 128 && bf16) launch_dkv<__nv_bfloat16, 128>(a, dk, dv, st);
   else if (dh == 128) launch_dkv<float, 128>(a, dk, dv, st);
+  else if (dh == 256 && bf16) launch_dkv<__nv_bfloat16, 256>(a, dk, dv, st);
+  else if (dh == 256) launch_dkv<float, 256>(a, dk, dv, st);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

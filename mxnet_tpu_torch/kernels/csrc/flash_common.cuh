@@ -1,6 +1,16 @@
 // Shared by flash_fwd.cu and flash_bwd.cu: the tile geometry, the
 // f32 <-> storage-type conversions and the positional-hash dropout.
 //
+// The tile geometry depends on the head dim.  Every block has NT = 128
+// threads; TPR of them share a query (or key) row, each holding DH/TPR
+// of its values in registers, and tiles of BK keys (BQ queries) are
+// staged in shared memory as f32.  dh 64 and 128 use 32-row tiles with
+// 4 threads a row.  At dh 256 that geometry needs 64 KB of static
+// shared memory for the two staged tiles (the limit is 48 KB) and 64
+// floats a thread for each register array, so dh 256 uses 16-row tiles
+// with 8 threads a row: 32 KB of tiles and 32 floats a thread, the same
+// register arrays as dh 128.
+//
 // The hash is mxnet_tpu/kernels/flash_attention.py _dropout_keep (:47)
 // in native uint32 arithmetic: a murmur-style mix of (b*H + h, absolute
 // query position, absolute key position, seed).  The forward and both
@@ -15,10 +25,14 @@
 
 namespace mxt_flash {
 
-constexpr int BQ = 32;        // query rows per tile
-constexpr int BK = 32;        // keys per tile
-constexpr int TPR = 4;        // threads per row (query row or key row)
-constexpr int NT = BQ * TPR;  // threads per block (BQ == BK)
+constexpr int NT = 128;       // threads per block
+
+template <int DH> struct Tile {
+  static constexpr int TPR = DH <= 128 ? 4 : 8;  // threads per row
+  static constexpr int BQ = NT / TPR;            // query rows per tile
+  static constexpr int BK = BQ;                  // keys per tile
+  static_assert(DH % TPR == 0, "head dim must split over the row's threads");
+};
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -36,10 +50,10 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-// The sum of a value over the TPR (= 4) neighbouring lanes of one row.
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
+// The sum of a value over the TPR neighbouring lanes of one row.
+template <int TPR> __device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < TPR; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 

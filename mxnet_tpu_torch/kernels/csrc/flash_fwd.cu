@@ -15,13 +15,15 @@
 // in f32 (67 TFLOP/s outside the tensor cores) already past T ~ 100.
 //
 // Design (simple and correct first; wgmma/TMA come in a later PR):
-//   * one block of 128 threads per (b*h, 32-row q tile); four threads
-//     share a query row, each holding dh/4 of its q and of its f32
-//     accumulator in registers, so a score is a 4-lane shuffle reduce;
-//   * each 32-key tile of K and V is staged in shared memory as f32
+//   * one block of 128 threads per (b*h, BQ-row q tile); TPR threads
+//     share a query row, each holding dh/TPR of its q and of its f32
+//     accumulator in registers, so a score is a TPR-lane shuffle reduce
+//     (BQ = 32, TPR = 4 at dh 64 and 128; BQ = 16, TPR = 8 at dh 256,
+//     flash_common.cuh);
+//   * each BK-key tile of K and V is staged in shared memory as f32
 //     (bf16 -> f32 is exact), read by all 32 rows of the block: the
 //     q tile is loaded once and every K/V element is read from device
-//     memory T/32 times per head instead of T times;
+//     memory T/BQ times per head instead of T times;
 //   * online softmax in f32 registers, one rescale per tile.  The
 //     denominator takes the undropped p; with dropout the kept p is
 //     scaled by 1/(1-rate) and the dropped p is 0 before the PV
@@ -47,6 +49,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int8_t* __restrict__ mask,
                  T* __restrict__ o, float* __restrict__ lse, int seq,
                  int heads, float sm_scale, Dropout drop) {
+  constexpr int TPR = Tile<DH>::TPR, BQ = Tile<DH>::BQ, BK = Tile<DH>::BK;
   constexpr int DPT = DH / TPR;  // dims per thread
   __shared__ float ks[BK][DH];
   __shared__ float vs[BK][DH];
@@ -101,7 +104,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float part = 0.f;
 #pragma unroll
       for (int i = 0; i < DPT; ++i) part += qr[i] * ks[j][sub + TPR * i];
-      part = row_sum(part);
+      part = row_sum<TPR>(part);
       const int kp = k0 + j;
       const bool valid = ms[j] != 0 && (!CAUSAL || kp <= qpos);
       const float sj = kp >= seq ? -INFINITY : (valid ? part * sm_scale : -1e30f);
@@ -143,7 +146,7 @@ template <typename T, int DH>
 void launch(const void* q, const void* k, const void* v, const void* mask, void* o,
             void* lse, int B, int seq, int H, int causal, float sm_scale,
             Dropout drop, cudaStream_t st) {
-  dim3 grid((seq + BQ - 1) / BQ, B * H);
+  dim3 grid((seq + Tile<DH>::BQ - 1) / Tile<DH>::BQ, B * H);
   if (causal)
     flash_fwd_kernel<T, DH, true><<<grid, NT, 0, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const int8_t*)mask, (T*)o,
@@ -160,7 +163,7 @@ void launch(const void* q, const void* k, const void* v, const void* mask, void*
 // (bf16 == 1); mask: (B, T) int8, nonzero = key kept; lse: (B, H, T) f32.
 // dropout != 0 applies the positional-hash dropout with the int32 seed
 // read from device memory at ``seed``, keep threshold ``thr`` and scale
-// ``inv``.  dh must be 64 or 128.  Returns cudaGetLastError() after the
+// ``inv``.  dh must be 64, 128 or 256.  Returns cudaGetLastError() after the
 // launch (an unsupported dh returns cudaErrorInvalidValue).
 extern "C" int mxt_flash_fwd(const void* q, const void* k, const void* v,
                              const void* mask, void* o, void* lse, int B, int seq,
@@ -178,6 +181,10 @@ extern "C" int mxt_flash_fwd(const void* q, const void* k, const void* v,
     launch<__nv_bfloat16, 128>(q, k, v, mask, o, lse, B, seq, H, causal, sm_scale, drop, st);
   else if (dh == 128)
     launch<float, 128>(q, k, v, mask, o, lse, B, seq, H, causal, sm_scale, drop, st);
+  else if (dh == 256 && bf16)
+    launch<__nv_bfloat16, 256>(q, k, v, mask, o, lse, B, seq, H, causal, sm_scale, drop, st);
+  else if (dh == 256)
+    launch<float, 256>(q, k, v, mask, o, lse, B, seq, H, causal, sm_scale, drop, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

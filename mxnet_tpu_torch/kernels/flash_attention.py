@@ -192,8 +192,8 @@ def _check(what, q, others, mask, seed, dropout):
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("%s: dtype %s not supported (float32, bfloat16)"
                          % (what, q.dtype))
-    if dh not in (64, 128):
-        raise ValueError("%s: head dim %d not supported (64, 128)"
+    if dh not in (64, 128, 256):
+        raise ValueError("%s: head dim %d not supported (64, 128, 256)"
                          % (what, dh))
     if not all(x.is_contiguous() for x in [q] + [x for _, x in others]):
         raise ValueError("%s: q, k, v (and dO) must be contiguous" % what)
@@ -230,8 +230,8 @@ def _stats(q, lse, delta):
 def flash_fwd(q, k, v, mask=None, causal=False, dropout=0.0, seed=None):
     """(B, T, H, dh) attention forward -> (O, lse (B, H, T) f32).
 
-    CUDA tensors launch ``csrc/flash_fwd.cu`` (f32 or bf16, dh 64 or
-    128, any T, contiguous; with ``dropout > 0`` an int32 ``seed``
+    CUDA tensors launch ``csrc/flash_fwd.cu`` (f32 or bf16, dh 64,
+    128 or 256, any T, contiguous; with ``dropout > 0`` an int32 ``seed``
     tensor on the same device); CPU tensors run
     :func:`flash_fwd_reference`.  ``flash_fwd.launches`` counts kernel
     launches."""
