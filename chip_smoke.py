@@ -13,6 +13,7 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    causal or not, with a padding mask or without, at dropout 0 and 0.1;
    the two grouped SGD kernels bit for bit on ResNet-50's parameter
    group and on a group of odd sizes, clip on and off, wd 0 and 1e-4;
+   the fused 3x3 convolution at batch 16 on the four ResNet-50 shapes;
 4. drives the serving path with every launch counter set to 0: the
    ``full`` serving preset (GPT vocab 32000, d_model 768, 12 heads, 12
    layers, d_ff 3072, max_len 512, bf16, weight-only int8, random
@@ -48,10 +49,21 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    least time the card could take for the same work, times the BERT
    and ResNet steps and profiles 20 engine steps, 20 BERT steps and 20
    ResNet steps (torch.profiler) for the device's busy and idle time;
-9. checks a small float32 engine on the card against ``generate`` on
+9. drives the extension surface, each path with its counters from 0:
+   the twin of ``benchmark/fused_conv_exp.py`` (the ResNet-50 3x3
+   convolutions at batch 128, conv and BN->conv->stats chain, 3 steps
+   each) through ``conv3x3_fused``, after holding the kernel against its
+   plain version at batch 16 (four flag sets, bf16, and f32) in step 3;
+   ``mx.rtc`` checks (axpy at 51.4 M values, a 3-D-grid transpose with
+   66 KB of dynamic shared memory, a ``__half`` kernel, a compile error)
+   and a ReLU ``CustomOp`` whose forward and backward launch rtc
+   kernels, bit for bit against ``nd.Activation`` at 64 x 64 x 112 x 112
+   and in a 3-step Gluon Trainer run; then times the conv kernel (kernel,
+   plain, cuDNN, bound) at the four shapes and the rtc axpy;
+10. checks a small float32 engine on the card against ``generate`` on
    the CPU, and prints the full-width float32 engine-vs-``generate``
    token agreement as information;
-10. prints the ``kernels`` JSON line and, last, the device line.
+11. prints the ``kernels`` JSON line and, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA device, when a
 kernel does not build or launch, or when any check fails.
@@ -1097,6 +1109,608 @@ def check_small_resnet(mx, dev, failures):
         failures.append("small ResNet-18 card vs CPU")
 
 
+# ------------------------------------------------------------ fused conv --
+# The ResNet-50 3x3 convolutions of benchmark/fused_conv_exp.py:21-26
+# (B, H, W, C == K, th, bk): batch 128 for the timing, 16 for the check
+CONV_SHAPES = [(128, 56, 56, 64, 28, 64), (128, 28, 28, 128, 28, 128),
+               (128, 14, 14, 256, 14, 128), (128, 7, 7, 512, 7, 128)]
+CONV_CHECK_B = 16
+CONV_PATH_STEPS = 3
+# conv3x3_fused against its plain version.  Each sums the 9*C products of
+# an output in f32 in its own order: recursive summation errs by at most
+# (n - 1) 2^-24 sum|terms| on each side, and an f32 product rounds once
+# more (bf16 x bf16 products are exact), so the two accumulators differ by
+# at most 2 * 9C * 2^-24 * (|x| conv |w|) ("slack").  A bf16 y rounds each
+# accumulator once: one bf16 step, 2^-7 of |y|, beside the slack, with 2%
+# to spare.  The stats are held against an f64 reduction of the kernel's
+# own f32 accumulator (the same call with out_dtype float32, which is
+# checked within the slack): the kernel adds each term at most d = 28 +
+# ceil(blocks / 8) times (4 a thread, its 16 pixel groups, blocks / 8 on
+# each of a reducing column's 8 rows, then those 8 rows), so a sum errs by
+# at most d 2^-24 sum|acc| and a sum of squares by (d + 1) 2^-24 sum acc^2
+# (the squares may round too).  At batch 16 and 56x56, d = 126 against
+# the N = 50176 terms of a summation in arbitrary order.
+CONV_TOL_TEXT = ("y: 1.02*(2^-7*|y| [bf16] + 2*9C*2^-24*(|x| conv |w|)); "
+                 "f32 accumulator: 1.02*2*9C*2^-24*(|x| conv |w|); sums vs "
+                 "f64 sums of the kernel's accumulator: 1.02*d*2^-24*sum|acc|"
+                 ", squares 1.02*(d+1)*2^-24*sum acc^2, d = 28 + "
+                 "ceil(blocks/8)")
+
+
+def conv_inputs(dev, B, H, W, C, dtype, rng):
+    """x, w, scale, shift as benchmark/fused_conv_exp.py draws them: x
+    N(0, 0.1), w N(0, 0.05) (K = C), scale U(0.5, 1.5), shift N(0, 0.1)."""
+    x = torch.from_numpy(rng.randn(B, H, W, C) * 0.1).to(dev, dtype)
+    w = torch.from_numpy(rng.randn(3, 3, C, C) * 0.05).to(dev, dtype)
+    sc = torch.from_numpy(rng.rand(C) + 0.5).to(dev, torch.float32)
+    sh = torch.from_numpy(rng.randn(C) * 0.1).to(dev, torch.float32)
+    return x, w, sc, sh
+
+
+def conv_limits(x, w, kw):
+    """Per-element limits on |kernel - plain| of conv3x3_fused's y and of
+    its f32 accumulator, and the plain accumulator; see CONV_TOL_TEXT."""
+    from mxnet_tpu_torch.kernels import fused_conv as FC
+    xin = FC._prologue(x, kw.get("scale"), kw.get("shift"), kw.get("relu"))
+    mag = FC.conv3x3_fused_reference(xin.float().abs(), w.float().abs())
+    slack = 2 * 9 * x.shape[3] * 2.0 ** -24 * mag
+    acc = FC.conv3x3_fused_reference(x, w, **dict(
+        kw, stats=False, out_dtype=torch.float32))
+    out = kw.get("out_dtype") or x.dtype
+    step = 2.0 ** -7 if out == torch.bfloat16 else 2.0 ** -23
+    return (1.02 * (step * acc.abs() + slack) + 1e-30,
+            1.02 * slack + 1e-30, acc)
+
+
+def conv_stats_limits(acc, tile):
+    """f64 sums and sums of squares over B, H and W of the kernel's f32
+    accumulator ``acc`` (B, H, W, K), the limits on the kernel's f32 sums
+    against them (see CONV_TOL_TEXT; ``tile`` output pixels a block), and
+    each block's f64 partials (blocks, K), for the planted fault."""
+    B, H, W, K = acc.shape
+    tiles = -(-(H * W) // tile)
+    d = 28 + -(-(B * tiles) // 8)
+    a = acc.double()
+    u = 2.0 ** -24
+    lims = (1.02 * d * u * a.abs().sum((0, 1, 2)),
+            1.02 * (d + 1) * u * (a * a).sum((0, 1, 2)))
+    blk = F.pad(a.reshape(B, H * W, K), (0, 0, 0, tiles * tile - H * W))
+    blk = blk.reshape(B * tiles, tile, K)
+    return ((a.sum((0, 1, 2)), (a * a).sum((0, 1, 2))), lims,
+            (blk.sum(1), (blk * blk).sum(1)))
+
+
+def conv_case(FC, x, w, kw, tag, failures):
+    """One conv3x3_fused call against its plain version (TF32 off): y
+    within conv_limits.  With ``stats``: the kernel's own f32 accumulator
+    (the same call with out_dtype float32) within the slack of the plain
+    one; the sums within conv_stats_limits of an f64 reduction of that
+    accumulator; the sums of two calls bit-identical; and a planted fault,
+    the sums less one block's partials, must fail that check for every
+    block.  Returns (max |y - plain|, the sums' largest err/limit, the
+    planted fault's smallest err/limit over blocks), the last two None
+    without stats."""
+    got = FC.conv3x3_fused(x, w, **kw)
+    torch.cuda.synchronize()
+    ref = FC.conv3x3_fused_reference(x, w, **kw)
+    y, y_ref = (got[0], ref[0]) if kw["stats"] else (got, ref)
+    y_lim, acc_lim, acc_ref = conv_limits(x, w, kw)
+    e = check(tag + " y", y, y_ref, failures, limit=y_lim)
+    if not kw["stats"]:
+        return e, None, None
+    again = FC.conv3x3_fused(x, w, **kw)
+    acc = FC.conv3x3_fused(x, w, **dict(kw, out_dtype=torch.float32))[0]
+    torch.cuda.synchronize()
+    check(tag + " f32 accumulator", acc, acc_ref, failures, limit=acc_lim)
+    want, lims, parts = conv_stats_limits(acc, FC._fn("mxt_conv3x3_tile",
+                                                      [])())
+    ratio, planted = 0.0, None
+    for name, g, r, lim, p in zip(("sum", "sumsq"), got[1:], want, lims,
+                                  parts):
+        g = g.double()
+        ratio = max(ratio, float(((g - r).abs() / lim).max()))
+        caught = ((g - p - r).abs() / lim).amax(1)        # per dropped block
+        planted = caught if planted is None else torch.maximum(planted,
+                                                               caught)
+    planted = float(planted.min())
+    same = all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))
+    ok = ratio <= 1 and planted > 1 and same and all(
+        bool(torch.isfinite(g).all()) for g in got[1:])
+    log("check %s stats vs f64 sums of the kernel's accumulator: err/limit "
+        "%.3f; one block's partials dropped (planted, each of %d blocks): "
+        "smallest err/limit %.2f; two calls bit-identical %s  %s"
+        % (tag, ratio, parts[0].shape[0], planted, same,
+           "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append(tag + " stats")
+    return e, ratio, planted
+
+
+CONV_FLAGS = [("none", dict()),
+              ("scale+shift+relu+stats", dict(scale=1, relu=True, stats=True)),
+              ("scale+shift+stats", dict(scale=1, stats=True)),
+              ("relu", dict(relu=True))]
+
+
+def conv_kw(flags, sc, sh, th, bk, out_dtype=None):
+    """conv3x3_fused's keyword arguments for one of CONV_FLAGS."""
+    return dict(scale=sc if flags.get("scale") else None,
+                shift=sh if flags.get("scale") else None,
+                relu=flags.get("relu", False),
+                stats=flags.get("stats", False), th=th, bk=bk,
+                out_dtype=out_dtype)
+
+
+def check_conv_kernel(FC, dev, failures):
+    """conv3x3_fused against its plain version (TF32 off) at the
+    experiment's check size: batch 16 at the four shapes, bf16, the
+    experiment's th and bk, with the four flag sets, and two float32
+    cases (x, w and y f32; bf16 in, f32 out); see conv_case.  Returns
+    the largest |kernel - plain| of a bf16 y, the stats' largest
+    err/limit and the planted fault's smallest."""
+    rng = np.random.RandomState(0)
+    worst, ratios, planted = 0.0, [0.0], []
+    cases = [(shape, torch.bfloat16, None, flags)
+             for shape in CONV_SHAPES for flags in CONV_FLAGS]
+    cases += [(CONV_SHAPES[2], torch.float32, None, CONV_FLAGS[1]),
+              (CONV_SHAPES[2], torch.bfloat16, torch.float32, CONV_FLAGS[1])]
+    inputs = {}
+    for (B, H, W, C, th, bk), dtype, out_dtype, (fname, flags) in cases:
+        key = (H, dtype)
+        if key not in inputs:
+            inputs[key] = conv_inputs(dev, CONV_CHECK_B, H, W, C, dtype, rng)
+        x, w, sc, sh = inputs[key]
+        tag = "conv3x3 %s->%s B=%d %dx%d C=K=%d %s" % (
+            str(dtype)[6:], str(out_dtype or dtype)[6:], CONV_CHECK_B, H, W,
+            C, fname)
+        e, r, p = conv_case(FC, x, w, conv_kw(flags, sc, sh, th, bk,
+                                              out_dtype), tag, failures)
+        if dtype == torch.bfloat16 and out_dtype is None:
+            worst = max(worst, e)
+        if r is not None:
+            ratios.append(r)
+            planted.append(p)
+    return worst, max(ratios), min(planted)
+
+
+def conv_work(B, H, W, C, K, chain):
+    """(bytes, flops) of one 3x3 conv: x, w and y read or written once
+    (bf16), plus scale, shift and the two f32 sums for the chain."""
+    nbytes = 2 * (B * H * W * C + 9 * C * K + B * H * W * K)
+    if chain:
+        nbytes += 4 * (2 * C + 2 * K)
+    return nbytes, 2 * B * H * W * C * K * 9
+
+
+def conv_path(FC, dev, failures):
+    """The port's twin of benchmark/fused_conv_exp.py ``main()``, the
+    conv kernel's only path: at batch 128, the four shapes, the
+    experiment's ``pallas_conv`` (x + 1e-3 y) and ``pallas_chain`` (BN
+    apply + ReLU -> conv -> stats -> the next BN's scale folded back in)
+    carried over CONV_PATH_STEPS steps each, as its scan carries them,
+    with the counter from 0 just before and read just after.  Returns the
+    launches and each shape's inputs."""
+    rng = np.random.RandomState(0)
+    shapes = []
+    FC.conv3x3_fused.launches = 0
+    for B, H, W, C, th, bk in CONV_SHAPES:
+        x0, w, scale, shift = conv_inputs(dev, B, H, W, C, torch.bfloat16,
+                                          rng)
+        gamma = torch.ones(C, device=dev)
+        beta = torch.zeros(C, device=dev)
+
+        def pallas_conv(x):
+            return x + FC.conv3x3_fused(x, w, th=th, bk=bk) * 1e-3
+
+        def pallas_chain(x):
+            y, s, ss = FC.conv3x3_fused(x, w, scale=scale, shift=shift,
+                                        relu=True, stats=True, th=th, bk=bk)
+            n = x.shape[0] * H * W
+            mu = s / n
+            var = ss / n - mu * mu
+            norm = gamma * torch.rsqrt(var + 1e-5)
+            return x + (y * 1e-3 + (norm + beta + mu).to(torch.bfloat16)
+                        * 1e-6)
+
+        for fn in (pallas_conv, pallas_chain):
+            x = x0
+            for _ in range(CONV_PATH_STEPS):
+                x = fn(x)
+            torch.cuda.synchronize()
+            if tuple(x.shape) != (B, H, W, C) or x.dtype != torch.bfloat16 \
+                    or not bool(torch.isfinite(x).all()):
+                raise Failed("conv path %s %dx%d: %s %s, finite %s" % (
+                    fn.__name__, H, W, tuple(x.shape), x.dtype,
+                    bool(torch.isfinite(x).all())))
+        shapes.append((B, H, W, C, th, bk, x0, w, scale, shift))
+    launches = FC.conv3x3_fused.launches
+    want = 2 * CONV_PATH_STEPS * len(CONV_SHAPES)
+    log("conv path (fused_conv_exp twin, batch 128, 4 shapes x conv and "
+        "chain x %d steps): conv3x3_fused launches %d (%d expected)"
+        % (CONV_PATH_STEPS, launches, want))
+    if launches != want:
+        raise Failed("conv3x3_fused launched %d times on its path, expected "
+                     "%d" % (launches, want))
+    return launches, shapes
+
+
+def check_conv_path(FC, shapes, failures):
+    """conv3x3_fused against its plain version at the size its path runs
+    and times (batch 128, each shape's own inputs), with the path's two
+    flag sets: the conv alone and the chain's BN apply + ReLU + stats;
+    see conv_case.  Returns {(H, kind): max |y - plain|}, the stats'
+    largest err/limit and the planted fault's smallest err/limit."""
+    errs, ratios, planted = {}, [], []
+    for B, H, W, C, th, bk, x, w, sc, sh in shapes:
+        for kind, (fname, flags) in (("conv", CONV_FLAGS[0]),
+                                     ("chain", CONV_FLAGS[1])):
+            tag = "conv3x3 path bf16 B=%d %dx%d C=K=%d %s" % (B, H, W, C,
+                                                             fname)
+            e, r, p = conv_case(FC, x, w, conv_kw(flags, sc, sh, th, bk),
+                                tag, failures)
+            errs[H, kind] = e
+            if r is not None:
+                ratios.append(r)
+                planted.append(p)
+    return errs, max(ratios), min(planted)
+
+
+def library_conv(x, w, scale=None, shift=None):
+    """Yardstick only (never called by the port): cuDNN through
+    ``F.conv2d`` on channels-last bf16, alone or as the experiment's
+    chain (BN apply + ReLU -> conv -> channel sums)."""
+    xn = x.permute(0, 3, 1, 2)                       # NCHW, channels-last
+    wn = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    if scale is not None:
+        xn = torch.relu(xn.float() * scale[:, None, None]
+                        + shift[:, None, None]).to(x.dtype)
+    y = F.conv2d(xn, wn, padding=1)
+    if scale is None:
+        return y
+    yf = y.float()
+    return y, yf.sum((0, 2, 3)), (yf * yf).sum((0, 2, 3))
+
+
+def time_conv(FC, shapes, errs, flush):
+    """Kernel, plain version and cuDNN at batch 128 for each shape, conv
+    alone and as the chain, beside the bound and the max |kernel - plain|
+    of y from check_conv_path (``errs``).  Returns the rows."""
+    rows = []
+    for B, H, W, C, th, bk, x, w, sc, sh in shapes:
+        chain = dict(scale=sc, shift=sh, relu=True, stats=True, th=th, bk=bk)
+        row = {"shape": "bf16 B=%d %dx%d C=K=%d th=%d bk=%d" % (B, H, W, C,
+                                                                th, bk)}
+        for kind, kw in (("conv", dict(th=th, bk=bk)), ("chain", chain)):
+            lib = (lambda: library_conv(x, w)) if kind == "conv" else \
+                (lambda: library_conv(x, w, sc, sh))
+            b_ms, b_by = bound(*conv_work(B, H, W, C, C, kind == "chain"),
+                               torch.bfloat16)
+            row[kind] = {
+                "ms": cuda_ms(lambda: FC.conv3x3_fused(x, w, **kw),
+                              flush=flush),
+                "plain_ms": cuda_ms(lambda: FC.conv3x3_fused_reference(
+                    x, w, **kw), iters=5, flush=flush),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": cuda_ms(lib, flush=flush),
+                "max_abs_err": errs[H, kind]}
+        log("info: conv3x3_fused %s" % json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+# ------------------------------------------------------------------- rtc --
+AXPY_SRC = r"""
+extern "C" __global__ void axpy(const float *x, float *y, float alpha) {
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    y[i] += alpha * x[i];
+}
+"""
+# out[z][c][r] = (float)((double)in[z][r][c] * scale): a 3-D grid, one
+# 128 x 128 tile a block through 66,048 bytes of dynamic shared memory.
+# The sources spell a signature's int64_t as long long (8 bytes, the same
+# argument): NVRTC compiles without the C library's headers.
+TRANSPOSE_SRC = r"""
+#define TILE 128
+extern "C" __global__ void transpose_scale(const float *in, float *out,
+                                           int rows, long long cols,
+                                           double scale) {
+    extern __shared__ float tile[];
+    const long long z = blockIdx.z;
+    const int r0 = blockIdx.y * TILE;
+    const long long c0 = (long long)blockIdx.x * TILE;
+    const float *src = in + z * rows * cols;
+    float *dst = out + z * rows * cols;
+    for (int r = threadIdx.y; r < TILE; r += blockDim.y)
+        for (int c = threadIdx.x; c < TILE; c += blockDim.x)
+            if (r0 + r < rows && c0 + c < cols)
+                tile[r * (TILE + 1) + c] =
+                    (float)((double)src[(r0 + r) * cols + c0 + c] * scale);
+    __syncthreads();
+    for (int c = threadIdx.y; c < TILE; c += blockDim.y)
+        for (int r = threadIdx.x; r < TILE; r += blockDim.x)
+            if (r0 + r < rows && c0 + c < cols)
+                dst[(c0 + c) * rows + r0 + r] = tile[r * (TILE + 1) + c];
+}
+"""
+HALF_SRC = r"""
+#include <cuda_fp16.h>
+extern "C" __global__ void half_scale(const __half *x, float *y,
+                                      __half alpha, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) y[i] = __half2float(__hmul(x[i], alpha));
+}
+"""
+RELU_SRC = r"""
+extern "C" __global__ void relu_fwd(const float *x, float *y, long long n) {
+    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) y[i] = fmaxf(x[i], 0.f);
+}
+extern "C" __global__ void relu_bwd(const float *x, const float *dy,
+                                    float *dx, long long n) {
+    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) dx[i] = x[i] > 0.f ? dy[i] : 0.f;
+}
+"""
+RTC_BIG = 64 * 64 * 112 * 112       # ResNet-50's largest activation, f32
+RTC_MLP = dict(batch=64, features=2048, hidden=4096, classes=1000, steps=3)
+
+
+def bits(t):
+    """The tensor's raw bits, for bit-for-bit comparisons."""
+    return t.contiguous().view(torch.int32)
+
+
+def abs_err(got, ref):
+    """max |got - ref| in f64."""
+    return float((got.double() - ref.double()).abs().max())
+
+
+def rtc_relu_op(mx):
+    """A CustomOp whose forward and backward each launch an rtc kernel
+    (ReLU: y = max(x, 0); dx = dy * (x > 0)), registered as
+    ``rtc_relu``; returns its two kernels."""
+    module = mx.rtc.CudaModule(RELU_SRC)
+    fwd = module.get_kernel("relu_fwd", "const float *x, float *y, int64_t n")
+    bwd = module.get_kernel("relu_bwd",
+                            "const float *x, const float *dy, float *dx, "
+                            "int64_t n")
+
+    def grid(n):
+        return ((n + 255) // 256, 1, 1), (256, 1, 1)
+
+    class RtcRelu(mx.operator.CustomOp):
+        def __init__(self, ctx):
+            self.ctx = ctx
+
+        # Custom asks for "write" into fresh outputs: the kernels write
+        # out_data / in_grad directly
+        def forward(self, is_train, req, in_data, out_data, aux):
+            n = in_data[0].size
+            fwd.launch([in_data[0], out_data[0], n], self.ctx, *grid(n))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            n = in_data[0].size
+            bwd.launch([in_data[0], out_grad[0], in_grad[0], n], self.ctx,
+                       *grid(n))
+
+    @mx.operator.register("rtc_relu")
+    class RtcReluProp(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return RtcRelu(ctx)
+
+    return fwd, bwd
+
+
+def rtc_checks(mx, dev, failures):
+    """The rtc kernels against their plain versions, bit for bit: axpy at
+    ResNet-50's largest activation against ``y.add_(x, alpha=3)``; the
+    transpose (3-D grid, 66 KB of dynamic shared memory, int, int64_t and
+    double arguments); a ``const __half *`` kernel; a compile error,
+    which must raise MXNetError carrying the NVRTC log; the ReLU CustomOp
+    at (64, 64, 112, 112) under ``autograd.record()`` against
+    ``nd.Activation(act_type="relu")``, output and gradient.  Returns
+    the axpy kernel and its inputs, for the timing, and the largest
+    |kernel - plain| over these checks."""
+    ctx = mx.gpu(0)
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def verdict(name, ok, what=""):
+        log("check rtc %-60s %s  %s" % (name, what, "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("rtc " + name)
+
+    axpy = mx.rtc.CudaModule(AXPY_SRC).get_kernel(
+        "axpy", "const float *x, float *y, float alpha")
+    x = torch.randn(RTC_BIG, generator=g, device=dev)
+    y = torch.randn(RTC_BIG, generator=g, device=dev)
+    want = y.clone().add_(x, alpha=3.0)
+    X, Y = mx.nd.NDArray(x), mx.nd.NDArray(y)
+    axpy.launch([X, Y, 3.0], ctx, (RTC_BIG // 256, 1, 1), (256, 1, 1))
+    torch.cuda.synchronize()
+    verdict("axpy %d f32 values vs y.add_(x, alpha=3)" % RTC_BIG,
+            torch.equal(bits(y), bits(want)), "bit for bit")
+    errs = [abs_err(y, want)]
+
+    tr = mx.rtc.CudaModule(TRANSPOSE_SRC).get_kernel(
+        "transpose_scale",
+        "const float *in, float *out, int rows, int64_t cols, double scale")
+    Z, R, C = 3, 1000, 777
+    a = torch.randn(Z, R, C, generator=g, device=dev)
+    out = torch.empty(Z, C, R, device=dev)
+    smem = 128 * 129 * 4
+    tr.launch([mx.nd.NDArray(a), mx.nd.NDArray(out), R, C, 0.3], ctx,
+              (-(-C // 128), -(-R // 128), Z), (32, 32, 1), shared_mem=smem)
+    torch.cuda.synchronize()
+    ref = (a.double() * 0.3).float().transpose(1, 2)
+    verdict("transpose_scale grid (7, 8, 3), %d B dynamic smem, int/int64_t/"
+            "double" % smem, torch.equal(bits(out), bits(ref)), "bit for bit")
+    errs.append(abs_err(out, ref))
+
+    hs = mx.rtc.CudaModule(HALF_SRC).get_kernel(
+        "half_scale", "const __half *x, float *y, __half alpha, int n")
+    n = 1 << 20
+    h = torch.randn(n, generator=g, device=dev).half()
+    hy = torch.zeros(n, device=dev)
+    hs.launch([mx.nd.NDArray(h), mx.nd.NDArray(hy), 1.5, n], ctx,
+              (n // 256, 1, 1), (256, 1, 1))
+    torch.cuda.synchronize()
+    verdict("half_scale (const __half *, __half scalar) vs (x * 1.5).float()",
+            torch.equal(bits(hy), bits((h * 1.5).float())), "bit for bit")
+    errs.append(abs_err(hy, (h * 1.5).float()))
+
+    try:
+        mx.rtc.CudaModule('extern "C" __global__ void bad(float *x) '
+                          '{ x[0] = undefined_name; }')
+        verdict("compile error raises MXNetError", False, "no error raised")
+    except mx.MXNetError as e:
+        verdict("compile error raises MXNetError with the NVRTC log",
+                "undefined_name" in str(e), repr(str(e).splitlines()[-1][:80]))
+
+    for k, want_n in ((axpy, 1), (tr, 1), (hs, 1)):
+        if k.launches != want_n:
+            verdict("%s launch count" % k.name, False,
+                    "%d, %d expected" % (k.launches, want_n))
+
+    # the ReLU CustomOp against nd.Activation, recorded, at 64x64x112x112
+    xs = torch.randn(64, 64, 112, 112, generator=g, device=dev)
+    head = torch.randn(xs.shape, generator=g, device=dev)
+    res = []
+    for custom in (True, False):
+        v = mx.nd.NDArray(xs.clone())
+        v.attach_grad()
+        with mx.autograd.record():
+            o = mx.nd.Custom(v, op_type="rtc_relu") if custom else \
+                mx.nd.Activation(v, act_type="relu")
+        o.backward(mx.nd.NDArray(head))
+        torch.cuda.synchronize()
+        res.append((o._data.detach(), v.grad._data))
+    (o1, g1), (o2, g2) = res
+    verdict("CustomOp(rtc relu) vs Activation(relu), 64x64x112x112, output",
+            torch.equal(bits(o1), bits(o2)), "bit for bit")
+    verdict("CustomOp(rtc relu) vs Activation(relu), 64x64x112x112, gradient",
+            torch.equal(bits(g1), bits(g2)), "bit for bit")
+    errs += [abs_err(o1, o2), abs_err(g1, g2)]
+    log("rtc checks: max |kernel - plain| %.3e" % max(errs))
+    del xs, head, res, o1, g1, o2, g2, a, out, ref, want
+    return axpy, X, Y, max(errs)
+
+
+def rtc_path(mx, fwd, bwd, failures):
+    """The rtc path as an MXNet user drives it, counters from 0 just
+    before and read just after: upstream's axpy example (y == 3), then a
+    Gluon HybridBlock (Dense 4096 -> the rtc ReLU CustomOp -> Dense 1000,
+    batch 64) trained RTC_MLP["steps"] steps by ``gluon.Trainer`` SGD; its
+    losses and parameters must equal, bit for bit, those of the same net
+    with ``nn.Activation("relu")`` trained from the same weights.
+    Returns the launches by kernel and the largest |custom - built-in|
+    over the example's y (against 3), the losses and the parameters."""
+    from mxnet_tpu_torch.convert import set_block_params
+    nn = mx.gluon.nn
+    ctx = mx.gpu(0)
+    cfg = RTC_MLP
+
+    class Net(mx.gluon.HybridBlock):
+        def __init__(self, custom):
+            super().__init__()
+            self._custom = custom
+            with self.name_scope():
+                self.fc1 = nn.Dense(cfg["hidden"], in_units=cfg["features"])
+                if not custom:
+                    self.act = nn.Activation("relu")
+                self.fc2 = nn.Dense(cfg["classes"], in_units=cfg["hidden"])
+
+        def hybrid_forward(self, F, x):
+            h = self.fc1(x)
+            h = F.Custom(h, op_type="rtc_relu") if self._custom \
+                else self.act(h)
+            return self.fc2(h)
+
+    rng = np.random.RandomState(3)
+    xb = mx.nd.array(rng.randn(cfg["batch"], cfg["features"])
+                     .astype(np.float32), ctx=ctx)
+    yb = mx.nd.array(rng.randint(0, cfg["classes"], cfg["batch"])
+                     .astype(np.float32), ctx=ctx)
+    np.random.seed(3)
+    ref_net = Net(False)
+    ref_net.initialize(mx.init.Xavier(), ctx=ctx)
+    ref_net.hybridize()
+    arrays = {k: v.data().asnumpy()
+              for k, v in ref_net._collect_params_with_prefix().items()}
+    net = Net(True)
+    set_block_params(net, arrays, ctx=ctx)
+    net.hybridize()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    fwd.launches = bwd.launches = 0
+    axpy = mx.rtc.CudaModule(AXPY_SRC).get_kernel(
+        "axpy", "const float *x, float *y, float alpha")
+    axpy.launches = 0
+    torch.cuda.synchronize()
+    x = mx.nd.ones((10,), ctx=ctx)
+    y = mx.nd.zeros((10,), ctx=ctx)
+    axpy.launch([x, y, 3.0], ctx, (1, 1, 1), (10, 1, 1))
+    ok = bool((y.asnumpy() == 3.0).all())
+    err = float(np.abs(y.asnumpy() - 3.0).max())
+    log("check rtc upstream axpy example (ones, zeros, alpha 3, grid (1,1,1)"
+        " block (10,1,1)): y = %s  %s" % (y.asnumpy().tolist(),
+                                          "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("rtc upstream axpy example")
+    runs = []
+    for model in (net, ref_net):
+        tr = mx.gluon.Trainer(model.collect_params(), "sgd",
+                              {"learning_rate": 0.1, "momentum": 0.9})
+        losses = []
+        for _ in range(cfg["steps"]):
+            with mx.autograd.record():
+                L = loss_fn(model(xb), yb)
+            L.backward()
+            tr.step(cfg["batch"])
+            losses.append(L._data.detach().clone())
+        torch.cuda.synchronize()
+        runs.append((losses, [p.data()._data.detach().clone() for p in
+                              model._collect_params_with_prefix().values()]))
+    launches = {"axpy": axpy.launches, "relu_fwd": fwd.launches,
+                "relu_bwd": bwd.launches}
+    (l1, p1), (l2, p2) = runs
+    same_l = all(torch.equal(bits(a), bits(b)) for a, b in zip(l1, l2))
+    same_p = all(torch.equal(bits(a), bits(b)) for a, b in zip(p1, p2))
+    err = max([err] + [abs_err(a, b) for a, b in zip(l1 + p1, l2 + p2)])
+    log("check rtc CustomOp MLP (Dense %d -> rtc relu -> Dense %d, bs %d) "
+        "%d Trainer steps vs nn.Activation('relu'): mean losses %s, losses "
+        "bit for bit %s, parameters bit for bit %s  %s"
+        % (cfg["hidden"], cfg["classes"], cfg["batch"], cfg["steps"],
+           " ".join("%.6f" % float(v.mean()) for v in l1), same_l, same_p,
+           "ok" if same_l and same_p else "FAIL"))
+    if not (same_l and same_p):
+        failures.append("rtc CustomOp MLP vs Activation")
+    losses = [float(v.mean()) for v in l1]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        failures.append("rtc CustomOp MLP loss did not fall")
+    log("rtc path launches: %s" % json.dumps(launches))
+    want = {"axpy": 1, "relu_fwd": cfg["steps"], "relu_bwd": cfg["steps"]}
+    if launches != want:
+        raise Failed("rtc path launches %s, expected %s" % (launches, want))
+    return launches, err
+
+
+def time_rtc(axpy, X, Y, mx, flush):
+    """axpy at ResNet-50's largest activation: the rtc kernel, its plain
+    version (y + alpha * x, two torch ops) and ``y.add_(x, alpha=)``,
+    beside the bound (12 bytes a value)."""
+    x, y = X._data, Y._data
+    grid = (RTC_BIG // 256, 1, 1)
+    b_ms, b_by = bound(12 * RTC_BIG, 2 * RTC_BIG, torch.float32)
+    row = {"ms": cuda_ms(lambda: axpy.launch([X, Y, 3.0], mx.gpu(0), grid,
+                                             (256, 1, 1)), flush=flush),
+           "plain_ms": cuda_ms(lambda: y.copy_(y + 3.0 * x), flush=flush),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": cuda_ms(lambda: y.add_(x, alpha=3.0), flush=flush),
+           "shape": "axpy over 64x64x112x112 = %d f32 values" % RTC_BIG}
+    log("info: rtc axpy %s" % json.dumps(row))
+    return row
+
+
 # ------------------------------------------------------------------- main --
 def serve(G, ServingEngine, params, cfg, reqs, kv_int8, dev, spy=None):
     eng = ServingEngine(params, cfg, num_slots=SLOTS, page_size=PAGE,
@@ -1141,6 +1755,7 @@ def main():
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.kernels import _build
     from mxnet_tpu_torch.kernels import flash_attention as FA
+    from mxnet_tpu_torch.kernels import fused_conv as FC
     from mxnet_tpu_torch.kernels import fused_optimizer as FO
     from mxnet_tpu_torch.kernels import paged_attention as PA
     from mxnet_tpu_torch.models import gpt as G
@@ -1154,7 +1769,7 @@ def main():
     dev = torch.device("cuda", 0)
     failures = []
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     with ThreadPoolExecutor(len(_build.SOURCES)) as ex:   # one nvcc each
         list(ex.map(_build.load, _build.SOURCES))
     log("build: %d kernels in %.1f s" % (len(_build.SOURCES),
@@ -1188,6 +1803,8 @@ def main():
             errs["flash"] = e
     errs_train = check_training_kernels(FA, dev, failures)
     errs_sgd = check_sgd_kernels(FO, dev, resnet50_shapes(mx), failures)
+    err_conv_b16, stats_b16, planted_b16 = check_conv_kernel(FC, dev,
+                                                            failures)
 
     # ---- 4. the serving path, counters from 0
     cfg = G.gpt_config(vocab_size=VOCAB, max_len=MAX_LEN, d_model=D,
@@ -1313,6 +1930,17 @@ def main():
                                                     failures, flush)
     check_small_resnet(mx, dev, failures)
 
+    # ---- 7b. the extension surface, each path with its counters from 0:
+    # the fused conv experiment's twin, then rtc kernels through CustomOp
+    t_ext = time.perf_counter()
+    conv_launches, conv_shapes = conv_path(FC, dev, failures)
+    conv_errs, stats_b128, planted_b128 = check_conv_path(FC, conv_shapes,
+                                                          failures)
+    relu_fwd, relu_bwd = rtc_relu_op(mx)
+    axpy, ax_x, ax_y, err_rtc = rtc_checks(mx, dev, failures)
+    rtc_launches, err_rtc_path = rtc_path(mx, relu_fwd, relu_bwd, failures)
+    t_ext = time.perf_counter() - t_ext
+
     # ---- 8. timings at the paths' shapes
     kernels = []
     q, pool, s, bt, pos = captured["bfloat16"]
@@ -1387,6 +2015,40 @@ def main():
             "max_abs_err": errs_sgd[name], "tolerance": "bit for bit",
             **sgd_rows[name]})
 
+    t_time = time.perf_counter()
+    conv_rows = time_conv(FC, conv_shapes, conv_errs, flush)
+    kernels.append({
+        "name": "conv3x3_fused", "route": "cuda",
+        "source": "mxnet_tpu_torch/kernels/csrc/fused_conv.cu",
+        "replaces": "mxnet_tpu/kernels/fused_conv.py:143",
+        "launches": conv_launches,
+        "launches_by_path": {"fused_conv_exp": conv_launches},
+        **conv_rows[0]["conv"], "shape": conv_rows[0]["shape"] + " conv",
+        "max_abs_err": max(conv_errs.values()), "tolerance": CONV_TOL_TEXT,
+        "stats_err_over_limit": stats_b128,
+        "planted_dropped_block_err_over_limit": planted_b128,
+        "check_b16": {"max_abs_err": err_conv_b16,
+                      "stats_err_over_limit": stats_b16,
+                      "planted_dropped_block_err_over_limit": planted_b16},
+        "by_shape": conv_rows,
+        "library": "F.conv2d (cuDNN), channels-last bf16; the chain adds "
+                   "BN apply + ReLU before and channel sums after"})
+    rtc_row = time_rtc(axpy, ax_x, ax_y, mx, flush)
+    del ax_x, ax_y
+    log("extension phases (conv and rtc paths, checks and timings): %.1f s"
+        % (t_ext + time.perf_counter() - t_time))
+    kernels.append({
+        "name": "rtc", "route": "cuda",
+        "source": "mxnet_tpu_torch/rtc.py",
+        "replaces": "mxnet_tpu/rtc.py:74",
+        "launches": sum(rtc_launches.values()),
+        "launches_by_path": {"rtc": rtc_launches},
+        "max_abs_err": max(err_rtc, err_rtc_path),
+        "tolerance": "bit for bit", **rtc_row,
+        "library": "y.add_(x, alpha=3.0)",
+        "note": "NVRTC-compiled user kernels; the timed one is upstream's "
+                "axpy"})
+
     profile_steps(ServingEngine, params, cfg, reqs, dev)
     profile_window(lambda: step(state, batch, torch.Generator(
         device=dev).manual_seed(3)), BERT_PROFILE,
@@ -1424,6 +2086,7 @@ def main():
     log("info: full-width f32 engine vs generate on the card, 4 requests:"
         " %.3f token agreement" % np.mean(same))
 
+    log("chip_smoke: %.1f s in all" % (time.perf_counter() - t_start))
     if failures:
         raise Failed("checks failed: %s" % ", ".join(failures))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,8 +13,10 @@ CUDA tensor it launches the hand-written kernel or raises.
 
 The MXNet surface reads as in the reference, ``import mxnet_tpu_torch
 as mx``: ``mx.nd``, ``mx.autograd``, ``mx.gluon``, ``mx.init`` /
-``mx.initializer``, ``mx.optimizer``, ``mx.cpu()`` and ``mx.gpu(i)``;
-the default context is the card.
+``mx.initializer``, ``mx.optimizer``, ``mx.operator`` (CustomOp),
+``mx.rtc`` (CUDA source compiled at run time), ``mx.runtime``,
+``mx.library``, ``mx.cpu()`` and ``mx.gpu(i)``; the default context is
+the card.
 """
 from __future__ import annotations
 
@@ -51,7 +53,9 @@ def resolve_device(device=None):
 from . import base  # noqa: E402
 from .base import MXNetError  # noqa: E402,F401
 from .context import Context, cpu, gpu, current_context  # noqa: E402,F401
+from . import operator  # noqa: E402  (registers Custom before nd is filled)
 from . import ndarray  # noqa: E402
 from . import ndarray as nd  # noqa: E402
 from . import autograd, initializer, optimizer, gluon  # noqa: E402
 from . import initializer as init  # noqa: E402
+from . import runtime, library, rtc  # noqa: E402

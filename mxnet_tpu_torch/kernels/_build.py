@@ -30,7 +30,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _OUT = os.path.join(_HERE, "_build")
 
-SOURCES = ("flash_fwd", "flash_bwd", "paged_attention", "fused_sgd")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_attention", "fused_sgd",
+           "fused_conv")
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")

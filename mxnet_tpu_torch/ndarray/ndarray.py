@@ -1,7 +1,8 @@
 """NDArray: MXNet's mutable array over one ``torch.Tensor``.
 
 Port of ``mxnet_tpu/ndarray/ndarray.py`` (creation, host copies,
-context moves, arithmetic through the op registry, ``attach_grad`` /
+context moves, arithmetic through the op registry, indexing and slice
+assignment, ``attach_grad`` /
 ``grad`` / ``backward``, and ``save`` / ``load`` in the ``MXTP0001``
 container).  The reference swaps an immutable buffer on every mutation;
 here a mutation writes into the tensor in place (:meth:`NDArray._set_data`
@@ -192,11 +193,63 @@ class NDArray:
         from ..ops.registry import get_op, invoke
         return invoke(get_op("negative"), [self])
 
+    # -- indexing ------------------------------------------------------------
+    def __getitem__(self, key):
+        """Basic slicing (ints, slices, ``None``, ``...``) and integer or
+        boolean NDArray indices; the result is a new array, recorded
+        like any op (reference ``NDArray.__getitem__``)."""
+        from ..ops.registry import OpDef, invoke
+        arrays = _index_arrays(key)
+
+        def impl(data, *idx):
+            out = data[_rebuild_index(key, idx)]
+            return out.clone() if out._base is not None else out
+
+        return invoke(OpDef("_getitem", impl), [self] + arrays)
+
+    def __setitem__(self, key, value):
+        """Write ``value`` (an NDArray or a number, broadcast) into the
+        indexed part in place; refused on a recorded array while
+        recording (reference ``NDArray.__setitem__``)."""
+        from .. import autograd
+        if autograd.is_recording() and self._data.requires_grad:
+            raise MXNetError("Slice-assign on a recorded array is not "
+                             "allowed under autograd.record()")
+        k = _rebuild_index(key, [a._data for a in _index_arrays(key)])
+        v = value._data if isinstance(value, NDArray) else value
+        with torch.no_grad():
+            self._data[k] = v
+
     def reshape(self, *shape, **kwargs):
         if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
             shape = tuple(shape[0])
         from ..ops.registry import get_op, invoke
         return invoke(get_op("reshape"), [self], attrs={"shape": shape})
+
+
+def _index_arrays(key):
+    """The NDArrays of an index key, in order."""
+    if isinstance(key, NDArray):
+        return [key]
+    if isinstance(key, tuple):
+        return [k for k in key if isinstance(k, NDArray)]
+    return []
+
+
+def _rebuild_index(key, tensors):
+    """``key`` with its NDArrays replaced by ``tensors`` (integer
+    indices as int64, boolean masks kept)."""
+    it = iter(tensors)
+
+    def one(k):
+        if not isinstance(k, NDArray):
+            return k
+        t = next(it)
+        return t if t.dtype == torch.bool else t.long()
+
+    if isinstance(key, tuple):
+        return tuple(one(k) for k in key)
+    return one(key)
 
 
 # NDArray methods that mirror registered ops (reference _METHOD_OPS); the

@@ -1,9 +1,11 @@
 """Shape and indexing ops.
 
 Port of a subset of ``mxnet_tpu/ops/shape_ops.py``: ``reshape``,
-``Flatten`` and ``pick``.
+``Flatten``, ``Concat`` and ``pick``.
 """
 from __future__ import annotations
+
+import torch
 
 from ..base import not_ported
 from .registry import register
@@ -23,6 +25,11 @@ def reshape(data, shape=None, reverse=False, **kw):
 @register("Flatten", aliases=("flatten",))
 def flatten(data, **kw):
     return data.reshape(data.shape[0], -1)
+
+
+@register("Concat", aliases=("concat",), variadic=True)
+def concat(data, dim=1, num_args=None, **kw):
+    return torch.cat(data, dim=dim)
 
 
 @register("pick")
