@@ -4,7 +4,9 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every kernel from ``kernels/csrc`` (one ``nvcc`` per source,
-   all at once);
+   all at once) and prints, for each flash kernel, ptxas's registers,
+   spills and shared memory and the tensor-core (HMMA) instructions in
+   its SASS (``cuobjdump``, where the toolkit has it);
 3. holds each kernel against its plain PyTorch version on the card at
    the paths' shapes, each check with its stated tolerance: paged
    attention and the flash forward at the serving shapes; the flash
@@ -45,10 +47,13 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    on the card (TF32 off) and on the CPU from the same weights, losses
    compared;
 8. times each kernel, its plain version and a library call at the
-   paths' shapes (CUDA events, L2 flushed between launches) beside the
-   least time the card could take for the same work, times the BERT
-   and ResNet steps and profiles 20 engine steps, 20 BERT steps and 20
-   ResNet steps (torch.profiler) for the device's busy and idle time;
+   paths' shapes (L2 flushed between launches) beside the least time
+   the card could take for the same work: the flash and SGD kernels
+   and SDPA by their device time (torch.profiler, 20 calls) with CUDA
+   events around the call beside it, the others by CUDA events; logs
+   the operations SDPA ran; times the BERT and ResNet steps and
+   profiles 20 engine steps, 20 BERT steps and 20 ResNet steps
+   (torch.profiler) for the device's busy and idle time;
 9. drives the extension surface, each path with its counters from 0:
    the twin of ``benchmark/fused_conv_exp.py`` (the ResNet-50 3x3
    convolutions at batch 128, conv and BN->conv->stats chain, 3 steps
@@ -67,6 +72,13 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
 
 Exits non-zero, printing no result, without a CUDA device, when a
 kernel does not build or launch, or when any check fails.
+
+``python3 chip_smoke.py --parent DIR``, with DIR another checkout of
+this repository (the parent commit unpacked by ``git archive`` into a
+directory ``.gitignore`` lists), also times DIR's flash forward and
+dK/dV against this tree's, and the BERT-base and GPT train steps with
+DIR's flash kernels against this tree's, in turns (parent, change,
+change, parent) in one process on one card.
 """
 import dataclasses
 import itertools
@@ -75,6 +87,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -369,11 +382,12 @@ def bound(nbytes, flops, dtype):
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
-def profile_window(step, n, what):
+def profile_window(step, n, what, top=8):
     """Information: one torch.profiler window of ``n`` calls of
     ``step`` — host time per step, device busy time per step, the
-    device's idle share, and the kernels that take the most device
-    time."""
+    device's idle share, and the ``top`` kernels that take the most
+    device time.  Returns {"wall_ms", "busy_ms", "idle"} (None when the
+    profiler records no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -393,16 +407,18 @@ def profile_window(step, n, what):
     if busy_ms == 0.0:
         log("info: profile: the profiler recorded no device time "
             "(not measured)")
-        return
+        return None
     log("info: profile of %d %s: %.3f ms/step wall, %.3f "
         "ms/step device busy, device idle share %.3f, %d kernels/step"
         % (n, what, wall_ms, busy_ms, 1.0 - busy_ms / wall_ms,
            sum(c for _, c in by_name.values()) // n))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    for name, (t, c) in top:
+    for name, (t, c) in sorted(by_name.items(),
+                               key=lambda kv: -kv[1][0])[:top]:
         log("info:   %7.3f ms/step %5.1f%%  %4d/step  %s"
             % (t / 1e3 / n, 100.0 * t / 1e3 / n / busy_ms, c // n,
                name[:90]))
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle": 1.0 - busy_ms / wall_ms}
 
 
 def profile_steps(ServingEngine, params, cfg, reqs, dev, warm=60, n=20):
@@ -640,9 +656,63 @@ def check_small_f32(T_, dev, failures):
         failures.append("small f32 BERT card vs CPU")
 
 
-def sdpa_ms(q, k, v, do, mask, causal, dropout, flush):
-    """Yardstick only (never called by the port): torch SDPA forward
-    time, and its backward through autograd as fwd+bwd minus fwd."""
+# the L2 flush, ``flush.add_(1)`` on a uint8 tensor: its one kernel's
+# name holds this, and no timed call adds uint8 tensors
+FLUSH_OP = "add<unsigned char>"
+
+
+def device_time(fn, flush, match=None, calls=20):
+    """(ms, {operation: ms}) per call of ``fn`` on the device, from the
+    profiler over ``calls`` calls, the L2 flushed before each (the
+    flush's own kernel left out), for the operations whose name contains
+    ``match`` (every operation with ``match`` None, and then the flush
+    must be told apart: about one a call).  A window that records none
+    is taken again; after three, CUDA events around ``fn`` stand in, and
+    the log says so."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):   # a window can come back with no device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                flush.add_(1)
+                fn()
+            torch.cuda.synchronize()
+        seen = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA and (
+                    FLUSH_OP in ev.name or match is None or match in ev.name):
+                t, c = seen.get(ev.name, (0.0, 0))
+                seen[ev.name] = (t + ev.time_range.elapsed_us() / 1e3, c + 1)
+        # the profiler can miss a few device events of a window, so each
+        # operation's time a call is its mean over the launches it
+        # recorded times its launches a call (rounded from the count)
+        by = {name: t / c * max(1, round(c / calls))
+              for name, (t, c) in seen.items() if FLUSH_OP not in name}
+        flushes = sum(c for name, (_, c) in seen.items() if FLUSH_OP in name)
+        if by and (match is not None or round(flushes / calls) == 1):
+            return sum(by.values()), by
+    ms = cuda_ms(fn, flush=flush)
+    log("info: the profiler recorded no device time%s in 3 windows (%d "
+        "flushes in the last); CUDA-event time %.5f ms stands in"
+        % ("" if match is None else " for " + match, flushes, ms))
+    return ms, {"CUDA events (the profiler recorded nothing)": ms}
+
+
+def short_names(by):
+    return {name[:100]: round(ms, 5) for name, ms in
+            sorted(by.items(), key=lambda kv: -kv[1])}
+
+
+def sdpa_times(q, k, v, do, mask, causal, dropout, flush, tag):
+    """Yardstick only (never called by the port): torch SDPA's forward
+    and its backward through autograd (fwd+bwd minus fwd), each as
+    device time (profiler, every operation of the call) and CUDA-event
+    time; logs the operations SDPA ran, which name the backend it
+    chose."""
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     gt = do.transpose(1, 2)
@@ -657,8 +727,62 @@ def sdpa_ms(q, k, v, do, mask, causal, dropout, flush):
         qt.grad = kt.grad = vt.grad = None
         fwd().backward(gt)
 
-    f = cuda_ms(fwd, flush=flush)
-    return f, cuda_ms(fwd_bwd, flush=flush) - f
+    f, f_ops = device_time(fwd, flush)
+    fb, fb_ops = device_time(fwd_bwd, flush)
+    f_ev, fb_ev = cuda_ms(fwd, flush=flush), cuda_ms(fwd_bwd, flush=flush)
+    log("info: SDPA %s forward operations (device ms/call): %s"
+        % (tag, json.dumps(short_names(f_ops))))
+    log("info: SDPA %s fwd+bwd operations (device ms/call): %s"
+        % (tag, json.dumps(short_names(fb_ops))))
+    return {"fwd": f, "bwd": fb - f, "fwd_event": f_ev,
+            "bwd_event": fb_ev - f_ev}
+
+
+FLASH_MS_FROM = ("profiler: the kernel's own device time, mean of 20 "
+                 "calls, L2 flushed before each (CUDA events where the "
+                 "profiler recorded nothing, as the log says); event_ms: "
+                 "CUDA events around the wrapper, mean of 30")
+
+
+def flash_calls(FA, q, k, v, do, kw):
+    """{kernel name: (kernel call, plain call, work kind)} at these
+    inputs, lse and delta from one forward launch."""
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return {
+        "flash_fwd": (lambda: FA.flash_fwd(q, k, v, **kw),
+                      lambda: FA.flash_fwd_reference(q, k, v, **kw), "fwd"),
+        "flash_bwd_dq": (
+            lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+            lambda: FA.flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw),
+            "dq"),
+        "flash_bwd_dkv": (
+            lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+            lambda: FA.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                               **kw), "dkv")}
+
+
+def time_flash_case(FA, q, k, v, do, mask, causal, seed, flush, shape):
+    """Rows of the three flash kernels on one input set (bf16, dropout
+    0.1): device and event time, the plain version, the bound and torch
+    SDPA (for dQ and dK/dV its whole backward)."""
+    kw = dict(mask=mask, causal=causal, dropout=0.1, seed=seed)
+    lib = sdpa_times(q, k, v, do, mask, causal, 0.1, flush, shape)
+    rows = {}
+    for name, (kern, plain, kind) in flash_calls(FA, q, k, v, do,
+                                                 kw).items():
+        b_ms, b_by = bound(*flash_work(q, mask, causal, kind), q.dtype)
+        fwd = kind == "fwd"
+        rows[name] = {"ms": device_time(kern, flush, name)[0],
+                      "ms_from": FLASH_MS_FROM,
+                      "event_ms": cuda_ms(kern, flush=flush),
+                      "plain_ms": cuda_ms(plain, iters=5, flush=flush),
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib["fwd" if fwd else "bwd"],
+                      "library_event_ms": lib["fwd_event" if fwd
+                                              else "bwd_event"],
+                      "shape": shape}
+    return rows
 
 
 def time_training_kernels(FA, dev, flush):
@@ -669,33 +793,22 @@ def time_training_kernels(FA, dev, flush):
     for causal, use_mask in ((False, True), (True, False)):
         q, k, v, do, mask = train_inputs(dev, torch.bfloat16, use_mask, 60)
         seed = torch.tensor([77], dtype=torch.int32, device=dev)
-        kw = dict(mask=mask, causal=causal, dropout=0.1, seed=seed)
-        o, lse = FA.flash_fwd(q, k, v, **kw)
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        lib_f, lib_b = sdpa_ms(q, k, v, do, mask, causal, 0.1, flush)
-        calls = {
-            "flash_fwd": (lambda: FA.flash_fwd(q, k, v, **kw),
-                          lambda: FA.flash_fwd_reference(q, k, v, **kw),
-                          "fwd", lib_f),
-            "flash_bwd_dq": (
-                lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
-                lambda: FA.flash_bwd_dq_reference(q, k, v, do, lse, delta,
-                                                  **kw), "dq", lib_b),
-            "flash_bwd_dkv": (
-                lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
-                lambda: FA.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                                   **kw), "dkv", lib_b)}
-        for name, (kern, plain, kind, lib) in calls.items():
-            b_ms, b_by = bound(*flash_work(q, mask, causal, kind), q.dtype)
-            row = {"ms": cuda_ms(kern, flush=flush),
-                   "plain_ms": cuda_ms(plain, iters=5, flush=flush),
-                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-                   "shape": "bf16 B=16 T=512 H=12 dh=64 dropout 0.1 %s"
-                            % ("causal" if causal else "padding mask")}
+        shape = "bf16 B=16 T=512 H=12 dh=64 dropout 0.1 %s" % (
+            "causal" if causal else "padding mask")
+        case = time_flash_case(FA, q, k, v, do, mask, causal, seed, flush,
+                               shape)
+        for name, row in case.items():
             if causal:
                 log("info: %s causal: %s" % (name, json.dumps(row)))
             else:
                 rows[name] = row
+    q, k, v, do, mask = train_inputs(dev, torch.bfloat16, True, 60)
+    calls = flash_calls(FA, q, k, v, do, dict(mask=mask, causal=False,
+                                              dropout=0.0, seed=None))
+    log("info: without dropout (padding mask, device ms, the hash's "
+        "share of the dropout case): %s" % json.dumps({
+            name: device_time(calls[name][0], flush, name)[0]
+            for name in ("flash_fwd", "flash_bwd_dkv")}))
     log("info: library_ms of the backward kernels is torch SDPA's "
         "backward (fwd+bwd minus fwd), which computes dQ, dK and dV "
         "together")
@@ -710,32 +823,222 @@ def time_dh256(FA, dev, flush):
     q, k, v, do, mask = train_inputs(dev, torch.bfloat16, True, 62,
                                      dh=256, **DH256_TIME)
     seed = torch.tensor([78], dtype=torch.int32, device=dev)
-    kw = dict(mask=mask, causal=False, dropout=0.1, seed=seed)
-    o, lse = FA.flash_fwd(q, k, v, **kw)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    lib_f, lib_b = sdpa_ms(q, k, v, do, mask, False, 0.1, flush)
-    calls = {
-        "flash_fwd": (lambda: FA.flash_fwd(q, k, v, **kw),
-                      lambda: FA.flash_fwd_reference(q, k, v, **kw),
-                      "fwd", lib_f),
-        "flash_bwd_dq": (
-            lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
-            lambda: FA.flash_bwd_dq_reference(q, k, v, do, lse, delta,
-                                              **kw), "dq", lib_b),
-        "flash_bwd_dkv": (
-            lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
-            lambda: FA.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                               **kw), "dkv", lib_b)}
-    rows = {}
-    for name, (kern, plain, kind, lib) in calls.items():
-        b_ms, b_by = bound(*flash_work(q, mask, False, kind), q.dtype)
-        rows[name] = {"ms": cuda_ms(kern, flush=flush),
-                      "plain_ms": cuda_ms(plain, iters=5, flush=flush),
-                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-                      "shape": "bf16 B=16 T=512 H=3 dh=256 dropout 0.1 "
-                               "padding mask"}
-        log("info: %s dh256: %s" % (name, json.dumps(rows[name])))
+    rows = time_flash_case(FA, q, k, v, do, mask, False, seed, flush,
+                           "bf16 B=16 T=512 H=3 dh=256 dropout 0.1 "
+                           "padding mask")
+    for name, row in rows.items():
+        log("info: %s dh256: %s" % (name, json.dumps(row)))
     return rows
+
+
+def time_prefill(FA, dev, flush, err):
+    """The flash forward at the ``generate`` prefill's shapes (bf16,
+    causal, B=4, H=12, dh=64, T=192 and 512), beside its plain version,
+    bound and SDPA, as information."""
+    for T in (192, 512):
+        q, k, v, _ = flash_inputs(dev, T, torch.bfloat16, False, seed=30)
+
+        def kern():
+            return FA.flash_fwd(q, k, v, causal=True)
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True)
+
+        b_ms, b_by = bound(*flash_work(q, None, True), q.dtype)
+        log("info: flash_fwd serving prefill:", json.dumps({
+            "ms": device_time(kern, flush, "flash_fwd")[0],
+            "event_ms": cuda_ms(kern, flush=flush),
+            "plain_ms": cuda_ms(lambda: FA.flash_fwd_reference(
+                q, k, v, causal=True), flush=flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": device_time(lib, flush)[0],
+            "library_event_ms": cuda_ms(lib, flush=flush),
+            "max_abs_err": err if T == 192 else None,
+            "shape": "bf16 causal B=4 T=%d H=12 dh=64" % T}))
+
+
+# ---------------------------------------------------- builds and the parent --
+def build_report(_build):
+    """Per kernel of the flash libraries: ptxas's registers, spills and
+    static shared memory (the report kept beside each library) and, where
+    the toolkit has ``cuobjdump``, the count of tensor-core (HMMA or
+    HGMMA) instructions in its SASS.  Logged; returns {short name:
+    figures}."""
+    import shutil
+    tool = shutil.which("cuobjdump") or next(
+        (p for p in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin",
+                                  "cuobjdump"),
+                     "/usr/local/cuda/bin/cuobjdump") if os.path.exists(p)),
+        None)
+    out = {}
+    for name in ("flash_fwd", "flash_bwd"):
+        so = _build.library_path(name)
+        with open(so[:-3] + ".ptxas") as f:
+            rep = _build.ptxas_report(f.read())
+        mma = {}
+        if tool is not None:
+            sass = subprocess.run([tool, "-sass", so], capture_output=True,
+                                  text=True, timeout=300).stdout
+            cur = None
+            for line in sass.splitlines():
+                if "Function :" in line:
+                    cur = line.split("Function :", 1)[1].strip()
+                    mma[cur] = 0
+                elif cur is not None and ("HMMA" in line
+                                          or "HGMMA" in line):
+                    mma[cur] += 1
+        for mangled, fig in rep.items():
+            fig = dict(fig, tensor_core_instructions=mma.get(mangled)
+                       if tool else "no cuobjdump")
+            short = demangle(mangled)
+            out[short] = fig
+            log("info: build %s %s: %s" % (name, short, json.dumps(fig)))
+    return out
+
+
+def demangle(mangled):
+    """A kernel's template name, ``flash_fwd_tc<64, true>``, from its
+    mangled name (via c++filt where there is one)."""
+    try:
+        text = subprocess.run(["c++filt", mangled], capture_output=True,
+                              text=True, timeout=60).stdout.strip()
+    except OSError:
+        return mangled
+    text = text.replace("(anonymous namespace)::", "")
+    if text.startswith("void "):
+        text = text[5:]
+    return text.split("(", 1)[0]
+
+
+def load_parent_flash(parent):
+    """The flash module of another checkout of this repository (the
+    parent commit, unpacked under ``parent``), as package
+    ``parent_kernels``: its own sources, built into its own ``_build``."""
+    import importlib
+    import importlib.util
+    kdir = os.path.join(os.path.abspath(parent), "mxnet_tpu_torch", "kernels")
+    spec = importlib.util.spec_from_file_location(
+        "parent_kernels", os.path.join(kdir, "__init__.py"),
+        submodule_search_locations=[kdir])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules["parent_kernels"] = pkg
+    spec.loader.exec_module(pkg)
+    return importlib.import_module("parent_kernels.flash_attention")
+
+
+def use_flash(FA, impl):
+    """Route the port's attention autograd Function (which calls
+    ``FA.flash_fwd``, ``FA.flash_bwd_dq`` and ``FA.flash_bwd_dkv``) to
+    the wrappers of module ``impl``."""
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        setattr(FA, name, getattr(impl, name))
+
+
+def step_ms(init_state, step, batch, dev, n, warm, seed):
+    """Mean ms of ``n`` synchronised train steps after ``warm``."""
+    state = init_state(seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for _ in range(warm):
+        state, _ = step(state, batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, loss = step(state, batch, gen)
+    torch.cuda.synchronize()
+    del state
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def own_flash(FA):
+    """This tree's three flash wrappers, as a module-like object."""
+    return types.SimpleNamespace(**{n: getattr(FA, n) for n in (
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
+
+
+def compare_parent_steps(PFA, FA, dev, steps):
+    """The BERT-base and GPT train steps with the parent checkout's
+    flash kernels (module ``PFA``) against this tree's, in turns
+    (parent, change, change, parent, twice) in this process, by host
+    clock; then one profiled window a side for the device's busy time
+    a step (a profiler session slows the host-bound steps after it, so
+    it comes last).  ``steps``: {name: (init_state, step, batch, n,
+    warm, seed)}.  Logs and returns {name: {"parent": median ms/step,
+    "change": ..., "runs": ..., "profiled_parent": ...,
+    "profiled_change": ...}}."""
+    mine = own_flash(FA)
+    out = {}
+    for name, (init_state, step, batch, n, warm, seed) in steps.items():
+        got = {"parent": [], "change": []}
+        for side in ("parent", "change", "change", "parent") * 2:
+            use_flash(FA, PFA if side == "parent" else mine)
+            try:
+                got[side].append(step_ms(init_state, step, batch, dev, n,
+                                         warm, seed))
+            finally:
+                use_flash(FA, mine)
+        out[name] = {side: float(np.median(v_)) for side, v_ in got.items()}
+        out[name]["runs"] = got
+    for name, (init_state, step, batch, n, warm, seed) in steps.items():
+        for side in ("parent", "change"):    # profiled last: see above
+            use_flash(FA, PFA if side == "parent" else mine)
+            try:
+                state = init_state(seed=seed)
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                for _ in range(warm):
+                    step(state, batch, gen)
+                out[name]["profiled_" + side] = profile_window(
+                    lambda: step(state, batch, gen), n,
+                    "%s, %s flash kernels" % (name, side), top=0)
+                del state
+            finally:
+                use_flash(FA, mine)
+        log("info: parent vs change %s ms/step (median of 4 runs a "
+            "side): %s" % (name, json.dumps(out[name])))
+    return out
+
+
+def compare_parent_kernels(PFA, FA, dev, flush):
+    """The flash forward and dK/dV of the parent checkout (module
+    ``PFA``) against this tree's at BERT-base's case, causal, dh 256
+    and the serving prefill, in turns (parent, change, change, parent):
+    device and event ms of each.  Logs and returns {case: row}."""
+    mine = own_flash(FA)
+    cases = []
+    for tag, (causal, use_mask, extra) in (
+            ("BERT padding mask", (False, True, {})),
+            ("BERT causal", (True, False, {})),
+            ("dh 256", (False, True, dict(dh=256, **DH256_TIME)))):
+        q, k, v, do, mask = train_inputs(dev, torch.bfloat16, use_mask, 60,
+                                         **extra)
+        seed = torch.tensor([77], dtype=torch.int32, device=dev)
+        cases.append((tag, q, k, v, do, dict(mask=mask, causal=causal,
+                                              dropout=0.1, seed=seed),
+                      ("flash_fwd", "flash_bwd_dkv")))
+    q, k, v, _ = flash_inputs(dev, 192, torch.bfloat16, False, seed=30)
+    cases.append(("serving prefill B=4 T=192 causal", q, k, v, q,
+                  dict(causal=True), ("flash_fwd",)))
+    out = {}
+    for tag, q, k, v, do, kw, names in cases:
+        calls = {side: flash_calls(impl, q, k, v, do, kw)
+                 for side, impl in (("parent", PFA), ("change", mine))}
+        for name in names:
+            got = {"parent": [], "change": []}
+            for side in ("parent", "change", "change", "parent"):
+                kern = calls[side][name][0]
+                got[side].append((device_time(kern, flush, name)[0],
+                                  cuda_ms(kern, flush=flush)))
+            row = {side: {"ms": float(np.mean([d for d, _ in v_])),
+                          "event_ms": float(np.mean([e for _, e in v_]))}
+                   for side, v_ in got.items()}
+            row["speedup_device"] = row["parent"]["ms"] / row["change"]["ms"]
+            row["speedup_event"] = (row["parent"]["event_ms"]
+                                    / row["change"]["event_ms"])
+            out["%s %s" % (name, tag)] = row
+            log("info: parent vs change %s %s: %s" % (name, tag,
+                                                      json.dumps(row)))
+    return out
 
 
 # ------------------------------------------------------------ grouped SGD --
@@ -798,7 +1101,8 @@ def check_sgd_kernels(FO, dev, resnet_shapes, failures):
 def device_kernels(fn, name="", calls=1):
     """(device operations, device ms) per call of ``fn``, counting the
     operations whose name contains ``name``, over ``calls`` calls under
-    torch.profiler; (None, None) when it records no device time."""
+    torch.profiler (no L2 flush); (None, None) when it records no device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -811,8 +1115,11 @@ def device_kernels(fn, name="", calls=1):
            and name in ev.name]
     if not evs:
         return None, None
-    return (len(evs) // calls,
-            sum(ev.time_range.elapsed_us() for ev in evs) / 1e3 / calls)
+    # the profiler can miss a few events of a window: the mean of those
+    # it recorded, times the launches a call
+    per_call = max(1, round(len(evs) / calls))
+    return (len(evs) // calls, sum(ev.time_range.elapsed_us() for ev in evs)
+            / 1e3 / len(evs) * per_call)
 
 
 def compare_update_routes(mx, FO, trainer, params, failures):
@@ -1747,7 +2054,13 @@ def serve(G, ServingEngine, params, cfg, reqs, kv_int8, dev, spy=None):
     return outs, {"steps": steps, "tokens": toks, "seconds": dt}
 
 
-def main():
+def main(argv):
+    parent = None
+    if argv[:1] == ["--parent"] and len(argv) == 2:
+        parent = argv[1]
+    elif argv:
+        print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
@@ -1774,6 +2087,7 @@ def main():
         list(ex.map(_build.load, _build.SOURCES))
     log("build: %d kernels in %.1f s" % (len(_build.SOURCES),
                                           time.perf_counter() - t0))
+    build = build_report(_build)
 
     # ---- 3. each kernel against its plain version at the path's shapes
     errs = {"paged": 0.0, "flash": 0.0}
@@ -1921,6 +2235,12 @@ def main():
     log("GPT causal train step (bs %d x %d): %.3f ms (host clock over "
         "steps %d-%d, synchronised)" % (GPT_B, MAX_LEN, gpt_s * 1e3,
                                         GPT_WARM + 1, GPT_STEPS))
+    gbatch = {k: torch.as_tensor(v).to(dev) for k, v in gbatch.items()}
+    if parent is not None:        # before any profiler session
+        PFA = load_parent_flash(parent)
+        compare_parent_steps(PFA, FA, dev, {
+            "BERT-base train step": (init_state, step, batch, 10, 3, 0),
+            "GPT causal train step": (g_init, g_step, gbatch, 8, 2, 1)})
     check_small_f32(T_, dev, failures)
 
     # ---- 7. the Gluon path: ResNet-50 v1 through Trainer, then the
@@ -1970,22 +2290,7 @@ def main():
     log("info: paged int8 captured step: kernel %.4f ms, plain %.4f ms, "
         "bound %.4f ms (%s)" % (ms8, plain8, b8[0], b8[1]))
 
-    for T in (192, 512):                   # the generate prefill's shapes
-        q, k, v, _ = flash_inputs(dev, T, torch.bfloat16, False, seed=30)
-        ms = cuda_ms(lambda: FA.flash_fwd(q, k, v, causal=True),
-                     flush=flush)
-        plain = cuda_ms(lambda: FA.flash_fwd_reference(q, k, v,
-                                                       causal=True),
-                        flush=flush)
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True), flush=flush)
-        b_ms, b_by = bound(*flash_work(q, None, True), q.dtype)
-        log("info: flash_fwd serving prefill:", json.dumps({
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib,
-            "max_abs_err": errs["flash"] if T == 192 else None,
-            "shape": "bf16 causal B=4 T=%d H=12 dh=64" % T}))
+    time_prefill(FA, dev, flush, errs["flash"])
 
     by_path = {"serving": launches,
                "bert": bert_launches, "gpt": gpt_launches}
@@ -2004,7 +2309,10 @@ def main():
             "max_abs_err": errs_train[name],
             "tolerance": (FWD_TOL_TEXT if name == "flash_fwd"
                           else BWD_TOL_TEXT),
-            **row, "dh256": dh256[name]})
+            **row, "dh256": dh256[name],
+            "build": {k: v for k, v in build.items() if k.startswith(name)}})
+    if parent is not None:
+        compare_parent_kernels(PFA, FA, dev, flush)
     for name, line in (("fused_sgd_mom", 144), ("fused_sgd", 134)):
         kernels.append({
             "name": name, "route": "cuda",
@@ -2054,6 +2362,17 @@ def main():
         device=dev).manual_seed(3)), BERT_PROFILE,
         "BERT-base train steps")
     del state
+    g_state = g_init(seed=1)
+    g_gen = torch.Generator(device=dev).manual_seed(1)
+
+    def g_once():
+        nonlocal g_state
+        g_state, _ = g_step(g_state, gbatch, g_gen)
+
+    for _ in range(GPT_WARM):
+        g_once()
+    profile_window(g_once, GPT_STEPS, "GPT causal train steps")
+    del g_state
 
     # ---- 9. small float32 engine on the card vs generate on the CPU
     tiny = G.gpt_tiny(dtype="float32", vocab_size=128, max_len=64,
@@ -2098,7 +2417,7 @@ def main():
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except Failed as e:
         print("chip_smoke: FAILED: %s" % e, file=sys.stderr)
         sys.exit(1)

@@ -9,7 +9,9 @@ anew.  :func:`load` builds one source if needed; each source has its
 own lock, so loads of different sources from several threads run their
 ``nvcc`` at once.  The hash covers every header of ``csrc/`` that a
 source includes (``#include "x.cuh"``, followed transitively), so an
-edited header builds anew too.
+edited header builds anew too.  ``nvcc`` runs with ``-Xptxas -v``, and
+its report (registers, spills and shared memory per kernel) is kept
+beside the library (:func:`library_path`, :func:`ptxas_report`).
 
 Nothing here runs at import: the CPU tests import every module, and
 this machine may have no ``nvcc``.
@@ -24,7 +26,8 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["load", "source_hash", "SOURCES"]
+__all__ = ["load", "source_hash", "library_path", "ptxas_report",
+           "SOURCES"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -34,7 +37,7 @@ SOURCES = ("flash_fwd", "flash_bwd", "paged_attention", "fused_sgd",
            "fused_conv")
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC")
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
@@ -74,22 +77,64 @@ def source_hash(src):
     return h.hexdigest()
 
 
+def library_path(name):
+    """Where the library for ``csrc/<name>.cu`` is (or will be) built;
+    ``ptxas -v``'s report of its build lies beside it, with ``.ptxas``
+    in place of ``.so``."""
+    src = os.path.join(_CSRC, name + ".cu")
+    return os.path.join(_OUT, "%s-%s.so" % (name, source_hash(src)[:16]))
+
+
 def _compile(name):
     """Path of the library for ``csrc/<name>.cu``, built unless it
     exists."""
-    src = os.path.join(_CSRC, name + ".cu")
-    so = os.path.join(_OUT, "%s-%s.so" % (name, source_hash(src)[:16]))
+    so = library_path(name)
     if os.path.exists(so):
         return so
     os.makedirs(_OUT, exist_ok=True)
     tmp = "%s.%d.tmp" % (so, os.getpid())
-    out = subprocess.run([_nvcc(), *FLAGS, "-o", tmp, src],
+    out = subprocess.run([_nvcc(), *FLAGS, "-o", tmp,
+                          os.path.join(_CSRC, name + ".cu")],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    log = out.stdout.decode(errors="replace")
     if out.returncode != 0:
-        raise RuntimeError("nvcc failed for %s.cu:\n%s"
-                           % (name, out.stdout.decode(errors="replace")))
+        raise RuntimeError("nvcc failed for %s.cu:\n%s" % (name, log))
+    with open(so[:-3] + ".ptxas", "w") as f:
+        f.write(log)
     os.replace(tmp, so)
     return so
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def ptxas_report(log):
+    """{kernel (mangled name): {"registers", "spill_stores",
+    "spill_loads", "stack", "static_smem"}} from ``ptxas -v``'s output
+    (dynamic shared memory is set at launch and not in the report)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            cur = out.setdefault(m.group(1), {"static_smem": 0})
+            continue
+        if cur is None:
+            continue
+        m = _SPILL.search(line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = _REGS.search(line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = _SMEM.search(line)
+            if s:
+                cur["static_smem"] = int(s.group(1))
+    return out
 
 
 def load(name):

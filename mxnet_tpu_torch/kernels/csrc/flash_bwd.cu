@@ -22,32 +22,51 @@
 // of bf16 tensor-core work); dK/dV moves 6*B*T*H*dh*2 bytes (75 MB, 23
 // us) and needs 8*T^2*dh per (b, h) (25.8 GFLOP, 26 us).  So both sit on
 // the ridge, and a padding mask or the causal bound moves them to the
-// bytes side.  These first versions run f32 FMA on the CUDA cores (67
-// TFLOP/s peak), so they are bound by operations far above either line;
-// wgmma and TMA are later work.  PERF.md records their times.
+// bytes side.  PERF.md records their times beside those bounds.  The
+// tensor-core dK/dV keeps four f32 accumulator tiles live (S, dP, dK,
+// dV: 238-246 registers a thread at every dh), so an SM holds two of its
+// 4-warp blocks at dh 64: few warps to hide each tile's loads and the
+// per-element work (exp2, the hash, two bf16 packs).  It runs several
+// times its bound; no finer counter is readable on the card.
 //
-// Design (simple and correct first, the pattern of flash_fwd.cu):
-//   * dQ: one block of 128 threads per (b*h, BQ-row q tile), TPR threads
-//     per query row holding dh/TPR of q, dO and the f32 dQ accumulator;
-//     BK-key tiles of K and V staged in shared memory as f32.  The loop
-//     over key tiles stops at the diagonal tile when causal.
-//   * dK/dV: one block per (b*h, BK-key tile), TPR threads per key row
-//     holding dh/TPR of k, v and the two f32 accumulators; BQ-row tiles
-//     of Q and dO (with their lse and delta) staged in shared memory.
-//     The loop over query tiles starts at the diagonal tile when causal.
-//     (BQ = BK = 32, TPR = 4 at dh 64 and 128; 16 and 8 at dh 256, so
-//     the staged tiles stay within 48 KB: flash_common.cuh.)
-//   * each score and each dP is a TPR-lane shuffle reduce; every pair is
-//     visited once per kernel, no atomics, so results are deterministic.
-//   * masked keys, keys and queries past T, and pairs above the diagonal
-//     get P = 0 (the reference's jnp.where(valid, exp(...), 0)).
+// dK/dV in bf16 runs on the tensor cores (flash_bwd_dkv_tc; mma.sync
+// m16n8k16 with f32 accumulators, helpers in flash_mma.cuh), FA2's
+// key-major loop without atomics:
+//   * one block per (b*h, 64-key tile): 4 warps of 16 keys; at dh 256, 8
+//     warps, two per 16 keys, each owning half of dK's and dV's columns
+//     (the 64 x 256 f32 accumulators would be 256 registers a thread on
+//     4 warps); both warps of a pair compute the same S and dP;
+//   * K and V of the tile sit in shared memory for the whole walk; the
+//     block walks the query tiles (BQ = 64 at dh 64, 32 above, for the
+//     registers), from the diagonal tile when causal, through a two-stage
+//     cp.async ring of Q, dO, lse and delta, zero-filled past T;
+//   * S^T = K Q^T and dP^T = V dO^T come out with keys as rows, so P^T,
+//     P~^T and dS^T are built in the accumulator layout, rounded to bf16
+//     and repacked in registers as the A operands of dV += P~^T dO and
+//     dK += dS^T Q (dO and Q as B operands through ldmatrix.trans);
+//   * rows are keys here, but the hash is still called as (bh, q_pos,
+//     k_pos); every (query, key) pair is visited once per block, with no
+//     atomics, so results are deterministic (remat on and off agree).
+// dQ (both dtypes) and dK/dV in f32 run the CUDA-core kernels: TPR
+// threads per query (key) row, each holding dh/TPR of its row and of the
+// f32 accumulators; tiles staged in shared memory as f32; each score and
+// each dP a TPR-lane shuffle reduce (BQ = BK = 32, TPR = 4 at dh 64 and
+// 128; 16 and 8 at dh 256: flash_common.cuh).  The f32 kernels stay off
+// the tensor cores, which take f32 only as TF32.  Masked keys, keys and
+// queries past T, and pairs above the diagonal get P = 0 (the
+// reference's jnp.where(valid, exp(...), 0)).
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
 using namespace mxt_flash;
+using namespace mxt_mma;
+using bf16 = __nv_bfloat16;
+
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <typename T, int DH, bool CAUSAL>
 __global__ void __launch_bounds__(NT)
@@ -130,14 +149,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DH, bool CAUSAL>
+template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     const int8_t* __restrict__ mask, T* __restrict__ dk,
-                     T* __restrict__ dv, int seq, int heads, float sm_scale,
-                     Dropout drop) {
+flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  const int8_t* __restrict__ mask, float* __restrict__ dk,
+                  float* __restrict__ dv, int seq, int heads, float sm_scale,
+                  Dropout drop) {
   constexpr int TPR = Tile<DH>::TPR, BQ = Tile<DH>::BQ, BK = Tile<DH>::BK;
   constexpr int DPT = DH / TPR;
   __shared__ float qs[BQ][DH];
@@ -162,8 +181,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < DPT; ++i) {
     const size_t at = base + (size_t)kpos * rs + sub + TPR * i;
-    kr[i] = kvalid ? to_f(k[at]) : 0.f;
-    vr[i] = kvalid ? to_f(v[at]) : 0.f;
+    kr[i] = kvalid ? k[at] : 0.f;
+    vr[i] = kvalid ? v[at] : 0.f;
     dka[i] = 0.f;
     dva[i] = 0.f;
   }
@@ -178,8 +197,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int qp = q0 + i;
       float qv = 0.f, dv_ = 0.f;
       if (qp < seq) {
-        qv = to_f(q[base + (size_t)qp * rs + d]);
-        dv_ = to_f(dout[base + (size_t)qp * rs + d]);
+        qv = q[base + (size_t)qp * rs + d];
+        dv_ = dout[base + (size_t)qp * rs + d];
       }
       qs[i][d] = qv;
       dos[i][d] = dv_;
@@ -210,11 +229,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         pd = keep ? p * drop.inv : 0.f;
         dp = keep ? dp * drop.inv : 0.f;
       }
-      const float pr = round_to<T>(pd);
-      const float ds = round_to<T>(p * (dp - dl[i]) * sm_scale);
+      const float ds = p * (dp - dl[i]) * sm_scale;
 #pragma unroll
       for (int d = 0; d < DPT; ++d) {
-        dva[d] += pr * dos[i][sub + TPR * d];
+        dva[d] += pd * dos[i][sub + TPR * d];
         dka[d] += ds * qs[i][sub + TPR * d];
       }
     }
@@ -223,8 +241,175 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
       const size_t at = base + (size_t)kpos * rs + sub + TPR * i;
-      dk[at] = from_f<T>(dka[i]);
-      dv[at] = from_f<T>(dva[i]);
+      dk[at] = dka[i];
+      dv[at] = dva[i];
+    }
+  }
+}
+
+// ----------------------------------------------------- bf16 tensor cores --
+template <int DH> struct DkvTc {
+  static constexpr int WN = DH <= 128 ? 1 : 2;  // warps sharing 16 keys
+  static constexpr int NW = 4 * WN;             // warps per block
+  static constexpr int BK = 64;                 // keys per block
+  static constexpr int BQ = DH <= 64 ? 64 : 32; // queries per tile
+  static constexpr int LD = DH + 8;             // padded smem row, bf16
+  static constexpr int DW = DH / WN;            // dK/dV columns per warp
+  static constexpr size_t SMEM =                // K, V, Q x2, dO x2; lse, delta x2
+      (size_t)(2 * BK + 4 * BQ) * LD * sizeof(bf16) + 4 * BQ * sizeof(float);
+};
+
+template <int DH, bool CAUSAL>
+__global__ void __launch_bounds__(32 * DkvTc<DH>::NW)
+flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 const int8_t* __restrict__ mask, bf16* __restrict__ dk,
+                 bf16* __restrict__ dv, int seq, int heads, float sm_scale,
+                 Dropout drop) {
+  using G = DkvTc<DH>;
+  constexpr int BQ = G::BQ, BK = G::BK, LD = G::LD, DW = G::DW, NTH = 32 * G::NW;
+  constexpr int KS = DH / 16;  // k-steps of S^T and dP^T over dh
+  constexpr int NS = BQ / 8;   // 8-query column tiles of S^T
+  constexpr int NO = DW / 8;   // 8-wide column tiles of this warp's dK, dV
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);   // [BK][LD]
+  bf16* vs = ks + BK * LD;                    // [BK][LD]
+  bf16* qs = vs + BK * LD;                    // [2][BQ][LD]
+  bf16* dos = qs + 2 * BQ * LD;               // [2][BQ][LD]
+  float* ls = reinterpret_cast<float*>(dos + 2 * BQ * LD);  // [2][BQ]
+  float* dls = ls + 2 * BQ;                   // [2][BQ]
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads, h = bh % heads;
+  const int k0 = blockIdx.x * BK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw = warp & 3, wn = warp >> 2;    // 16-key group, column half
+  const size_t rs = (size_t)heads * DH;
+  const size_t base = (size_t)b * seq * rs + (size_t)h * DH;
+  const uint32_t seed = drop.on ? (uint32_t)drop.seed[0] : 0u;
+  const float scale2 = sm_scale * LOG2E;
+  const int kr[2] = {k0 + kw * 16 + g, k0 + kw * 16 + g + 8};
+  // a masked key gets no gradient from any query
+  bool kon[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) kon[i] = kr[i] < seq && mask[(size_t)b * seq + kr[i]] != 0;
+
+  const int nq = (seq + BQ - 1) / BQ;
+  const int j0 = CAUSAL ? k0 / BQ : 0;  // q tiles above the diagonal see none of these keys
+  // Q, dO, lse and delta of query tile qt into stage stg
+  auto load_q = [&](int qt, int stg) {
+    const int q0 = qt * BQ;
+    load_rows<BQ, DH, NTH>(qs + stg * BQ * LD, q + base, q0, seq, rs);
+    load_rows<BQ, DH, NTH>(dos + stg * BQ * LD, dout + base, q0, seq, rs);
+    if (tid < 2 * BQ) {
+      const int i = tid % BQ;
+      const bool ok = q0 + i < seq;
+      const float* src = (tid < BQ ? lse : delta) + (size_t)bh * seq + (ok ? q0 + i : 0);
+      cp_async4((tid < BQ ? ls : dls) + stg * BQ + i, src, ok);
+    }
+  };
+  load_rows<BK, DH, NTH>(ks, k + base, k0, seq, rs);
+  load_rows<BK, DH, NTH>(vs, v + base, k0, seq, rs);
+  load_q(j0, 0);
+  cp_async_commit();
+
+  float dka[NO][4], dva[NO][4];
+#pragma unroll
+  for (int d = 0; d < NO; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
+
+  for (int qt = j0; qt < nq; ++qt) {
+    const int st = (qt - j0) & 1, q0 = qt * BQ;
+    if (qt + 1 < nq) {  // the next query tile into the other stage
+      load_q(qt + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile (and, on the first, K and V) has landed
+    const bf16* qst = qs + st * BQ * LD;
+    const bf16* dost = dos + st * BQ * LD;
+    const float* lst = ls + st * BQ;
+    const float* dlst = dls + st * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x BQ queries a warp
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ak[4], av[4];
+      ldsm_x4(ak, a_addr<LD>(ks, kw * 16, kk * 16, lane));
+      ldsm_x4(av, a_addr<LD>(vs, kw * 16, kk * 16, lane));
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {
+        uint32_t bq[4], bo[4];
+        ldsm_x4(bq, b_addr<LD>(qst, j * 16, kk * 16, lane));
+        ldsm_x4(bo, b_addr<LD>(dost, j * 16, kk * 16, lane));
+        mma(s[2 * j], ak, bq[0], bq[1]);
+        mma(s[2 * j + 1], ak, bq[2], bq[3]);
+        mma(dp[2 * j], av, bo[0], bo[1]);
+        mma(dp[2 * j + 1], av, bo[2], bo[3]);
+      }
+    }
+
+    // P^T = exp(S^T * scale - lse) where valid; P~^T and dS^T in place
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + 2 * t + (e & 1), qp = q0 + col, kp = kr[e >> 1];
+        const bool valid = kon[e >> 1] && qp < seq && (!CAUSAL || kp <= qp);
+        const float p = valid ? exp2f(s[j][e] * scale2 - lst[col] * LOG2E) : 0.f;
+        float pd = p, dpv = dp[j][e];
+        if (drop.on) {
+          const bool keep = dropout_keep(bh, qp, kp, seed, drop.thr);
+          pd = keep ? p * drop.inv : 0.f;
+          dpv = keep ? dpv * drop.inv : 0.f;
+        }
+        s[j][e] = pd;
+        dp[j][e] = p * (dpv - dlst[col]) * sm_scale;
+      }
+    }
+
+    // dV += P~^T dO and dK += dS^T Q over this warp's columns
+#pragma unroll
+    for (int jj = 0; jj < BQ / 16; ++jj) {
+      uint32_t pa[4], da[4];
+      acc_to_a(pa, s[2 * jj], s[2 * jj + 1]);
+      acc_to_a(da, dp[2 * jj], dp[2 * jj + 1]);
+#pragma unroll
+      for (int d2 = 0; d2 < DW / 16; ++d2) {
+        const int n0 = wn * DW + d2 * 16;
+        uint32_t bo[4], bq[4];
+        ldsm_x4_t(bo, bt_addr<LD>(dost, jj * 16, n0, lane));
+        ldsm_x4_t(bq, bt_addr<LD>(qst, jj * 16, n0, lane));
+        mma(dva[2 * d2], pa, bo[0], bo[1]);
+        mma(dva[2 * d2 + 1], pa, bo[2], bo[3]);
+        mma(dka[2 * d2], da, bq[0], bq[1]);
+        mma(dka[2 * d2 + 1], da, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (kr[i] >= seq) continue;
+    const size_t at = base + (size_t)kr[i] * rs + wn * DW + 2 * t;
+#pragma unroll
+    for (int d = 0; d < NO; ++d) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + d * 8) =
+          __floats2bfloat162_rn(dka[d][2 * i], dka[d][2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + d * 8) =
+          __floats2bfloat162_rn(dva[d][2 * i], dva[d][2 * i + 1]);
     }
   }
 }
@@ -248,14 +433,31 @@ void launch_dq(const Args& a, void* dq, cudaStream_t st) {
 #undef MXT_DQ
 }
 
-template <typename T, int DH>
-void launch_dkv(const Args& a, void* dk, void* dv, cudaStream_t st) {
-  dim3 grid((a.seq + Tile<DH>::BK - 1) / Tile<DH>::BK, a.B * a.H);
+template <int DH>
+void launch_dkv(const Args& a, int bf16_, void* dk, void* dv, cudaStream_t st) {
+  if (!bf16_) {
+    dim3 grid((a.seq + Tile<DH>::BK - 1) / Tile<DH>::BK, a.B * a.H);
 #define MXT_DKV(C)                                                             \
-  flash_bwd_dkv_kernel<T, DH, C><<<grid, NT, 0, st>>>(                         \
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,           \
-      (const float*)a.lse, (const float*)a.delta, (const int8_t*)a.mask,       \
-      (T*)dk, (T*)dv, a.seq, a.H, a.sm_scale, a.drop)
+  flash_bwd_dkv_f32<DH, C><<<grid, NT, 0, st>>>(                               \
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,                 \
+      (const float*)a.dout, (const float*)a.lse, (const float*)a.delta,        \
+      (const int8_t*)a.mask, (float*)dk, (float*)dv, a.seq, a.H, a.sm_scale,   \
+      a.drop)
+    if (a.causal) MXT_DKV(true); else MXT_DKV(false);
+#undef MXT_DKV
+    return;
+  }
+  using G = DkvTc<DH>;
+  dim3 grid((a.seq + G::BK - 1) / G::BK, a.B * a.H);
+#define MXT_DKV(C)                                                             \
+  do {                                                                         \
+    allow_smem<flash_bwd_dkv_tc<DH, C>>((int)G::SMEM);                         \
+    flash_bwd_dkv_tc<DH, C><<<grid, 32 * G::NW, G::SMEM, st>>>(                \
+        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,                  \
+        (const bf16*)a.dout, (const float*)a.lse, (const float*)a.delta,       \
+        (const int8_t*)a.mask, (bf16*)dk, (bf16*)dv, a.seq, a.H, a.sm_scale,   \
+        a.drop);                                                               \
+  } while (0)
   if (a.causal) MXT_DKV(true); else MXT_DKV(false);
 #undef MXT_DKV
 }
@@ -263,10 +465,11 @@ void launch_dkv(const Args& a, void* dk, void* dv, cudaStream_t st) {
 }  // namespace
 
 // Common arguments of both entries: q, k, v, dout: (B, T, H, dh)
-// contiguous, f32 (bf16 == 0) or bf16 (bf16 == 1); lse, delta: (B, H, T)
-// f32; mask: (B, T) int8, nonzero = key kept; dropout != 0 regenerates
-// the forward's keep mask from the int32 seed at ``seed`` (device
-// memory), threshold ``thr``, scale ``inv``.  dh must be 64, 128 or 256.
+// contiguous, f32 (bf16 == 0) or bf16 (bf16 == 1, 16-byte aligned);
+// lse, delta: (B, H, T) f32; mask: (B, T) int8, nonzero = key kept;
+// dropout != 0 regenerates the forward's keep mask from the int32 seed
+// at ``seed`` (device memory), threshold ``thr``, scale ``inv``.  dh
+// must be 64, 128 or 256.
 // Each returns cudaGetLastError() after its launch (an unsupported dh
 // returns cudaErrorInvalidValue).
 
@@ -302,12 +505,9 @@ extern "C" int mxt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const Args a{q, k, v, dout, lse, delta, mask, B, seq, H, causal, sm_scale,
                Dropout{(const int*)seed, thr, inv, dropout}};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dh == 64 && bf16) launch_dkv<__nv_bfloat16, 64>(a, dk, dv, st);
-  else if (dh == 64) launch_dkv<float, 64>(a, dk, dv, st);
-  else if (dh == 128 && bf16) launch_dkv<__nv_bfloat16, 128>(a, dk, dv, st);
-  else if (dh == 128) launch_dkv<float, 128>(a, dk, dv, st);
-  else if (dh == 256 && bf16) launch_dkv<__nv_bfloat16, 256>(a, dk, dv, st);
-  else if (dh == 256) launch_dkv<float, 256>(a, dk, dv, st);
+  if (dh == 64) launch_dkv<64>(a, bf16, dk, dv, st);
+  else if (dh == 128) launch_dkv<128>(a, bf16, dk, dv, st);
+  else if (dh == 256) launch_dkv<256>(a, bf16, dk, dv, st);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,8 @@
-// Shared by flash_fwd.cu and flash_bwd.cu: the tile geometry, the
-// f32 <-> storage-type conversions and the positional-hash dropout.
+// Shared by flash_fwd.cu and flash_bwd.cu: the positional-hash dropout
+// and, for the CUDA-core kernels (dQ, and the forward and dK/dV in f32),
+// the tile geometry and the f32 <-> storage-type conversions.  The bf16
+// forward and dK/dV run on the tensor cores with their own tiles
+// (flash_mma.cuh and the kernels' notes).
 //
 // The tile geometry depends on the head dim.  Every block has NT = 128
 // threads; TPR of them share a query (or key) row, each holding DH/TPR

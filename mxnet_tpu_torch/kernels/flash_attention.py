@@ -13,6 +13,10 @@ the reference's three Pallas kernels:
 * ``csrc/flash_bwd.cu`` ``mxt_flash_bwd_dkv`` (:func:`flash_bwd_dkv`)
   replaces the dK/dV kernel ``_bwd_dkv_kernel``.
 
+In bf16 the forward and dK/dV run on the tensor cores (``mma.sync``,
+``csrc/flash_mma.cuh``); dQ, and every kernel in f32, on the CUDA
+cores.
+
 The plain backward versions recompute P densely from lse, as the
 kernels do blockwise.  Every wrapper runs its plain version for CPU
 tensors only; a CUDA tensor launches the kernel or raises, and each
@@ -197,6 +201,10 @@ def _check(what, q, others, mask, seed, dropout):
                          % (what, dh))
     if not all(x.is_contiguous() for x in [q] + [x for _, x in others]):
         raise ValueError("%s: q, k, v (and dO) must be contiguous" % what)
+    if q.dtype == torch.bfloat16 and any(
+            x.data_ptr() % 16 for x in [q] + [x for _, x in others]):
+        raise ValueError("%s: bf16 q, k, v (and dO) must start 16-byte "
+                         "aligned (the kernels copy 16-byte pieces)" % what)
     if mask is None:
         m8 = torch.ones(B, T, dtype=torch.int8, device=q.device)
     else:
@@ -231,10 +239,10 @@ def flash_fwd(q, k, v, mask=None, causal=False, dropout=0.0, seed=None):
     """(B, T, H, dh) attention forward -> (O, lse (B, H, T) f32).
 
     CUDA tensors launch ``csrc/flash_fwd.cu`` (f32 or bf16, dh 64,
-    128 or 256, any T, contiguous; with ``dropout > 0`` an int32 ``seed``
-    tensor on the same device); CPU tensors run
-    :func:`flash_fwd_reference`.  ``flash_fwd.launches`` counts kernel
-    launches."""
+    128 or 256, any T, contiguous, bf16 16-byte aligned; with
+    ``dropout > 0`` an int32 ``seed`` tensor on the same device); CPU
+    tensors run :func:`flash_fwd_reference`.  ``flash_fwd.launches``
+    counts kernel launches."""
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, mask=mask, causal=causal,
                                    dropout=dropout, seed=seed)

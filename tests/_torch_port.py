@@ -67,3 +67,66 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def check_flash_on_card(dev, dtype, T, dh, causal, use_mask, dropout, seed,
+                        backward=True, B=2, H=3):
+    """The flash forward (and, with ``backward``, dQ and dK/dV) kernels
+    launched once each on the card at (B, T, H, dh) and held against
+    their plain versions: f32 within 1e-5 (O) and 1e-4 (lse, the
+    gradients) of 1 + |plain|; bf16 within the limits ``chip_smoke.py``
+    derives (``fwd_limit``, ``bwd_limits``; run from the repository
+    root), lse within the f32 1e-4.  With ``use_mask`` and not causal,
+    the last batch row has all its keys masked; with causal, key 0 is
+    kept in every row (a query whose keys up to the diagonal are all
+    masked has no common answer: the plain version spreads it over all
+    T keys, the kernels over the tiles up to the diagonal)."""
+    from chip_smoke import LSE_TOL, bwd_limits, fwd_limit
+    from mxnet_tpu_torch.kernels import flash_attention as FA
+    rng = np.random.RandomState(seed)
+    q, k, v, g = (torch.from_numpy(rng.randn(B, T, H, dh).astype(np.float32))
+                  .to(dev, dtype) for _ in range(4))
+    mask = None
+    if use_mask:
+        m = rng.rand(B, T) > 0.3
+        m[:, 0] = True
+        if not causal:
+            m[-1] = False
+        mask = torch.from_numpy(m).to(dev)
+    kw = dict(mask=mask, causal=causal, dropout=dropout,
+              seed=torch.tensor([seed], dtype=torch.int32, device=dev))
+    before = (FA.flash_fwd.launches, FA.flash_bwd_dq.launches,
+              FA.flash_bwd_dkv.launches)
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    got, refs, limits = [o], [], []
+    if dtype == torch.float32:
+        o_r, lse_r = FA.flash_fwd_reference(q, k, v, **kw)
+        limits.append(1e-5 * (1 + o_r.abs()))
+    else:
+        o_r, lse_r, lim = fwd_limit(FA, q, k, v, kw)
+        limits.append(lim)
+    refs.append(o_r)
+    got.append(lse)
+    refs.append(lse_r)
+    limits.append(LSE_TOL["float32"] * (1 + lse_r.abs()))
+    if backward:
+        delta = (g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = FA.flash_bwd_dq(q, k, v, g, lse, delta, **kw)
+        dk, dv = FA.flash_bwd_dkv(q, k, v, g, lse, delta, **kw)
+        grads = (FA.flash_bwd_dq_reference(q, k, v, g, lse, delta, **kw),
+                 *FA.flash_bwd_dkv_reference(q, k, v, g, lse, delta, **kw))
+        got += [dq, dk, dv]
+        refs += list(grads)
+        limits += ([1e-4 * (1 + r.float().abs()) for r in grads]
+                   if dtype == torch.float32 else
+                   bwd_limits(FA, q, k, v, g, lse, delta, grads, kw))
+    torch.cuda.synchronize()
+    n = 3 if backward else 1
+    assert (FA.flash_fwd.launches, FA.flash_bwd_dq.launches,
+            FA.flash_bwd_dkv.launches)[:n] == tuple(x + 1 for x in before)[:n]
+    for name, x, r, lim in zip(("O", "lse", "dQ", "dK", "dV"), got, refs,
+                               limits):
+        x, r = x.float(), r.float()
+        assert bool(torch.isfinite(x).all()), name
+        err = (x - r).abs()
+        assert bool((err <= lim).all()), (name, float((err / lim).max()))

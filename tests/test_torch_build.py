@@ -41,3 +41,25 @@ def test_every_source_hashes_with_its_header():
     hashes = {_build.source_hash(os.path.join(csrc, n + ".cu"))
               for n in _build.SOURCES}
     assert len(hashes) == len(_build.SOURCES)
+
+
+def test_ptxas_report_reads_registers_spills_and_smem():
+    """``ptxas -v``'s report, as nvcc prints it for two kernels, read
+    into registers, spills and static shared memory per kernel."""
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z1aPf' for 'sm_90a'
+ptxas info    : Function properties for _Z1aPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, 360 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1bPf' for 'sm_90a'
+ptxas info    : Function properties for _Z1bPf
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, 33024 bytes smem, 360 bytes cmem[0]
+"""
+    rep = _build.ptxas_report(log)
+    assert rep == {
+        "_Z1aPf": {"registers": 168, "spill_stores": 0, "spill_loads": 0,
+                   "stack": 0, "static_smem": 0},
+        "_Z1bPf": {"registers": 255, "spill_stores": 12, "spill_loads": 16,
+                   "stack": 8, "static_smem": 33024}}
+    assert _build.library_path("flash_fwd").endswith(".so")

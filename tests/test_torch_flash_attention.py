@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from _torch_port import cuda_device  # noqa: F401  (fixture)
+from _torch_port import check_flash_on_card
 
 _TOL = 1e-5
 
@@ -120,3 +121,17 @@ def test_cuda_kernel_matches_plain(cuda_device, T, causal,  # noqa: F811
                                o_r.float().numpy(), rtol=to, atol=to)
     np.testing.assert_allclose(lse.cpu().numpy(), lse_r.numpy(), rtol=tl,
                                atol=tl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [1, 17, 100, 513])
+@pytest.mark.parametrize("causal,use_mask,dropout", [
+    (False, True, 0.1), (True, False, 0.0), (True, True, 0.1)])
+def test_cuda_forward_ragged(cuda_device, dtype, T, causal,  # noqa: F811
+                             use_mask, dropout):
+    """The forward at lengths no tile divides (T = 1 and 17 below one
+    tile, causal or not), with a row whose keys are all masked and with
+    dropout, held to ``chip_smoke.py``'s limits (B=2, H=3, dh=64)."""
+    check_flash_on_card(cuda_device, getattr(torch, dtype), T, 64, causal,
+                        use_mask, dropout, seed=T, backward=False)

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from _torch_port import cuda_device  # noqa: F401  (fixture)
+from _torch_port import check_flash_on_card
 
 _TOL_FWD = 1e-5
 _TOL_BWD = 1e-4
@@ -206,3 +207,18 @@ def test_cuda_kernels_match_plain(cuda_device, dtype, causal,  # noqa: F811
         assert bool(torch.isfinite(got).all())
         assert bool(((got - ref).abs() <= lim).all()), \
             float((got - ref).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("T", [1, 17, 100, 513])
+@pytest.mark.parametrize("causal,use_mask,dropout", [
+    (False, True, 0.1), (True, True, 0.1), (True, False, 0.0)])
+def test_cuda_kernels_ragged(cuda_device, dtype, dh, T, causal,  # noqa: F811
+                             use_mask, dropout):
+    """Forward, dQ and dK/dV at lengths no tile divides (T = 1 and 17
+    below one tile), dh 64 and 128, with a row whose keys are all masked
+    (not causal), held to ``chip_smoke.py``'s limits (B=2, H=3)."""
+    check_flash_on_card(cuda_device, getattr(torch, dtype), T, dh, causal,
+                        use_mask, dropout, seed=T + dh)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from _torch_port import cuda_device  # noqa: F401  (fixture)
+from _torch_port import check_flash_on_card
 
 DH = 256
 _TOL_FWD, _TOL_BWD = 1e-5, 1e-4
@@ -108,19 +109,36 @@ def test_head_dims_the_wrappers_take():
         _check("flash_fwd", _CudaStandIn(96), (), None, None, 0.0)
 
 
-class _CudaStandIn:
-    """Just enough of a (1, 8, 1, dh) f32 CUDA tensor for ``_check``."""
+def test_bf16_tensors_must_be_16_byte_aligned():
+    """The tensor-core kernels copy 16-byte pieces: ``_check`` refuses a
+    contiguous bf16 q that starts 8 bytes off (a stand-in for a CUDA
+    view; no card needed) and passes the aligned one on to the mask."""
+    from mxnet_tpu_torch.kernels.flash_attention import _check
+    q = _CudaStandIn(64, torch.bfloat16, contiguous=True, ptr=8)
+    with pytest.raises(ValueError, match="16-byte"):
+        _check("flash_fwd", q, (), None, None, 0.0)
+    q = _CudaStandIn(64, torch.bfloat16, contiguous=True, ptr=256)
+    with pytest.raises(ValueError, match="mask must be"):
+        _check("flash_fwd", q, (), torch.zeros(1, 9), None, 0.0)
 
-    def __init__(self, dh):
+
+class _CudaStandIn:
+    """Just enough of a (1, 8, 1, dh) CUDA tensor for ``_check``."""
+
+    def __init__(self, dh, dtype=torch.float32, contiguous=False, ptr=0):
         self.device = torch.device("cuda", 0)
-        self.dtype = torch.float32
+        self.dtype = dtype
         self.shape = torch.Size((1, 8, 1, dh))
+        self._contiguous, self._ptr = contiguous, ptr
 
     def dim(self):
         return 4
 
     def is_contiguous(self):
-        return False
+        return self._contiguous
+
+    def data_ptr(self):
+        return self._ptr
 
 
 # ------------------------------------------------------------- on the card --
@@ -162,3 +180,16 @@ def test_cuda_dh256_kernels_match_plain(cuda_device, dtype):  # noqa: F811
         assert bool(torch.isfinite(got).all())
         assert bool(((got - ref).abs() <= lim).all()), \
             float((got - ref).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [1, 17, 100, 513])
+@pytest.mark.parametrize("causal,use_mask", [(False, True), (True, False)])
+def test_cuda_dh256_ragged(cuda_device, dtype, T, causal,  # noqa: F811
+                           use_mask):
+    """The three kernels at dh 256 at lengths no tile divides, dropout
+    0.1, a row whose keys are all masked (not causal), held to
+    ``chip_smoke.py``'s limits (B=2, H=2)."""
+    check_flash_on_card(cuda_device, getattr(torch, dtype), T, DH, causal,
+                        use_mask, 0.1, seed=T + 7, H=2)
