@@ -4,15 +4,18 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every kernel from ``kernels/csrc`` (one ``nvcc`` per source,
-   all at once) and prints, for each flash kernel, ptxas's registers,
-   spills and shared memory and the tensor-core (HMMA) instructions in
-   its SASS (``cuobjdump``, where the toolkit has it);
+   all at once) and prints, for each flash and paged kernel, ptxas's
+   registers, spills and shared memory and the tensor-core (HMMA)
+   instructions in its SASS (``cuobjdump``, where the toolkit has it);
 3. holds each kernel against its plain PyTorch version on the card at
-   the paths' shapes, each check with its stated tolerance: paged
-   attention and the flash forward at the serving shapes; the flash
+   the paths' shapes, each check with its stated tolerance: the split
+   paged kernels at the engine step's shapes (f32, bf16 and int8 pools,
+   16-byte and scalar loads, two calls bit-identical) and the flash
+   forward at the serving shapes; the flash
    forward (with dropout), dQ and dK/dV at BERT-base's (B=16, T=512,
    H=12, dh=64) and at head dim 256 (B=2, T=512, H=4), in f32 and bf16,
    causal or not, with a padding mask or without, at dropout 0 and 0.1;
+   the bf16 dQ at dh 64, 128 and 256 and T = 1, 17, 100 and 513;
    the two grouped SGD kernels bit for bit on ResNet-50's parameter
    group and on a group of odd sizes, clip on and off, wd 0 and 1e-4;
    the fused 3x3 convolution at batch 16 on the four ResNet-50 shapes;
@@ -48,12 +51,13 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    compared;
 8. times each kernel, its plain version and a library call at the
    paths' shapes (L2 flushed between launches) beside the least time
-   the card could take for the same work: the flash and SGD kernels
-   and SDPA by their device time (torch.profiler, 20 calls) with CUDA
-   events around the call beside it, the others by CUDA events; logs
-   the operations SDPA ran; times the BERT and ResNet steps and
-   profiles 20 engine steps, 20 BERT steps and 20 ResNet steps
-   (torch.profiler) for the device's busy and idle time;
+   the card could take for the same work: the flash, paged and SGD
+   kernels and SDPA by their device time (torch.profiler, 20 calls)
+   with CUDA events around the call beside it, the others by CUDA
+   events; logs the operations SDPA ran; times the BERT and ResNet
+   steps and profiles 20 engine steps, 20 BERT steps and 20 ResNet
+   steps (torch.profiler) for the device's busy time (kernels, copies
+   and fills; annotation spans left out) and idle share;
 9. drives the extension surface, each path with its counters from 0:
    the twin of ``benchmark/fused_conv_exp.py`` (the ResNet-50 3x3
    convolutions at batch 128, conv and BN->conv->stats chain, 3 steps
@@ -75,10 +79,12 @@ kernel does not build or launch, or when any check fails.
 
 ``python3 chip_smoke.py --parent DIR``, with DIR another checkout of
 this repository (the parent commit unpacked by ``git archive`` into a
-directory ``.gitignore`` lists), also times DIR's flash forward and
-dK/dV against this tree's, and the BERT-base and GPT train steps with
-DIR's flash kernels against this tree's, in turns (parent, change,
-change, parent) in one process on one card.
+directory ``.gitignore`` lists), also times, in turns (parent, change,
+change, parent) in one process on one card: DIR's flash forward, dQ
+and dK/dV against this tree's; DIR's paged kernel against this tree's
+for f32, bf16 and int8 pools; the BERT-base and GPT train steps with
+DIR's flash kernels against this tree's; and the ``full`` serving mix
+with DIR's paged kernel bound into the engine against this tree's.
 """
 import dataclasses
 import itertools
@@ -322,6 +328,68 @@ def check_paged(PA, name, got, q, pool, s, bt, pos, failures):
                  limit=paged_limit(PA, q, pool, s, bt, pos))
 
 
+def offset_pool(pool):
+    """The same pool one element into a larger buffer: not 16-byte
+    aligned, so the kernels take their scalar load loop."""
+    flat = torch.empty(pool.numel() + 1, dtype=pool.dtype,
+                       device=pool.device)
+    flat[1:] = pool.reshape(-1)
+    return flat[1:].view(pool.shape)
+
+
+def check_paged_kernels(PA, dev, failures):
+    """The split paged kernels against their plain version at the engine
+    step's shapes, f32, bf16 and int8 pools, on both load paths (16-byte
+    pieces, and the scalar loop on an offset pool), and bit for bit from
+    one call to the next.  Returns {kind: largest error}."""
+    errs = {}
+    for i, kind in enumerate(("float32", "bfloat16", "int8")):
+        q, pool, s, bt, pos = paged_inputs(dev, kind, seed=10 + i)
+        for path, pl in (("16-byte loads", pool),
+                         ("scalar loads", offset_pool(pool))):
+            if PA.vector_loads(pl, q.shape[2]) != (path == "16-byte loads"):
+                raise Failed("paged %s: the %s pool took the other load "
+                             "path" % (kind, path))
+            got = PA.paged_attention(q, pl, s, bt, pos, page_size=PAGE)
+            again = PA.paged_attention(q, pl, s, bt, pos, page_size=PAGE)
+            torch.cuda.synchronize()
+            tag = "paged %s T=32 H=12 dh=64 ps=16 PP=32 %s" % (kind, path)
+            e = check_paged(PA, tag, got, q, pool, s, bt, pos, failures)
+            same = torch.equal(got, again)
+            log("check %-44s two calls bit-identical  %s"
+                % (tag, "ok" if same else "FAIL"))
+            if not same:
+                failures.append(tag + " bit identity")
+            errs[kind] = max(errs.get(kind, 0.0), e)
+    return errs
+
+
+PAGED_MS_FROM = ("profiler: device time of the split and combine kernels "
+                 "a call, mean of 20 calls, L2 flushed before each; "
+                 "event_ms: CUDA events around the wrapper, mean of 30")
+
+
+def time_paged(PA, q, pool, s, bt, pos, flush):
+    """Device and event ms of one call of the paged kernels (both
+    launches), the plain version's, the bound and the gather + SDPA
+    yardstick (device time of every operation it runs)."""
+    def kern():
+        return PA.paged_attention(q, pool, s, bt, pos, page_size=PAGE)
+
+    b_ms, b_by = bound(*paged_work(q, pool, s, bt, pos, PAGE), q.dtype)
+    row = {"ms": device_time(kern, flush, "paged_")[0],
+           "ms_from": PAGED_MS_FROM, "event_ms": cuda_ms(kern, flush=flush),
+           "plain_ms": cuda_ms(lambda: PA.paged_attention_reference(
+               q, pool, s, bt, pos, page_size=PAGE), flush=flush),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    if s is None:
+        row["library_ms"] = device_time(
+            lambda: paged_library(q, pool, bt, pos, PAGE), flush)[0]
+        row["library_event_ms"] = cuda_ms(
+            lambda: paged_library(q, pool, bt, pos, PAGE), flush=flush)
+    return row
+
+
 def paged_library(q, pool, bt, pos, ps):
     """Yardstick only (never called by the port): block-table gather +
     torch SDPA over the float pool."""
@@ -382,13 +450,44 @@ def bound(nbytes, flops, dtype):
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
+# device-side profiler events that are device work: kernels, copies and
+# fills.  Where this torch gives the profiler's own event kind
+# (FunctionEvent.activity_type: "kernel", "gpu_memcpy", "gpu_memset",
+# "gpu_user_annotation", ...), that decides; where it gives only
+# is_user_annotation, that does; else a device event is dropped when the
+# CPU side records an event of the same name (a record_function span,
+# such as the optimizer step's, that the profiler mirrors on the device).
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_work(prof):
+    """(the profiler's device events that are device work, the device
+    events left out, which rule told them apart)."""
+    from torch.autograd import DeviceType
+    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    if evs and all(getattr(ev, "activity_type", None) for ev in evs):
+        keep = [ev.activity_type in DEVICE_WORK for ev in evs]
+        how = "activity_type"
+    elif evs and all(getattr(ev, "is_user_annotation", None) is not None
+                     for ev in evs):
+        keep = [not ev.is_user_annotation for ev in evs]
+        how = "is_user_annotation"
+    else:
+        cpu = {ev.name for ev in prof.events()
+               if ev.device_type == DeviceType.CPU}
+        keep = [ev.name not in cpu for ev in evs]
+        how = "names also recorded on the CPU side"
+    return ([ev for ev, k in zip(evs, keep) if k],
+            [ev for ev, k in zip(evs, keep) if not k], how)
+
+
 def profile_window(step, n, what, top=8):
     """Information: one torch.profiler window of ``n`` calls of
-    ``step`` — host time per step, device busy time per step, the
-    device's idle share, and the ``top`` kernels that take the most
-    device time.  Returns {"wall_ms", "busy_ms", "idle"} (None when the
-    profiler records no device time)."""
-    from torch.autograd import DeviceType
+    ``step`` — host time per step, device busy time per step (kernels,
+    copies and fills only: ``device_work``), the device's idle share,
+    and the ``top`` kernels that take the most device time.  Returns
+    {"wall_ms", "busy_ms", "idle"} (None when the profiler records no
+    device time)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -398,20 +497,28 @@ def profile_window(step, n, what, top=8):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    work, other, how = device_work(prof)
     by_name = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            t, c = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (t + ev.time_range.elapsed_us(), c + 1)
+    for ev in work:
+        t, c = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (t + ev.time_range.elapsed_us(), c + 1)
     busy_ms = sum(t for t, _ in by_name.values()) / 1e3 / n
     if busy_ms == 0.0:
         log("info: profile: the profiler recorded no device time "
             "(not measured)")
         return None
+    left = {}
+    for ev in other:
+        left[ev.name] = left.get(ev.name, 0.0) + ev.time_range.elapsed_us()
     log("info: profile of %d %s: %.3f ms/step wall, %.3f "
-        "ms/step device busy, device idle share %.3f, %d kernels/step"
+        "ms/step device busy, device idle share %.3f, %d kernels/step "
+        "(device work told apart by %s; left out %.3f ms/step of other "
+        "device events: %s)"
         % (n, what, wall_ms, busy_ms, 1.0 - busy_ms / wall_ms,
-           sum(c for _, c in by_name.values()) // n))
+           sum(c for _, c in by_name.values()) // n, how,
+           sum(left.values()) / 1e3 / n, json.dumps(
+               {k[:60]: round(t / 1e3 / n, 3) for k, t in sorted(
+                   left.items(), key=lambda kv: -kv[1])[:4]})))
     for name, (t, c) in sorted(by_name.items(),
                                key=lambda kv: -kv[1][0])[:top]:
         log("info:   %7.3f ms/step %5.1f%%  %4d/step  %s"
@@ -529,6 +636,58 @@ def check_training_kernels(FA, dev, failures):
             errs = e
         del q, k, v, do, o, dq, dk, dv, refs
     return errs
+
+
+# dQ at lengths no tile divides: (causal, padding mask, dropout)
+DQ_CASES = ((False, True, 0.1), (True, False, 0.1), (True, True, 0.0),
+            (False, False, 0.0))
+
+
+def check_dq_ragged(FA, dev, failures):
+    """The bf16 dQ kernel (``flash_bwd_dq_tc``) against its plain version
+    within ``bwd_limits`` at dh 64, 128 and 256, T = 1, 17, 100 and 513
+    (partial query and key tiles), B=2, H=3, over DQ_CASES; lse and delta
+    from the forward kernel.  With a mask and not causal the last batch
+    row has every key masked; causal rows keep key 0 (ROADMAP.md C: a
+    query whose keys up to the diagonal are all masked has no common
+    answer).  Returns the largest error over limit."""
+    worst = 0.0
+    for i, (dh, T, (causal, use_mask, dropout)) in enumerate(
+            itertools.product((64, 128, 256), (1, 17, 100, 513), DQ_CASES)):
+        g = torch.Generator().manual_seed(300 + i)
+        q, k, v, do = (torch.randn(2, T, 3, dh, generator=g)
+                       .to(dev, torch.bfloat16) for _ in range(4))
+        mask = None
+        if use_mask:
+            m = torch.rand(2, T, generator=g) > 0.3
+            m[:, 0] = True
+            if not causal:
+                m[-1] = False
+            mask = m.to(dev)
+        kw = dict(mask=mask, causal=causal, dropout=dropout,
+                  seed=torch.tensor([500 + i], dtype=torch.int32,
+                                    device=dev))
+        o, lse = FA.flash_fwd(q, k, v, **kw)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        refs = (FA.flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw),
+                *FA.flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw))
+        lim = bwd_limits(FA, q, k, v, do, lse, delta, refs, kw)[0]
+        err = (dq.float() - refs[0].float()).abs()
+        ok = bool(torch.isfinite(dq.float()).all()) and bool(
+            (err <= lim).all())
+        worst = max(worst, float((err / lim).max()))
+        if not ok:
+            log("check dQ bf16 dh=%d T=%d causal=%d mask=%d drop=%.1f "
+                "err/limit %.3f  FAIL" % (dh, T, causal, use_mask, dropout,
+                                          float((err / lim).max())))
+            failures.append("dQ dh=%d T=%d causal=%d mask=%d drop=%.1f"
+                            % (dh, T, causal, use_mask, dropout))
+    log("check dQ bf16 ragged: dh 64/128/256 x T 1/17/100/513 x %d cases, "
+        "largest err/limit %.3f  %s" % (len(DQ_CASES), worst,
+                                        "ok" if worst <= 1.0 else "FAIL"))
+    return worst
 
 
 def counters(FA):
@@ -668,8 +827,7 @@ def device_time(fn, flush, match=None, calls=20):
     ``match`` (every operation with ``match`` None, and then the flush
     must be told apart: about one a call).  A window that records none
     is taken again; after three, CUDA events around ``fn`` stand in, and
-    the log says so."""
-    from torch.autograd import DeviceType
+    the log says so.  Only device work counts (``device_work``)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -682,9 +840,8 @@ def device_time(fn, flush, match=None, calls=20):
                 fn()
             torch.cuda.synchronize()
         seen = {}
-        for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA and (
-                    FLUSH_OP in ev.name or match is None or match in ev.name):
+        for ev in device_work(prof)[0]:
+            if FLUSH_OP in ev.name or match is None or match in ev.name:
                 t, c = seen.get(ev.name, (0.0, 0))
                 seen[ev.name] = (t + ev.time_range.elapsed_us() / 1e3, c + 1)
         # the profiler can miss a few device events of a window, so each
@@ -861,11 +1018,11 @@ def time_prefill(FA, dev, flush, err):
 
 # ---------------------------------------------------- builds and the parent --
 def build_report(_build):
-    """Per kernel of the flash libraries: ptxas's registers, spills and
-    static shared memory (the report kept beside each library) and, where
-    the toolkit has ``cuobjdump``, the count of tensor-core (HMMA or
-    HGMMA) instructions in its SASS.  Logged; returns {short name:
-    figures}."""
+    """Per kernel of the flash and paged libraries: ptxas's registers,
+    spills and static shared memory (the report kept beside each
+    library) and, where the toolkit has ``cuobjdump``, the count of
+    tensor-core (HMMA or HGMMA) instructions in its SASS.  Logged;
+    returns {short name: figures}."""
     import shutil
     tool = shutil.which("cuobjdump") or next(
         (p for p in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin",
@@ -873,7 +1030,7 @@ def build_report(_build):
                      "/usr/local/cuda/bin/cuobjdump") if os.path.exists(p)),
         None)
     out = {}
-    for name in ("flash_fwd", "flash_bwd"):
+    for name in ("flash_fwd", "flash_bwd", "paged_attention"):
         so = _build.library_path(name)
         with open(so[:-3] + ".ptxas") as f:
             rep = _build.ptxas_report(f.read())
@@ -912,20 +1069,23 @@ def demangle(mangled):
     return text.split("(", 1)[0]
 
 
-def load_parent_flash(parent):
-    """The flash module of another checkout of this repository (the
-    parent commit, unpacked under ``parent``), as package
-    ``parent_kernels``: its own sources, built into its own ``_build``."""
+def load_parent(parent, module):
+    """Kernel module ``module`` (``flash_attention``, ``paged_attention``)
+    of another checkout of this repository (the parent commit, unpacked
+    under ``parent``), from package ``parent_kernels``: its own sources,
+    built into its own ``_build``."""
     import importlib
     import importlib.util
-    kdir = os.path.join(os.path.abspath(parent), "mxnet_tpu_torch", "kernels")
-    spec = importlib.util.spec_from_file_location(
-        "parent_kernels", os.path.join(kdir, "__init__.py"),
-        submodule_search_locations=[kdir])
-    pkg = importlib.util.module_from_spec(spec)
-    sys.modules["parent_kernels"] = pkg
-    spec.loader.exec_module(pkg)
-    return importlib.import_module("parent_kernels.flash_attention")
+    if "parent_kernels" not in sys.modules:
+        kdir = os.path.join(os.path.abspath(parent), "mxnet_tpu_torch",
+                            "kernels")
+        spec = importlib.util.spec_from_file_location(
+            "parent_kernels", os.path.join(kdir, "__init__.py"),
+            submodule_search_locations=[kdir])
+        pkg = importlib.util.module_from_spec(spec)
+        sys.modules["parent_kernels"] = pkg
+        spec.loader.exec_module(pkg)
+    return importlib.import_module("parent_kernels." + module)
 
 
 def use_flash(FA, impl):
@@ -1000,10 +1160,11 @@ def compare_parent_steps(PFA, FA, dev, steps):
 
 
 def compare_parent_kernels(PFA, FA, dev, flush):
-    """The flash forward and dK/dV of the parent checkout (module
-    ``PFA``) against this tree's at BERT-base's case, causal, dh 256
-    and the serving prefill, in turns (parent, change, change, parent):
-    device and event ms of each.  Logs and returns {case: row}."""
+    """The flash forward, dQ and dK/dV of the parent checkout (module
+    ``PFA``) against this tree's at BERT-base's case, causal and dh 256,
+    and the forward at the serving prefill, in turns (parent, change,
+    change, parent): device and event ms of each.  Logs and returns
+    {case: row}."""
     mine = own_flash(FA)
     cases = []
     for tag, (causal, use_mask, extra) in (
@@ -1015,7 +1176,7 @@ def compare_parent_kernels(PFA, FA, dev, flush):
         seed = torch.tensor([77], dtype=torch.int32, device=dev)
         cases.append((tag, q, k, v, do, dict(mask=mask, causal=causal,
                                               dropout=0.1, seed=seed),
-                      ("flash_fwd", "flash_bwd_dkv")))
+                      ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")))
     q, k, v, _ = flash_inputs(dev, 192, torch.bfloat16, False, seed=30)
     cases.append(("serving prefill B=4 T=192 causal", q, k, v, q,
                   dict(causal=True), ("flash_fwd",)))
@@ -1038,6 +1199,60 @@ def compare_parent_kernels(PFA, FA, dev, flush):
             out["%s %s" % (name, tag)] = row
             log("info: parent vs change %s %s: %s" % (name, tag,
                                                       json.dumps(row)))
+    return out
+
+
+def compare_parent_paged(PPA, PA, dev, flush):
+    """The paged kernels of the parent checkout (module ``PPA``) against
+    this tree's at the engine step's shapes (``paged_inputs``), f32,
+    bf16 and int8 pools, in turns (parent, change, change, parent):
+    device ms (every paged kernel of a call) and event ms.  Logs and
+    returns {kind: row}."""
+    out = {}
+    for i, kind in enumerate(("float32", "bfloat16", "int8")):
+        q, pool, s, bt, pos = paged_inputs(dev, kind, seed=70 + i)
+        got = {"parent": [], "change": []}
+        for side in ("parent", "change", "change", "parent"):
+            impl = PPA if side == "parent" else PA
+
+            def kern():
+                return impl.paged_attention(q, pool, s, bt, pos,
+                                            page_size=PAGE)
+
+            got[side].append((device_time(kern, flush, "paged_")[0],
+                              cuda_ms(kern, flush=flush)))
+        row = {side: {"ms": float(np.mean([d for d, _ in v_])),
+                      "event_ms": float(np.mean([e for _, e in v_]))}
+               for side, v_ in got.items()}
+        row["speedup_device"] = row["parent"]["ms"] / row["change"]["ms"]
+        row["speedup_event"] = (row["parent"]["event_ms"]
+                                / row["change"]["event_ms"])
+        out[kind] = row
+        log("info: parent vs change paged_attention %s pool T=32 H=12 "
+            "dh=64 ps=16 PP=32: %s" % (kind, json.dumps(row)))
+    return out
+
+
+def compare_parent_serving(PPA, E, G, ServingEngine, params, cfg, reqs, dev):
+    """Serving throughput of the ``full`` preset (bf16/w8, float KV)
+    with the parent checkout's paged kernel (module ``PPA``) bound into
+    the engine against this tree's, in turns (parent, change, change,
+    parent), by host clock over the whole mix.  Logs and returns
+    {"parent": median tokens/s, "change": ..., "runs": ...}."""
+    mine = E.paged_attention
+    got = {"parent": [], "change": []}
+    for side in ("parent", "change", "change", "parent"):
+        E.paged_attention = (PPA.paged_attention if side == "parent"
+                             else mine)
+        try:
+            _, run = serve(G, ServingEngine, params, cfg, reqs, False, dev)
+        finally:
+            E.paged_attention = mine
+        got[side].append(run["tokens"] / run["seconds"])
+    out = {side: float(np.median(v_)) for side, v_ in got.items()}
+    out["runs"] = got
+    log("info: parent vs change serving tokens/s (full preset, float KV, "
+        "median of 2 runs a side): %s" % json.dumps(out))
     return out
 
 
@@ -1102,8 +1317,7 @@ def device_kernels(fn, name="", calls=1):
     """(device operations, device ms) per call of ``fn``, counting the
     operations whose name contains ``name``, over ``calls`` calls under
     torch.profiler (no L2 flush); (None, None) when it records no device
-    time."""
-    from torch.autograd import DeviceType
+    time.  Only device work counts (``device_work``)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1111,8 +1325,7 @@ def device_kernels(fn, name="", calls=1):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
-           and name in ev.name]
+    evs = [ev for ev in device_work(prof)[0] if name in ev.name]
     if not evs:
         return None, None
     # the profiler can miss a few events of a window: the mean of those
@@ -2091,12 +2304,7 @@ def main(argv):
 
     # ---- 3. each kernel against its plain version at the path's shapes
     errs = {"paged": 0.0, "flash": 0.0}
-    for i, kind in enumerate(("float32", "bfloat16", "int8")):
-        q, pool, s, bt, pos = paged_inputs(dev, kind, seed=10 + i)
-        got = PA.paged_attention(q, pool, s, bt, pos, page_size=PAGE)
-        torch.cuda.synchronize()
-        check_paged(PA, "paged %s T=32 H=12 dh=64 ps=16 PP=32" % kind, got,
-                    q, pool, s, bt, pos, failures)
+    errs_paged = check_paged_kernels(PA, dev, failures)
     for i, (T, causal, use_mask, dtype) in enumerate([
             (192, True, False, torch.float32),
             (512, True, True, torch.float32),
@@ -2116,6 +2324,7 @@ def main(argv):
         if T == 192 and dtype == torch.bfloat16:
             errs["flash"] = e
     errs_train = check_training_kernels(FA, dev, failures)
+    dq_ragged = check_dq_ragged(FA, dev, failures)
     errs_sgd = check_sgd_kernels(FO, dev, resnet50_shapes(mx), failures)
     err_conv_b16, stats_b16, planted_b16 = check_conv_kernel(FC, dev,
                                                             failures)
@@ -2237,10 +2446,13 @@ def main(argv):
                                         GPT_WARM + 1, GPT_STEPS))
     gbatch = {k: torch.as_tensor(v).to(dev) for k, v in gbatch.items()}
     if parent is not None:        # before any profiler session
-        PFA = load_parent_flash(parent)
+        PFA = load_parent(parent, "flash_attention")
         compare_parent_steps(PFA, FA, dev, {
             "BERT-base train step": (init_state, step, batch, 10, 3, 0),
             "GPT causal train step": (g_init, g_step, gbatch, 8, 2, 1)})
+        PPA = load_parent(parent, "paged_attention")
+        compare_parent_serving(PPA, E, G, ServingEngine, params, cfg, reqs,
+                               dev)
     check_small_f32(T_, dev, failures)
 
     # ---- 7. the Gluon path: ResNet-50 v1 through Trainer, then the
@@ -2264,31 +2476,25 @@ def main(argv):
     # ---- 8. timings at the paths' shapes
     kernels = []
     q, pool, s, bt, pos = captured["bfloat16"]
-    ms = cuda_ms(lambda: PA.paged_attention(q, pool, s, bt, pos,
-                                            page_size=PAGE), flush=flush)
-    plain = cuda_ms(lambda: PA.paged_attention_reference(
-        q, pool, s, bt, pos, page_size=PAGE), flush=flush)
-    lib = cuda_ms(lambda: paged_library(q, pool, bt, pos, PAGE),
-                  flush=flush)
-    b_ms, b_by = bound(*paged_work(q, pool, s, bt, pos, PAGE), q.dtype)
     kernels.append({
         "name": "paged_attention", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/paged_attention.cu",
         "replaces": "mxnet_tpu/kernels/paged_attention.py:209",
+        "device_symbols": ["paged_split", "paged_combine"],
         "launches": launches["paged_attention"],
+        "launches_note": "calls, two kernel launches each",
         "max_abs_err": errs["paged"], "tolerance": PAGED_TOL_TEXT,
-        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib,
+        **time_paged(PA, q, pool, s, bt, pos, flush),
         "shape": "captured engine step, bf16 pool: T=32 H=12 dh=64 ps=16 "
-                 "PP=32 NP=513"})
+                 "PP=32 NP=513",
+        "synthetic_max_abs_err": errs_paged,
+        "build": {k: v for k, v in build.items() if k.startswith("paged")}})
     q8, pool8, s8, bt8, pos8 = captured["int8"]
-    ms8 = cuda_ms(lambda: PA.paged_attention(q8, pool8, s8, bt8, pos8,
-                                             page_size=PAGE), flush=flush)
-    plain8 = cuda_ms(lambda: PA.paged_attention_reference(
-        q8, pool8, s8, bt8, pos8, page_size=PAGE), flush=flush)
-    b8 = bound(*paged_work(q8, pool8, s8, bt8, pos8, PAGE), q8.dtype)
-    log("info: paged int8 captured step: kernel %.4f ms, plain %.4f ms, "
-        "bound %.4f ms (%s)" % (ms8, plain8, b8[0], b8[1]))
+    log("info: paged int8 captured step: %s" % json.dumps(
+        time_paged(PA, q8, pool8, s8, bt8, pos8, flush)))
+    for i, kind in enumerate(("float32", "bfloat16", "int8")):
+        log("info: paged %s synthetic engine shape: %s" % (kind, json.dumps(
+            time_paged(PA, *paged_inputs(dev, kind, seed=70 + i), flush))))
 
     time_prefill(FA, dev, flush, errs["flash"])
 
@@ -2297,6 +2503,9 @@ def main(argv):
     sources = {"flash_fwd": ("flash_fwd.cu", 169),
                "flash_bwd_dq": ("flash_bwd.cu", 333),
                "flash_bwd_dkv": ("flash_bwd.cu", 354)}
+    symbols = {"flash_fwd": ["flash_fwd_tc", "flash_fwd_f32"],
+               "flash_bwd_dq": ["flash_bwd_dq_tc", "flash_bwd_dq_f32"],
+               "flash_bwd_dkv": ["flash_bwd_dkv_tc", "flash_bwd_dkv_f32"]}
     dh256 = time_dh256(FA, dev, flush)
     for name, row in time_training_kernels(FA, dev, flush).items():
         src, line = sources[name]
@@ -2305,14 +2514,18 @@ def main(argv):
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/kernels/csrc/" + src,
             "replaces": "mxnet_tpu/kernels/flash_attention.py:%d" % line,
+            "device_symbols": symbols[name],
             "launches": sum(counts.values()), "launches_by_path": counts,
             "max_abs_err": errs_train[name],
             "tolerance": (FWD_TOL_TEXT if name == "flash_fwd"
                           else BWD_TOL_TEXT),
             **row, "dh256": dh256[name],
+            **({"ragged_err_over_limit": dq_ragged}
+               if name == "flash_bwd_dq" else {}),
             "build": {k: v for k, v in build.items() if k.startswith(name)}})
     if parent is not None:
         compare_parent_kernels(PFA, FA, dev, flush)
+        compare_parent_paged(PPA, PA, dev, flush)
     for name, line in (("fused_sgd_mom", 144), ("fused_sgd", 134)):
         kernels.append({
             "name": name, "route": "cuda",

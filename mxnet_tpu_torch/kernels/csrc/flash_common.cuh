@@ -1,8 +1,7 @@
 // Shared by flash_fwd.cu and flash_bwd.cu: the positional-hash dropout
-// and, for the CUDA-core kernels (dQ, and the forward and dK/dV in f32),
-// the tile geometry and the f32 <-> storage-type conversions.  The bf16
-// forward and dK/dV run on the tensor cores with their own tiles
-// (flash_mma.cuh and the kernels' notes).
+// and, for the CUDA-core kernels (the forward, dQ and dK/dV in f32), the
+// tile geometry.  The bf16 kernels run on the tensor cores with their
+// own tiles (flash_mma.cuh and the kernels' notes).
 //
 // The tile geometry depends on the head dim.  Every block has NT = 128
 // threads; TPR of them share a query (or key) row, each holding DH/TPR
@@ -22,7 +21,6 @@
 // with the reference and with the plain torch version.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -36,22 +34,6 @@ template <int DH> struct Tile {
   static constexpr int BK = BQ;                  // keys per tile
   static_assert(DH % TPR == 0, "head dim must split over the row's threads");
 };
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T and back: where the reference casts with .astype(dtype)
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
 
 // The sum of a value over the TPR neighbouring lanes of one row.
 template <int TPR> __device__ __forceinline__ float row_sum(float x) {

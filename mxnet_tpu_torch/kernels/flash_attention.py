@@ -13,9 +13,8 @@ the reference's three Pallas kernels:
 * ``csrc/flash_bwd.cu`` ``mxt_flash_bwd_dkv`` (:func:`flash_bwd_dkv`)
   replaces the dK/dV kernel ``_bwd_dkv_kernel``.
 
-In bf16 the forward and dK/dV run on the tensor cores (``mma.sync``,
-``csrc/flash_mma.cuh``); dQ, and every kernel in f32, on the CUDA
-cores.
+In bf16 all three run on the tensor cores (``mma.sync``,
+``csrc/flash_mma.cuh``); in f32 on the CUDA cores.
 
 The plain backward versions recompute P densely from lse, as the
 kernels do blockwise.  Every wrapper runs its plain version for CPU
@@ -320,6 +319,17 @@ flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 
 
+def _aligned(x):
+    """``x`` as the kernels take it: contiguous, and a bf16 tensor that
+    does not start 16-byte aligned copied to one that does (a copy
+    inside autograd, so gradients flow back to ``x``).  The reference
+    computes any view; the low-level wrappers refuse a misaligned one."""
+    x = x.contiguous()
+    if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+        x = x.clone(memory_format=torch.contiguous_format)
+    return x
+
+
 class _Flash(torch.autograd.Function):
     """The reference ``_make_flash`` custom VJP: the forward saves q, k,
     v, mask, seed, O and lse; the backward reduces delta = rowsum(dO*O)
@@ -336,7 +346,7 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, mask, seed, out, lse = ctx.saved_tensors
-        g = g.contiguous()
+        g = _aligned(g)
         delta = (g.float() * out.float()).sum(-1).transpose(1, 2) \
             .contiguous()                                    # (B, H, T)
         kw = dict(mask=mask, causal=ctx.causal, dropout=ctx.dropout,
@@ -367,5 +377,5 @@ def flash_attention(q, k, v, mask=None, causal=False, dropout=0.0,
                              "dropout_seed")
         seed = torch.as_tensor(dropout_seed, device=q.device) \
             .to(torch.int32).reshape(1)
-    return _Flash.apply(q.contiguous(), k.contiguous(), v.contiguous(), mask,
-                        seed, bool(causal), dropout)
+    return _Flash.apply(_aligned(q), _aligned(k), _aligned(v), mask, seed,
+                        bool(causal), dropout)

@@ -1,10 +1,14 @@
 """Paged single-token attention: CUDA kernel wrapper and plain version.
 
-Port of ``mxnet_tpu/kernels/paged_attention.py``.  The kernel
-(``csrc/paged_attention.cu``) replaces the Pallas block-table walk; its
-plain version :func:`paged_attention_reference` is the reference's
-gather + ``_attend_rows``.  The serving engine always calls
-:func:`paged_attention`: CUDA tensors launch the kernel, CPU tensors
+Port of ``mxnet_tpu/kernels/paged_attention.py``.  The kernels
+(``csrc/paged_attention.cu``) replace the Pallas block-table walk with a
+flash-decoding split: ``paged_split`` walks runs of :func:`split_pages`
+pages per (row, head) in parallel and writes partial (max, sum,
+accumulator) rows to a workspace, and ``paged_combine`` merges the live
+ones in a fixed order.  Their plain version
+:func:`paged_attention_reference` is the reference's gather +
+``_attend_rows``.  The serving engine always calls
+:func:`paged_attention`: CUDA tensors launch the kernels, CPU tensors
 run the plain version, and nothing falls back from one to the other.
 """
 from __future__ import annotations
@@ -16,10 +20,39 @@ import torch
 
 from . import _build
 
-__all__ = ["paged_attention", "paged_attention_reference"]
+__all__ = ["paged_attention", "paged_attention_reference", "split_pages",
+           "vector_loads"]
 
-# the kernel stages (dh + ps*2*dh + 3*ps) f32 per block in shared memory
 _SMEM_LIMIT = 227 * 1024
+_SPLIT_POSITIONS = 64     # positions a split walks, about
+_NT = 128                 # threads of a split block (csrc NT)
+
+
+def split_pages(page_size):
+    """Pages per split of the kernel's walk: about 64 positions, at
+    least one page.  A function of the page size alone, so the split
+    count ceil(PP / split_pages) comes from the block table's shape and
+    the host reads no device data."""
+    return max(1, _SPLIT_POSITIONS // page_size)
+
+
+def vector_loads(pool_kv, dh):
+    """True when the kernels read the pool's k and v rows in 16-byte
+    pieces: the pool starts 16-byte aligned and a k (or v) half row,
+    dh * element size bytes, is a multiple of 16.  Else they take their
+    scalar load loop, with the same arithmetic."""
+    return (pool_kv.data_ptr() % 16 == 0
+            and dh * pool_kv.element_size() % 16 == 0)
+
+
+def _smem_bytes(dh, page_size, elem, vec):
+    """Dynamic shared memory of a split block (csrc split_smem_words):
+    q, the scores and v scales of a split, 8 reduce slots, the PV
+    partials of its position groups and the page ids, 4 bytes each."""
+    pieces = dh // (16 // elem) if vec else dh
+    groups = 1 if pieces >= _NT else _NT // pieces
+    pps = split_pages(page_size)
+    return 4 * (dh + 2 * pps * page_size + 8 + groups * dh + pps)
 
 
 def paged_attention_reference(q, pool_kv, pool_s, block_tables, row_pos,
@@ -43,7 +76,7 @@ def paged_attention_reference(q, pool_kv, pool_s, block_tables, row_pos,
     return out.reshape(T, H, dh)
 
 
-_SIG = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float,
+_SIG = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_float,
                                                      ctypes.c_void_p]
 
 
@@ -84,8 +117,8 @@ def _check_args(q, pool_kv, pool_s, bt, pos, page_size):
                          % q.device)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention: inputs must be contiguous")
-    if dh > 256 or (dh + 2 * page_size * dh + 3 * page_size) * 4 \
-            > _SMEM_LIMIT:
+    if dh > 256 or _smem_bytes(dh, page_size, pool_kv.element_size(),
+                               vector_loads(pool_kv, dh)) > _SMEM_LIMIT:
         raise ValueError("paged_attention: dh=%d, page_size=%d exceed the"
                          " kernel's shared memory" % (dh, page_size))
 
@@ -101,9 +134,11 @@ def paged_attention(q, pool_kv, pool_s, block_tables, row_pos, *,
     at scratch page 0); row_pos: (T,) int32 — row t attends to
     positions <= row_pos[t].  Returns (T, H, dh) f32.
 
-    CUDA tensors launch ``csrc/paged_attention.cu``; CPU tensors run
-    :func:`paged_attention_reference`.  ``paged_attention.launches``
-    counts kernel launches."""
+    CUDA tensors launch ``csrc/paged_attention.cu`` (the split and the
+    combine kernel, 16-byte loads where :func:`vector_loads` allows);
+    CPU tensors run :func:`paged_attention_reference`.
+    ``paged_attention.launches`` counts calls that launched the
+    kernels."""
     T, H, dh = q.shape
     if pool_kv.dim() != 4 or tuple(pool_kv.shape[1:]) != (
             page_size, H, 2 * dh):
@@ -118,15 +153,20 @@ def paged_attention(q, pool_kv, pool_s, block_tables, row_pos, *,
         raise ValueError("paged_attention: unsupported device %s"
                          % q.device)
     _check_args(q, pool_kv, pool_s, block_tables, row_pos, page_size)
+    PP = block_tables.shape[1]
+    pps = split_pages(page_size)
+    part = torch.empty(T, H, -(-PP // pps), dh + 2, dtype=torch.float32,
+                       device=q.device)
     out = torch.empty(T, H, dh, dtype=torch.float32, device=q.device)
     fn = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     int8 = pool_s is not None
     err = fn(q.data_ptr(), pool_kv.data_ptr(),
              pool_s.data_ptr() if int8 else None,
-             block_tables.data_ptr(), row_pos.data_ptr(), out.data_ptr(),
-             T, H, dh, page_size, block_tables.shape[1],
+             block_tables.data_ptr(), row_pos.data_ptr(), part.data_ptr(),
+             out.data_ptr(), T, H, dh, page_size, PP, pps,
              int(q.dtype == torch.bfloat16), int(int8),
+             int(vector_loads(pool_kv, dh)),
              float(np.sqrt(np.float32(dh))), stream)
     _build.check(err, "paged_attention")
     paged_attention.launches += 1

@@ -1,7 +1,7 @@
 """The bf16 tensor-core flash kernels' tile order, emulated in torch on
-the CPU: ``flash_fwd_tc`` (``csrc/flash_fwd.cu``) and
-``flash_bwd_dkv_tc`` (``csrc/flash_bwd.cu``) cannot run here, so this
-rehearses their index logic against the plain versions of
+the CPU: ``flash_fwd_tc`` (``csrc/flash_fwd.cu``), ``flash_bwd_dkv_tc``
+and ``flash_bwd_dq_tc`` (``csrc/flash_bwd.cu``) cannot run here, so
+this rehearses their index logic against the plain versions of
 ``mxnet_tpu_torch.kernels.flash_attention``.
 
 The forward emulation walks 64-query tiles over key tiles of 64 (32 at
@@ -12,13 +12,17 @@ bit of each element's absolute positions, and p~ rounded to bf16 per
 tile before P~V.  The dK/dV emulation walks 64-key blocks over query
 tiles of 64 (32 above dh 64) from the diagonal tile when causal, with
 keys as rows and the hash called as (bh, q_pos, k_pos), and rounds P~
-and dS to bf16 before their products.
+and dS to bf16 before their products.  The dQ emulation walks 64-query
+tiles over key tiles of 64 (32 above dh 64), stopping at the diagonal
+tile when causal, with lse in base 2 and dS rounded to bf16 before
+dS K.
 
 Limits: the forward's O against the plain version run in f32 on the
 same bf16 inputs within ``chip_smoke.fwd_limit`` (FWD_ROUND), lse
-within its f32 1e-4; dK and dV within ``chip_smoke.bwd_limits`` -- the
-bars the card holds the kernels to.  A dK/dV walk that calls the hash
-with the positions swapped must fail them once dropout is on."""
+within its f32 1e-4; dQ, dK and dV within ``chip_smoke.bwd_limits`` --
+the bars the card holds the kernels to.  A dK/dV or dQ walk that calls
+the hash with the positions swapped must fail them once dropout is on,
+and a causal dQ walk that stops one key tile early must fail them."""
 import math
 
 import numpy as np
@@ -171,6 +175,49 @@ def tiles_dkv(q, k, v, do, lse, delta, mask, causal, dropout, seed,
             dv.permute(0, 2, 1, 3).bfloat16())
 
 
+def tiles_dq(q, k, v, do, lse, delta, mask, causal, dropout, seed,
+             swap_hash=False, early_stop=False):
+    """``flash_bwd_dq_tc`` in its tile order: dQ bf16.  ``swap_hash``
+    calls the hash as (bh, k_pos, q_pos); ``early_stop`` ends a causal
+    walk one key tile before the diagonal tile."""
+    B, T, H, dh = q.shape
+    BQ, BK = 64, (64 if dh <= 64 else 32)
+    sm_scale = float(np.float32(1.0 / math.sqrt(dh)))
+    scale2 = float(np.float32(sm_scale) * np.float32(LOG2E))
+    inv = FA._inv_keep(RATE)
+    qf, kf, vf, dof = _bhtd(q), _bhtd(k), _bhtd(v), _bhtd(do)
+    lse2 = lse * LOG2E                       # the kernel's base-2 lse
+    dq = torch.zeros(B, H, T, dh)
+    for q0 in range(0, T, BQ):
+        rows = q0 + torch.arange(BQ)
+        qt, dot = _pad_rows(qf, q0, BQ), _pad_rows(dof, q0, BQ)
+        ls = _pad_rows(lse2[..., None], q0, BQ)[..., 0]
+        dl = _pad_rows(delta[..., None], q0, BQ)[..., 0]
+        nk = -(-T // BK)
+        if causal:
+            nk = min(nk, -(-min(q0 + BQ, T) // BK)) - int(early_stop)
+        acc = torch.zeros(B, H, BQ, dh)
+        for kt in range(nk):
+            cols = kt * BK + torch.arange(BK)
+            ktile = _pad_rows(kf, kt * BK, BK)
+            s = qt @ ktile.transpose(-1, -2)            # queries x keys
+            dp = dot @ _pad_rows(vf, kt * BK, BK).transpose(-1, -2)
+            valid = _key_mask(mask, B, T, cols)[:, None, None, :]
+            if causal:
+                valid = valid & (cols[None, :] <= rows[:, None])
+            p = torch.where(valid, torch.exp2(s * scale2 - ls[..., None]),
+                            torch.tensor(0.0))
+            if dropout:
+                keep = (_keep(B, H, cols, rows, seed).transpose(-1, -2)
+                        if swap_hash else _keep(B, H, rows, cols, seed))
+                dp = torch.where(keep, dp * inv, torch.tensor(0.0))
+            ds = p * (dp - dl[..., None]) * sm_scale
+            acc = acc + ds.bfloat16().float() @ ktile
+        n = min(BQ, T - q0)
+        dq[:, :, q0:q0 + n] = acc[:, :, :n]
+    return dq.permute(0, 2, 1, 3).bfloat16()
+
+
 CASES = [(False, True, True), (True, False, True), (True, True, False),
          (False, False, False)]
 
@@ -224,3 +271,25 @@ def test_dkv_tile_order(dh, T, causal, use_mask, dropout):
         dk_s, dv_s = tiles_dkv(*args, swap_hash=True)
         assert not (_within(dk_s, refs[1], lim_k)[0]
                     and _within(dv_s, refs[2], lim_v)[0])
+
+
+@pytest.mark.parametrize("causal,use_mask,dropout", CASES)
+@pytest.mark.parametrize("T", [1, 17, 100, 513])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_dq_tile_order(dh, T, causal, use_mask, dropout):
+    from chip_smoke import bwd_limits
+    q, k, v, do, kw = _case(dh, T, causal, use_mask, dropout, seed=T + dh)
+    o, lse = tiles_fwd(q, k, v, kw["mask"], causal, dropout, kw["seed"])
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    refs = (FA.flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw),
+            *FA.flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw))
+    lim_q = bwd_limits(FA, q, k, v, do, lse, delta, refs, kw)[0]
+    args = (q, k, v, do, lse, delta, kw["mask"], causal, dropout, kw["seed"])
+    ok, worst = _within(tiles_dq(*args), refs[0], lim_q)
+    assert ok, worst
+    if dropout and 1 < T < 513:       # the mutants at the shorter lengths
+        assert not _within(tiles_dq(*args, swap_hash=True), refs[0],
+                           lim_q)[0]
+    if causal and 1 < T < 513:
+        assert not _within(tiles_dq(*args, early_stop=True), refs[0],
+                           lim_q)[0]
