@@ -4,9 +4,10 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every kernel from ``kernels/csrc`` (one ``nvcc`` per source,
-   all at once) and prints, for each flash and paged kernel, ptxas's
-   registers, spills and shared memory and the tensor-core (HMMA)
-   instructions in its SASS (``cuobjdump``, where the toolkit has it);
+   all at once) and prints, for each flash, paged and conv kernel,
+   ptxas's registers, spills and shared memory and the tensor-core
+   (HMMA) instructions in its SASS (``cuobjdump``, where the toolkit has
+   it); the bf16 conv kernel must have some;
 3. holds each kernel against its plain PyTorch version on the card at
    the paths' shapes, each check with its stated tolerance: the split
    paged kernels at the engine step's shapes (f32, bf16 and int8 pools,
@@ -83,8 +84,10 @@ directory ``.gitignore`` lists), also times, in turns (parent, change,
 change, parent) in one process on one card: DIR's flash forward, dQ
 and dK/dV against this tree's; DIR's paged kernel against this tree's
 for f32, bf16 and int8 pools; the BERT-base and GPT train steps with
-DIR's flash kernels against this tree's; and the ``full`` serving mix
-with DIR's paged kernel bound into the engine against this tree's.
+DIR's flash kernels against this tree's; the ``full`` serving mix
+with DIR's paged kernel bound into the engine against this tree's; and
+DIR's ``conv3x3_fused`` against this tree's at the conv path's four
+batch-128 shapes, conv alone and chain.
 """
 import dataclasses
 import itertools
@@ -1018,7 +1021,7 @@ def time_prefill(FA, dev, flush, err):
 
 # ---------------------------------------------------- builds and the parent --
 def build_report(_build):
-    """Per kernel of the flash and paged libraries: ptxas's registers,
+    """Per kernel of the flash, paged and conv libraries: ptxas's registers,
     spills and static shared memory (the report kept beside each
     library) and, where the toolkit has ``cuobjdump``, the count of
     tensor-core (HMMA or HGMMA) instructions in its SASS.  Logged;
@@ -1030,7 +1033,7 @@ def build_report(_build):
                      "/usr/local/cuda/bin/cuobjdump") if os.path.exists(p)),
         None)
     out = {}
-    for name in ("flash_fwd", "flash_bwd", "paged_attention"):
+    for name in ("flash_fwd", "flash_bwd", "paged_attention", "fused_conv"):
         so = _build.library_path(name)
         with open(so[:-3] + ".ptxas") as f:
             rep = _build.ptxas_report(f.read())
@@ -1070,22 +1073,23 @@ def demangle(mangled):
 
 
 def load_parent(parent, module):
-    """Kernel module ``module`` (``flash_attention``, ``paged_attention``)
-    of another checkout of this repository (the parent commit, unpacked
-    under ``parent``), from package ``parent_kernels``: its own sources,
-    built into its own ``_build``."""
+    """Kernel module ``module`` (``flash_attention``, ``paged_attention``,
+    ``fused_conv``) of another checkout of this repository (the parent
+    commit, unpacked under ``parent``).  The parent's ``mxnet_tpu_torch``
+    is a package of its own here, ``parent_mxnet_tpu_torch``, whose
+    modules load from the parent's files as they are imported (its
+    ``__init__`` does not run), so a module's relative imports (``from
+    ..base import MXNetError``) resolve in the parent; its kernels build
+    from its own sources into its own ``_build``."""
     import importlib
-    import importlib.util
-    if "parent_kernels" not in sys.modules:
-        kdir = os.path.join(os.path.abspath(parent), "mxnet_tpu_torch",
-                            "kernels")
-        spec = importlib.util.spec_from_file_location(
-            "parent_kernels", os.path.join(kdir, "__init__.py"),
-            submodule_search_locations=[kdir])
-        pkg = importlib.util.module_from_spec(spec)
-        sys.modules["parent_kernels"] = pkg
-        spec.loader.exec_module(pkg)
-    return importlib.import_module("parent_kernels." + module)
+    name = "parent_mxnet_tpu_torch"
+    if name not in sys.modules:
+        pkg = types.ModuleType(name)
+        pkg.__path__ = [os.path.join(os.path.abspath(parent),
+                                     "mxnet_tpu_torch")]
+        pkg.__package__ = name
+        sys.modules[name] = pkg
+    return importlib.import_module("%s.kernels.%s" % (name, module))
 
 
 def use_flash(FA, impl):
@@ -1644,24 +1648,36 @@ CONV_PATH_STEPS = 3
 # accumulator once: one bf16 step, 2^-7 of |y|, beside the slack, with 2%
 # to spare.  The stats are held against an f64 reduction of the kernel's
 # own f32 accumulator (the same call with out_dtype float32, which is
-# checked within the slack): the kernel adds each term at most d = 28 +
-# ceil(blocks / 8) times (4 a thread, its 16 pixel groups, blocks / 8 on
-# each of a reducing column's 8 rows, then those 8 rows), so a sum errs by
-# at most d 2^-24 sum|acc| and a sum of squares by (d + 1) 2^-24 sum acc^2
-# (the squares may round too).  At batch 16 and 56x56, d = 126 against
-# the N = 50176 terms of a summation in arbitrary order.
+# checked within the slack): the kernel adds each term at most d times,
+# so a sum errs by at most d 2^-24 sum|acc| and a sum of squares by
+# (d + 1) 2^-24 sum acc^2 (the squares may round too).  The bf16 kernel
+# (conv3x3_tc) writes one partial row per block of 256 (K <= 64) or 128
+# consecutive pixels of the flattened B*H*W: d = 47 + ceil(rows / 32),
+# 8 additions in a thread (its 8 rows of a column), 3 over the 8 lanes
+# of a column (__shfl_xor), at most 4 over the pixel warps, then
+# ceil(rows / 32) on each of a reducing column's 32 rows and 32 over
+# those rows.  The f32 kernel writes one per 64 pixels of one image:
+# d = 52 + ceil(rows / 32) (4 a thread, its 16 pixel groups, then the
+# same second pass).  At batch 128 and 56x56 the bf16 kernel's d = 96
+# against the N = 401408 terms of a summation in arbitrary order.  The
+# planted fault drops one partial row: its pixels are the kernel's own
+# blocking (mxt_conv3x3_tile), so every row's drop must fail the check.
 CONV_TOL_TEXT = ("y: 1.02*(2^-7*|y| [bf16] + 2*9C*2^-24*(|x| conv |w|)); "
                  "f32 accumulator: 1.02*2*9C*2^-24*(|x| conv |w|); sums vs "
                  "f64 sums of the kernel's accumulator: 1.02*d*2^-24*sum|acc|"
-                 ", squares 1.02*(d+1)*2^-24*sum acc^2, d = 28 + "
-                 "ceil(blocks/8)")
+                 ", squares 1.02*(d+1)*2^-24*sum acc^2, d = 47 + "
+                 "ceil(rows/32) for bf16 x (rows: 256-pixel tiles of B*H*W "
+                 "at K <= 64, else 128), 52 + ceil(rows/32) for f32 x "
+                 "(64-pixel tiles of an image)")
 
 
-def conv_inputs(dev, B, H, W, C, dtype, rng):
+def conv_inputs(dev, B, H, W, C, dtype, rng, K=None):
     """x, w, scale, shift as benchmark/fused_conv_exp.py draws them: x
-    N(0, 0.1), w N(0, 0.05) (K = C), scale U(0.5, 1.5), shift N(0, 0.1)."""
+    N(0, 0.1), w N(0, 0.05) (K = C unless given), scale U(0.5, 1.5),
+    shift N(0, 0.1)."""
+    K = C if K is None else K
     x = torch.from_numpy(rng.randn(B, H, W, C) * 0.1).to(dev, dtype)
-    w = torch.from_numpy(rng.randn(3, 3, C, C) * 0.05).to(dev, dtype)
+    w = torch.from_numpy(rng.randn(3, 3, C, K) * 0.05).to(dev, dtype)
     sc = torch.from_numpy(rng.rand(C) + 0.5).to(dev, torch.float32)
     sh = torch.from_numpy(rng.randn(C) * 0.1).to(dev, torch.float32)
     return x, w, sc, sh
@@ -1682,22 +1698,56 @@ def conv_limits(x, w, kw):
             1.02 * slack + 1e-30, acc)
 
 
-def conv_stats_limits(acc, tile):
+def conv_stats_limits(acc, tile, per_image):
     """f64 sums and sums of squares over B, H and W of the kernel's f32
     accumulator ``acc`` (B, H, W, K), the limits on the kernel's f32 sums
-    against them (see CONV_TOL_TEXT; ``tile`` output pixels a block), and
-    each block's f64 partials (blocks, K), for the planted fault."""
+    against them (see CONV_TOL_TEXT), and each partial row's f64 partials
+    (rows, K), for the planted fault.  A partial row covers ``tile``
+    pixels: of one image (``per_image``, the f32 kernel) or of the
+    flattened B*H*W (the bf16 kernel)."""
     B, H, W, K = acc.shape
-    tiles = -(-(H * W) // tile)
-    d = 28 + -(-(B * tiles) // 8)
     a = acc.double()
+    if per_image:
+        tiles = -(-(H * W) // tile)
+        rows, d = B * tiles, 52 + -(-(B * tiles) // 32)
+        blk = F.pad(a.reshape(B, H * W, K), (0, 0, 0, tiles * tile - H * W))
+    else:
+        rows = -(-(B * H * W) // tile)
+        d = 47 + -(-rows // 32)
+        blk = F.pad(a.reshape(B * H * W, K),
+                    (0, 0, 0, rows * tile - B * H * W))
+    blk = blk.reshape(rows, tile, K)
     u = 2.0 ** -24
     lims = (1.02 * d * u * a.abs().sum((0, 1, 2)),
             1.02 * (d + 1) * u * (a * a).sum((0, 1, 2)))
-    blk = F.pad(a.reshape(B, H * W, K), (0, 0, 0, tiles * tile - H * W))
-    blk = blk.reshape(B * tiles, tile, K)
     return ((a.sum((0, 1, 2)), (a * a).sum((0, 1, 2))), lims,
             (blk.sum(1), (blk * blk).sum(1)))
+
+
+def conv_blocking(FC, dtype, K):
+    """(pixels of one stats partial row, whether a row stays within one
+    image) of conv3x3_fused's kernel for x of ``dtype`` and K output
+    channels."""
+    import ctypes
+    bf16 = dtype == torch.bfloat16
+    return (FC._fn("mxt_conv3x3_tile", [ctypes.c_int] * 2)(K, int(bf16)),
+            not bf16)
+
+
+def conv_stats_verdict(sums, acc, tile, per_image):
+    """The kernel's (sum, sumsq) against conv_stats_limits of its own
+    accumulator ``acc``: (largest err/limit, smallest err/limit over the
+    planted faults that drop one partial row each, the number of
+    rows)."""
+    want, lims, parts = conv_stats_limits(acc, tile, per_image)
+    ratio, planted = 0.0, None
+    for g, r, lim, p in zip(sums, want, lims, parts):
+        g = g.double().to(r.device)
+        ratio = max(ratio, float(((g - r).abs() / lim).max()))
+        caught = ((g - p - r).abs() / lim).amax(1)        # per dropped row
+        planted = caught if planted is None else torch.maximum(planted,
+                                                               caught)
+    return ratio, float(planted.min()), parts[0].shape[0]
 
 
 def conv_case(FC, x, w, kw, tag, failures):
@@ -1706,10 +1756,10 @@ def conv_case(FC, x, w, kw, tag, failures):
     (the same call with out_dtype float32) within the slack of the plain
     one; the sums within conv_stats_limits of an f64 reduction of that
     accumulator; the sums of two calls bit-identical; and a planted fault,
-    the sums less one block's partials, must fail that check for every
-    block.  Returns (max |y - plain|, the sums' largest err/limit, the
-    planted fault's smallest err/limit over blocks), the last two None
-    without stats."""
+    the sums less one partial row (one block's pixels), must fail that
+    check for every row.  Returns (max |y - plain|, the sums' largest
+    err/limit, the planted fault's smallest err/limit over rows), the
+    last two None without stats."""
     got = FC.conv3x3_fused(x, w, **kw)
     torch.cuda.synchronize()
     ref = FC.conv3x3_fused_reference(x, w, **kw)
@@ -1722,24 +1772,15 @@ def conv_case(FC, x, w, kw, tag, failures):
     acc = FC.conv3x3_fused(x, w, **dict(kw, out_dtype=torch.float32))[0]
     torch.cuda.synchronize()
     check(tag + " f32 accumulator", acc, acc_ref, failures, limit=acc_lim)
-    want, lims, parts = conv_stats_limits(acc, FC._fn("mxt_conv3x3_tile",
-                                                      [])())
-    ratio, planted = 0.0, None
-    for name, g, r, lim, p in zip(("sum", "sumsq"), got[1:], want, lims,
-                                  parts):
-        g = g.double()
-        ratio = max(ratio, float(((g - r).abs() / lim).max()))
-        caught = ((g - p - r).abs() / lim).amax(1)        # per dropped block
-        planted = caught if planted is None else torch.maximum(planted,
-                                                               caught)
-    planted = float(planted.min())
+    ratio, planted, rows = conv_stats_verdict(
+        got[1:], acc, *conv_blocking(FC, x.dtype, w.shape[3]))
     same = all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))
     ok = ratio <= 1 and planted > 1 and same and all(
         bool(torch.isfinite(g).all()) for g in got[1:])
     log("check %s stats vs f64 sums of the kernel's accumulator: err/limit "
-        "%.3f; one block's partials dropped (planted, each of %d blocks): "
+        "%.3f; one row of partials dropped (planted, each of %d rows): "
         "smallest err/limit %.2f; two calls bit-identical %s  %s"
-        % (tag, ratio, parts[0].shape[0], planted, same,
+        % (tag, ratio, rows, planted, same,
            "ok" if ok else "FAIL"))
     if not ok:
         failures.append(tag + " stats")
@@ -1908,6 +1949,9 @@ def time_conv(FC, shapes, errs, flush):
             row[kind] = {
                 "ms": cuda_ms(lambda: FC.conv3x3_fused(x, w, **kw),
                               flush=flush),
+                "device_ms": device_time(lambda: FC.conv3x3_fused(x, w,
+                                                                  **kw),
+                                         flush)[0],
                 "plain_ms": cuda_ms(lambda: FC.conv3x3_fused_reference(
                     x, w, **kw), iters=5, flush=flush),
                 "bound_ms": b_ms, "bound_by": b_by,
@@ -1916,6 +1960,42 @@ def time_conv(FC, shapes, errs, flush):
         log("info: conv3x3_fused %s" % json.dumps(row))
         rows.append(row)
     return rows
+
+
+def compare_parent_conv(PFC, FC, shapes, flush):
+    """conv3x3_fused of the parent checkout (module ``PFC``) against this
+    tree's at the conv path's four batch-128 shapes (``shapes``, from
+    conv_path), the conv alone and the chain (BN apply + ReLU + stats),
+    in turns (parent, change, change, parent): device ms (profiler, every
+    kernel of a call) and event ms, beside the bound.  Logs and returns
+    {case: row}."""
+    out = {}
+    for B, H, W, C, th, bk, x, w, sc, sh in shapes:
+        chain = dict(scale=sc, shift=sh, relu=True, stats=True, th=th, bk=bk)
+        for kind, kw in (("conv", dict(th=th, bk=bk)), ("chain", chain)):
+            got = {"parent": [], "change": []}
+            for side in ("parent", "change", "change", "parent"):
+                impl = PFC if side == "parent" else FC
+
+                def kern():
+                    return impl.conv3x3_fused(x, w, **kw)
+
+                got[side].append((device_time(kern, flush)[0],
+                                  cuda_ms(kern, flush=flush)))
+            row = {side: {"ms": float(np.mean([d for d, _ in v_])),
+                          "event_ms": float(np.mean([e for _, e in v_]))}
+                   for side, v_ in got.items()}
+            row["speedup_device"] = row["parent"]["ms"] / row["change"]["ms"]
+            row["speedup_event"] = (row["parent"]["event_ms"]
+                                    / row["change"]["event_ms"])
+            row["bound_ms"] = bound(*conv_work(B, H, W, C, C,
+                                               kind == "chain"),
+                                    torch.bfloat16)[0]
+            tag = "%s bf16 B=%d %dx%d C=K=%d" % (kind, B, H, W, C)
+            out[tag] = row
+            log("info: parent vs change conv3x3_fused %s: %s"
+                % (tag, json.dumps(row)))
+    return out
 
 
 # ------------------------------------------------------------------- rtc --
@@ -2301,6 +2381,13 @@ def main(argv):
     log("build: %d kernels in %.1f s" % (len(_build.SOURCES),
                                           time.perf_counter() - t0))
     build = build_report(_build)
+    conv_build = {k: v for k, v in build.items()
+                  if "conv3x3" in k or "reduce_stats" in k}
+    if not any("conv3x3_tc" in k for k in conv_build) or any(
+            v["tensor_core_instructions"] == 0 for k, v in conv_build.items()
+            if "conv3x3_tc" in k):
+        failures.append("conv3x3_tc: no tensor-core instructions in its "
+                        "build")
 
     # ---- 3. each kernel against its plain version at the path's shapes
     errs = {"paged": 0.0, "flash": 0.0}
@@ -2538,6 +2625,9 @@ def main(argv):
 
     t_time = time.perf_counter()
     conv_rows = time_conv(FC, conv_shapes, conv_errs, flush)
+    if parent is not None:
+        compare_parent_conv(load_parent(parent, "fused_conv"), FC,
+                            conv_shapes, flush)
     kernels.append({
         "name": "conv3x3_fused", "route": "cuda",
         "source": "mxnet_tpu_torch/kernels/csrc/fused_conv.cu",
@@ -2551,7 +2641,7 @@ def main(argv):
         "check_b16": {"max_abs_err": err_conv_b16,
                       "stats_err_over_limit": stats_b16,
                       "planted_dropped_block_err_over_limit": planted_b16},
-        "by_shape": conv_rows,
+        "by_shape": conv_rows, "build": conv_build,
         "library": "F.conv2d (cuDNN), channels-last bf16; the chain adds "
                    "BN apply + ReLU before and channel sums after"})
     rtc_row = time_rtc(axpy, ax_x, ax_y, mx, flush)

@@ -131,7 +131,8 @@ def conv3x3_fused(x, w, scale=None, shift=None, relu=False, stats=False,
     prologue as asked; with ``stats`` returns ``(y, sum, sumsq)``, the
     channel sums of the f32 accumulator.  CUDA tensors (x and w both f32
     or both bf16, contiguous, one device; ``out_dtype`` f32 or bf16)
-    launch ``csrc/fused_conv.cu``, which refuses a width whose staged
+    launch ``csrc/fused_conv.cu``: bf16 x on the tensor cores at any
+    width, f32 x on the CUDA cores, which refuse a width whose staged
     window does not fit in shared memory (W above 717) with
     ``cudaErrorInvalidValue``; CPU tensors run
     :func:`conv3x3_fused_reference`."""
@@ -156,10 +157,12 @@ def conv3x3_fused(x, w, scale=None, shift=None, relu=False, stats=False,
         scale = scale.to(dev, torch.float32).contiguous()
         shift = shift.to(dev, torch.float32).contiguous()
     y = torch.empty(B, H, W, K, dtype=out_dtype, device=dev)
+    bf16 = int(x.dtype == torch.bfloat16)
     part = sums = None
     if stats:
-        tiles = -(-(H * W) // _fn("mxt_conv3x3_tile", [])())
-        part = torch.empty(2, B * tiles, K, dtype=torch.float32, device=dev)
+        rows = _fn("mxt_conv3x3_partials", [ctypes.c_int] * 5,
+                   ctypes.c_longlong)(B, H, W, K, bf16)
+        part = torch.empty(2, rows, K, dtype=torch.float32, device=dev)
         sums = torch.empty(2, K, dtype=torch.float32, device=dev)
 
     def ptr(t):
@@ -168,7 +171,7 @@ def conv3x3_fused(x, w, scale=None, shift=None, relu=False, stats=False,
     vp, ci = ctypes.c_void_p, ctypes.c_int
     err = _fn("mxt_conv3x3", [vp] * 7 + [ci] * 10 + [vp])(
         x.data_ptr(), w.data_ptr(), ptr(scale), ptr(shift), y.data_ptr(),
-        ptr(part), ptr(sums), B, H, W, C, K, int(x.dtype == torch.bfloat16),
+        ptr(part), ptr(sums), B, H, W, C, K, bf16,
         int(out_dtype == torch.bfloat16), int(prologue), int(bool(relu)),
         int(bool(stats)), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "conv3x3_fused at B=%d H=%d W=%d C=%d K=%d"

@@ -160,3 +160,67 @@ def test_cuda_kernel_matches_plain(cuda_device, flags):  # noqa: F811
               failures)
     assert FC.conv3x3_fused.launches == n0 + (3 if flags.get("stats") else 1)
     assert failures == []
+
+
+CHAIN = dict(scale=True, relu=True, stats=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,K,dtype,out,flags", [
+    # tiles of 128 pixels that cross images
+    (3, 7, 7, 512, 512, torch.bfloat16, None, CHAIN),
+    (3, 14, 14, 256, 256, torch.bfloat16, None, CHAIN),
+    # C % 8 != 0: the scalar load loop
+    (2, 9, 11, 20, 24, torch.bfloat16, None, CHAIN),
+    (2, 9, 11, 20, 24, torch.bfloat16, None, dict(relu=True)),
+    # W = 1, and W = 717, the widest the f32 kernel takes
+    (3, 8, 1, 16, 16, torch.bfloat16, None, CHAIN),
+    (1, 4, 717, 16, 32, torch.bfloat16, None, CHAIN),
+    (1, 4, 717, 16, 32, torch.float32, None, CHAIN),
+    # bf16 in, f32 out
+    (2, 14, 14, 64, 64, torch.bfloat16, torch.float32, CHAIN),
+    # the f32 instance (CUDA cores)
+    (2, 28, 28, 32, 32, torch.float32, None, CHAIN),
+])
+def test_cuda_kernel_shapes(cuda_device, B, H, W, C, K, dtype, out,  # noqa: F811
+                            flags):
+    """The kernel against its plain version through
+    ``chip_smoke.conv_case`` at shapes off the experiment's path: y
+    within ``conv_limits``, the f32 accumulator within its slack, the
+    sums within their limits, two calls bit-identical, every dropped
+    row of partials caught, and one launch a call."""
+    from chip_smoke import conv_case, conv_inputs, conv_kw
+    from mxnet_tpu_torch.kernels import fused_conv as FC
+    x, w, sc, sh = conv_inputs(cuda_device, B, H, W, C, dtype,
+                               np.random.RandomState(H * W + C), K=K)
+    n0 = FC.conv3x3_fused.launches
+    failures = []
+    conv_case(FC, x, w, conv_kw(flags, sc, sh, None, None, out),
+              "conv3x3 test %dx%dx%dx%d->%d" % (B, H, W, C, K), failures)
+    assert FC.conv3x3_fused.launches == n0 + (3 if flags.get("stats")
+                                              else 1)
+    assert failures == []
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_unaligned_view(cuda_device):  # noqa: F811
+    """bf16 x and w that are contiguous views 2 bytes off a 16-byte
+    boundary take the scalar load loop and agree with the plain version
+    (C and K multiples of 8)."""
+    from chip_smoke import conv_case, conv_inputs, conv_kw
+    from mxnet_tpu_torch.kernels import fused_conv as FC
+    x, w, sc, sh = conv_inputs(cuda_device, 2, 14, 14, 64, torch.bfloat16,
+                               np.random.RandomState(5))
+
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    x, w = offset(x), offset(w)
+    assert x.data_ptr() % 16 and w.data_ptr() % 16 and x.is_contiguous()
+    failures = []
+    conv_case(FC, x, w, conv_kw(CHAIN, sc, sh, None, None), "conv3x3 "
+              "offset view", failures)
+    assert failures == []
