@@ -20,15 +20,18 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    the two grouped SGD kernels bit for bit on ResNet-50's parameter
    group and on a group of odd sizes, clip on and off, wd 0 and 1e-4;
    the fused 3x3 convolution at batch 16 on the four ResNet-50 shapes;
-4. drives the serving path with every launch counter set to 0: the
-   ``full`` serving preset (GPT vocab 32000, d_model 768, 12 heads, 12
-   layers, d_ff 3072, max_len 512, bf16, weight-only int8, random
-   weights from a seed) serving the preset's 64-request mix through
-   ``ServingEngine`` (16 slots, page 16, prefill chunk 16) once with
-   float KV and once with int8 KV, then ``generate`` on 4 prompts;
-   asserts every request finished, no page leaked, and each kernel
-   launched;
-5. holds the paged kernel against its plain version on inputs captured
+4. serves the ``full`` serving preset (GPT vocab 32000, d_model 768,
+   12 heads, 12 layers, d_ff 3072, max_len 512, bf16, weight-only
+   int8, random weights from a seed) the preset's 64-request mix
+   through ``ServingEngine`` (16 slots, page 16, prefill chunk 16)
+   with float KV and with int8 KV, first with the step run op by op
+   (``_eager``; a spy keeps the paged kernel's inputs at step 60), then
+   as a user runs it, the step replayed as a CUDA graph, with every
+   launch counter set to 0, then ``generate`` on 4 prompts; asserts
+   every request finished, no page leaked, each kernel launched (the
+   paged kernel once a layer a step under replay), and the captured
+   engines' tokens identical to the eager ones;
+5. holds the paged kernel against its plain version on the inputs kept
    from the live engine (its real pools, block table and positions);
 6. drives the training paths, each with the counters set to 0 just
    before it and read just after: 20 steps of BERT-base masked-LM
@@ -36,8 +39,11 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    one synthetic batch, asserting finite, falling loss and 12 launches
    of each flash kernel per step, then one step with remat against one
    without from the same state; and 12 steps of causal GPT training at
-   the ``full`` width (bs 8 x 512); a small f32 BERT trains 3 steps on
-   the card and on the CPU from the same weights, losses compared;
+   the ``full`` width (bs 8 x 512); each step replays one CUDA graph;
+   for each, 3 steps replayed against 3 run op by op from one seed,
+   bit for bit, and the step time of both in turns; a small f32 BERT
+   trains 3 steps on the card and on the CPU from the same weights,
+   losses compared;
 7. drives the Gluon path as an MXNet user writes it (``import
    mxnet_tpu_torch as mx``): ResNet-50 v1 (7x7/s2 stem, 1000 classes,
    f32, NCHW) on ``mx.gpu(0)`` with Xavier init from
@@ -49,15 +55,18 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    ``nd.multi_sgd_update``) over the whole group, bit for bit, each
    grouped call one kernel launch; a thumbnail ResNet-18 trains 3 steps
    on the card (TF32 off) and on the CPU from the same weights, losses
-   compared;
+   compared; then 20 more steps of the same net after
+   ``net.hybridize()`` (forward and backward as CUDA graphs, the
+   Trainer's update per tensor as before), images/s beside the eager
+   loop's;
 8. times each kernel, its plain version and a library call at the
    paths' shapes (L2 flushed between launches) beside the least time
    the card could take for the same work: the flash, paged and SGD
    kernels and SDPA by their device time (torch.profiler, 20 calls)
    with CUDA events around the call beside it, the others by CUDA
-   events; logs the operations SDPA ran; times the BERT and ResNet
-   steps and profiles 20 engine steps, 20 BERT steps and 20 ResNet
-   steps (torch.profiler) for the device's busy time (kernels, copies
+   events; logs the operations SDPA ran; profiles 20 engine steps, 8
+   BERT steps, 6 GPT steps and 8 ResNet steps (torch.profiler), each
+   op by op and captured, for the device's busy time (kernels, copies
    and fills; annotation spans left out) and idle share;
 9. drives the extension surface, each path with its counters from 0:
    the twin of ``benchmark/fused_conv_exp.py`` (the ResNet-50 3x3
@@ -71,9 +80,11 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    and in a 3-step Gluon Trainer run; then times the conv kernel (kernel,
    plain, cuDNN, bound) at the four shapes and the rtc axpy;
 10. checks a small float32 engine on the card against ``generate`` on
-   the CPU, and prints the full-width float32 engine-vs-``generate``
-   token agreement as information;
-11. prints the ``kernels`` JSON line and, last, the device line.
+   the CPU, and the full-width float32 engine, captured, against the
+   same engine op by op and against ``generate`` on the card, token for
+   token;
+11. prints the compiled steps' numbers (eager and captured), the
+   ``kernels`` JSON line and, last, the device line.
 
 Exits non-zero, printing no result, without a CUDA device, when a
 kernel does not build or launch, or when any check fails.
@@ -136,8 +147,8 @@ PAGED_TOL_TEXT = "1e-5 + 8e-3 * (plain version on |v|)"
 BERT = dict(vocab_size=30522, max_len=512, d_model=768, n_heads=12,
             n_layers=12, d_ff=3072, dropout=0.1, dtype="bfloat16",
             param_dtype="float32", remat=False, use_flash=True)
-BERT_B, BERT_T, BERT_STEPS, BERT_WARM, BERT_PROFILE = 16, 512, 20, 5, 20
-GPT_B, GPT_STEPS, GPT_WARM = 8, 12, 2
+BERT_B, BERT_T, BERT_STEPS, BERT_WARM, BERT_PROFILE = 16, 512, 20, 5, 8
+GPT_B, GPT_STEPS, GPT_WARM, GPT_PROFILE = 8, 12, 2, 6
 # training kernels against their plain versions: f32 differs by
 # summation order only, 1e-4 on dQ/dK/dV at unit-scale inputs (the JAX
 # tests' bar, tests/test_flash_backward.py:47; the forward keeps 1e-5).
@@ -183,7 +194,7 @@ DH256_TIME = dict(B=16, H=3)
 # :46): batch 64 x 3 x 224 x 224, 1000 classes, f32 NCHW, SGD lr 0.1
 # momentum 0.9, the literal 7x7/s2 stem; depth not cut
 RESNET_B, RESNET_HW, RESNET_CLASSES = 64, 224, 1000
-RESNET_STEPS, RESNET_WARM, RESNET_PROFILE = 20, 5, 20
+RESNET_STEPS, RESNET_WARM, RESNET_PROFILE = 20, 5, 8
 RESNET_WINDOW = 5               # steps 6-20 timed in three windows
 RESNET_LR, RESNET_MOM = 0.1, 0.9
 # the thumbnail ResNet-18 trained 3 steps on the card and on the CPU
@@ -203,6 +214,19 @@ def log(*a):
 
 class Failed(Exception):
     pass
+
+
+_PHASE = {"start": None, "last": None}
+
+
+def phase(name):
+    """Log the seconds the phase that ends here took, and since start."""
+    now = time.perf_counter()
+    if _PHASE["start"] is None:
+        _PHASE["start"] = _PHASE["last"] = now
+    log("phase %s: %.1f s (%.1f s since start)"
+        % (name, now - _PHASE["last"], now - _PHASE["start"]))
+    _PHASE["last"] = now
 
 
 def card_line():
@@ -484,27 +508,54 @@ def device_work(prof):
             [ev for ev, k in zip(evs, keep) if not k], how)
 
 
-def profile_window(step, n, what, top=8):
+def profile_window(step, n, what, top=8, kernels=()):
     """Information: one torch.profiler window of ``n`` calls of
     ``step`` — host time per step, device busy time per step (kernels,
     copies and fills only: ``device_work``), the device's idle share,
     and the ``top`` kernels that take the most device time.  Returns
     {"wall_ms", "busy_ms", "idle"} (None when the profiler records no
-    device time)."""
+    device time).
+
+    A check too, with ``kernels`` = [(label, counter, symbols)]: the
+    device kernels of the window whose name holds one of ``symbols``
+    must number the change of ``counter()`` over the window — under
+    replay the counters add the capture's change, so this holds them
+    to what ran on the device.  The profiler there now and then loses
+    events or a whole window, so a window that disagrees is logged and
+    taken again, and the run fails after three that disagree (a replay
+    that ran other kernels disagrees every time)."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
+    for attempt in range(1, 4 if kernels else 2):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    work, other, how = device_work(prof)
-    by_name = {}
-    for ev in work:
-        t, c = by_name.get(ev.name, (0.0, 0))
-        by_name[ev.name] = (t + ev.time_range.elapsed_us(), c + 1)
+        before = [counter() for _, counter, _ in kernels]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        work, other, how = device_work(prof)
+        by_name = {}
+        for ev in work:
+            t, c = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (t + ev.time_range.elapsed_us(), c + 1)
+        seen = [(label, counter() - b0,
+                 sum(c for name, (_, c) in by_name.items()
+                     if any(sym in name for sym in symbols)))
+                for (label, counter, symbols), b0 in zip(kernels, before)]
+        bad = [x for x in seen if x[1] != x[2]]
+        for label, counted, ran in seen:
+            log("check profile of %d %s, attempt %d: %s counted %d "
+                "launches, the device ran %d such kernels  %s"
+                % (n, what, attempt, label, counted, ran,
+                   "ok" if counted == ran else "MISMATCH"))
+        if not bad:
+            break
+    if bad:
+        raise Failed("profile of %s: the launch counters disagree with "
+                     "the device kernels in three windows: %s"
+                     % (what, json.dumps(bad)))
     busy_ms = sum(t for t, _ in by_name.values()) / 1e3 / n
     if busy_ms == 0.0:
         log("info: profile: the profiler recorded no device time "
@@ -531,15 +582,22 @@ def profile_window(step, n, what, top=8):
             "idle": 1.0 - busy_ms / wall_ms}
 
 
-def profile_steps(ServingEngine, params, cfg, reqs, dev, warm=60, n=20):
-    """Profile ``n`` engine steps (bf16/w8, float KV) after ``warm``."""
+def profile_steps(ServingEngine, params, cfg, reqs, dev, eager, kernels,
+                  warm=60, n=20):
+    """Profile ``n`` engine steps (bf16/w8, float KV) after ``warm``, the
+    step captured or (``eager``) op by op, its paged kernels held to
+    the launch counter (``kernels``, as profile_window takes them);
+    returns profile_window's numbers."""
     eng = ServingEngine(params, cfg, num_slots=SLOTS, page_size=PAGE,
                         prefill_chunk=CHUNK, device=dev)
+    eng._eager = eager
     for p, n_new in reqs:
         eng.submit(p, n_new)
     for _ in range(warm):
         eng.step()
-    profile_window(eng.step, n, "engine steps")
+    return profile_window(eng.step, n, "engine steps, %s"
+                          % ("eager" if eager else "captured"),
+                          kernels=kernels)
 
 
 # --------------------------------------------------------------- training --
@@ -1115,6 +1173,70 @@ def step_ms(init_state, step, batch, dev, n, warm, seed):
     return (time.perf_counter() - t0) * 1e3 / n
 
 
+def captured_vs_eager(name, init_state, step, batch, dev, seed, failures,
+                      n=3):
+    """``n`` train steps op by op and ``n`` replayed from one seed: the
+    losses, parameters, AdamW state and the generator's state after
+    them bit for bit (so the warm-up before the capture left no trace
+    and replay k drew eager step k's dropout)."""
+    from mxnet_tpu_torch.convert import tree_leaves
+    runs = []
+    for eager in (True, False):
+        step._eager = eager
+        try:
+            state = init_state(seed=seed)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            losses = torch.stack([step(state, batch, gen)[1]
+                                  for _ in range(n)])
+            params, opt = state
+            leaves = tree_leaves(params)
+            runs.append((losses, leaves, [v for p in leaves for v in
+                                          opt.state[p].values()],
+                         gen.get_state()))
+        finally:
+            step._eager = False
+    (l0, p0, s0, g0), (l1, p1, s1, g1) = runs
+    same = (torch.equal(l0, l1) and torch.equal(g0, g1)
+            and len(p0) == len(p1) and len(s0) == len(s1)
+            and all(torch.equal(a, b) for a, b in zip(p0 + s0, p1 + s1)))
+    log("check %s, %d steps captured vs eager: losses %s vs %s, %d "
+        "parameters and %d AdamW tensors bit for bit: %s  %s"
+        % (name, n, " ".join("%.6f" % x for x in l1.tolist()),
+           " ".join("%.6f" % x for x in l0.tolist()), len(p0), len(s0),
+           same, "ok" if same else "FAIL"))
+    if not same:
+        failures.append("%s captured vs eager" % name)
+
+
+def step_times(init_state, step, batch, dev, n, warm, seed):
+    """ms/step of ``n`` synchronised train steps after ``warm``, op by op
+    and replayed, in turns (eager, captured, captured, eager).  Each side
+    keeps one state and one generator, so the captured side captures
+    once, in its first warm-up steps."""
+    sides = {side: (init_state(seed=seed),
+                    torch.Generator(device=dev).manual_seed(seed))
+             for side in ("eager", "captured")}
+    got = {"eager": [], "captured": []}
+    for side in ("eager", "captured", "captured", "eager"):
+        state, gen = sides[side]
+        step._eager = side == "eager"
+        try:
+            for _ in range(warm):
+                step(state, batch, gen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step(state, batch, gen)
+            torch.cuda.synchronize()
+            got[side].append((time.perf_counter() - t0) * 1e3 / n)
+        finally:
+            step._eager = False
+    del sides
+    out = {side: float(np.median(v_)) for side, v_ in got.items()}
+    out["runs"] = got
+    return out
+
+
 def own_flash(FA):
     """This tree's three flash wrappers, as a module-like object."""
     return types.SimpleNamespace(**{n: getattr(FA, n) for n in (
@@ -1531,20 +1653,29 @@ def resnet_path(mx, FA, PA, FO, dev, failures, flush):
         trainer.step(RESNET_B)
         return L
 
+    def run():
+        """RESNET_STEPS steps: mean losses, s/step after RESNET_WARM and
+        ms/step by window."""
+        losses, marks = [], []
+        for i in range(RESNET_STEPS + 1):
+            if i >= RESNET_WARM and (i - RESNET_WARM) % RESNET_WINDOW == 0:
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+            if i < RESNET_STEPS:
+                losses.append(step())
+        per = (marks[-1] - marks[0]) / (RESNET_STEPS - RESNET_WARM)
+        return ([float(L.asnumpy().mean()) for L in losses], per,
+                [(b - a) / RESNET_WINDOW * 1e3
+                 for a, b in zip(marks, marks[1:])])
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counters(FA, PA, FO)
-    losses, marks = [], []
-    for i in range(RESNET_STEPS + 1):
-        if i >= RESNET_WARM and (i - RESNET_WARM) % RESNET_WINDOW == 0:
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-        if i < RESNET_STEPS:
-            losses.append(step())
-    per = (marks[-1] - marks[0]) / (RESNET_STEPS - RESNET_WARM)
-    windows = [(b - a) / RESNET_WINDOW * 1e3 for a, b in zip(marks, marks[1:])]
+    losses, per, windows = run()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    losses = [float(L.asnumpy().mean()) for L in losses]
+    net.hybridize()             # the forward and backward as CUDA graphs
+    h_losses, h_per, h_windows = run()
+    net.hybridize(False)
     params = [p for p in net.collect_params().values()
               if p.grad_req != "null"]
     n_vals = sum(int(np.prod(p.shape)) for p in params)
@@ -1559,11 +1690,19 @@ def resnet_path(mx, FA, PA, FO, dev, failures, flush):
            tf32))
     log("ResNet-50 train step by %d-step window: %s ms" % (
         RESNET_WINDOW, " ".join("%.3f" % w for w in windows)))
-    if not all(np.isfinite(losses)):
-        raise Failed("ResNet-50: loss not finite")
-    if not losses[-1] < losses[0]:
-        raise Failed("ResNet-50: loss did not fall (%.4f -> %.4f)"
-                     % (losses[0], losses[-1]))
+    log("ResNet-50 hybridized train: %d steps, losses %s" % (
+        RESNET_STEPS, " ".join("%.4f" % v for v in h_losses)))
+    log("ResNet-50 hybridized train step: %.3f ms, %.1f images/s (host "
+        "clock over steps %d-%d, synchronised; the first step captures), "
+        "by %d-step window %s ms" % (
+            h_per * 1e3, RESNET_B / h_per, RESNET_WARM + 1, RESNET_STEPS,
+            RESNET_WINDOW, " ".join("%.3f" % w for w in h_windows)))
+    for tag, ls in (("", losses), (" hybridized", h_losses)):
+        if not all(np.isfinite(ls)):
+            raise Failed("ResNet-50%s: loss not finite" % tag)
+        if not ls[-1] < ls[0]:
+            raise Failed("ResNet-50%s: loss did not fall (%.4f -> %.4f)"
+                         % (tag, ls[0], ls[-1]))
     with mx.autograd.record():                   # one step's gradients
         L = loss_fn(net(x), y)
     L.backward()
@@ -1577,10 +1716,19 @@ def resnet_path(mx, FA, PA, FO, dev, failures, flush):
             raise Failed("%s was never launched on the ResNet-50 path"
                          % name)
     rows = time_sgd_kernels(FO, params, flush)
-    profile_window(step, RESNET_PROFILE, "ResNet-50 train steps")
+    prof = {"eager": profile_window(step, RESNET_PROFILE,
+                                    "ResNet-50 train steps, eager")}
+    net.hybridize()
+    step()                          # captures, outside the window
+    prof["captured"] = profile_window(step, RESNET_PROFILE,
+                                      "ResNet-50 train steps, hybridized")
+    net.hybridize(False)
     torch.backends.cudnn.allow_tf32 = False
     nums = {"ms_per_step": per * 1e3, "images_per_s": RESNET_B / per,
             "window_ms_per_step": windows,
+            "hybridized_ms_per_step": h_per * 1e3,
+            "hybridized_images_per_s": RESNET_B / h_per,
+            "hybridized_window_ms_per_step": h_windows, "profile": prof,
             "peak_gib": peak, "losses": losses, "tensors": len(params),
             "values": n_vals, "tf32": tf32, "routes": routes}
     return launches, nums, rows
@@ -2312,9 +2460,13 @@ def time_rtc(axpy, X, Y, mx, flush):
 
 
 # ------------------------------------------------------------------- main --
-def serve(G, ServingEngine, params, cfg, reqs, kv_int8, dev, spy=None):
+def serve(G, ServingEngine, params, cfg, reqs, kv_int8, dev, spy=None,
+          eager=False):
+    """The mix through one engine, its step captured (``eager``: run op
+    by op); asserts every request finished and no page leaked."""
     eng = ServingEngine(params, cfg, num_slots=SLOTS, page_size=PAGE,
                         prefill_chunk=CHUNK, kv_int8=kv_int8, device=dev)
+    eng._eager = eager
     rids = [eng.submit(p, n) for p, n in reqs]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2332,10 +2484,11 @@ def serve(G, ServingEngine, params, cfg, reqs, kv_int8, dev, spy=None):
            .max_new_tokens]
     toks = sum(len(eng.requests[r].generated) for r in rids)
     outs = {r: eng.requests[r].output for r in rids}
-    log("serve kv_int8=%s: %d requests, %d steps, %d tokens in %.3f s "
-        "(%.1f tok/s), pages in use after %d, peak pages %d"
-        % (kv_int8, len(rids), steps, toks, dt, toks / dt,
-           eng.cache.pages_in_use, eng.stats["peak_pages"]))
+    log("serve kv_int8=%s %s: %d requests, %d steps, %d tokens in %.3f s "
+        "(%.1f tok/s, %.3f ms/step), pages in use after %d, peak pages %d"
+        % (kv_int8, "eager" if eager else "captured", len(rids), steps,
+           toks, dt, toks / dt, dt * 1e3 / steps, eng.cache.pages_in_use,
+           eng.stats["peak_pages"]))
     if bad:
         raise Failed("requests not finished: %s" % bad[:8])
     if eng.cache.pages_in_use != 0:
@@ -2345,6 +2498,15 @@ def serve(G, ServingEngine, params, cfg, reqs, kv_int8, dev, spy=None):
         if o.min() < 0 or o.max() >= cfg.vocab_size:
             raise Failed("token out of the vocabulary in request %d" % r)
     return outs, {"steps": steps, "tokens": toks, "seconds": dt}
+
+
+def same_tokens(name, got, want, failures):
+    """Every request's tokens identical; logs and records a failure."""
+    bad = [r for r in want if not np.array_equal(got[r], want[r])]
+    log("check %s: %d of %d requests token-identical  %s"
+        % (name, len(want) - len(bad), len(want), "FAIL" if bad else "ok"))
+    if bad:
+        failures.append(name)
 
 
 def main(argv):
@@ -2376,6 +2538,7 @@ def main(argv):
     failures = []
 
     t_start = t0 = time.perf_counter()
+    phase("start")
     with ThreadPoolExecutor(len(_build.SOURCES)) as ex:   # one nvcc each
         list(ex.map(_build.load, _build.SOURCES))
     log("build: %d kernels in %.1f s" % (len(_build.SOURCES),
@@ -2389,6 +2552,7 @@ def main(argv):
         failures.append("conv3x3_tc: no tensor-core instructions in its "
                         "build")
 
+    phase("build")
     # ---- 3. each kernel against its plain version at the path's shapes
     errs = {"paged": 0.0, "flash": 0.0}
     errs_paged = check_paged_kernels(PA, dev, failures)
@@ -2416,6 +2580,7 @@ def main(argv):
     err_conv_b16, stats_b16, planted_b16 = check_conv_kernel(FC, dev,
                                                             failures)
 
+    phase("kernel checks")
     # ---- 4. the serving path, counters from 0
     cfg = G.gpt_config(vocab_size=VOCAB, max_len=MAX_LEN, d_model=D,
                        n_heads=HEADS, n_layers=LAYERS, d_ff=FF,
@@ -2427,7 +2592,8 @@ def main(argv):
         % (len(reqs), sum(p.size for p, _ in reqs),
            sum(n for _, n in reqs)))
 
-    # capture the paged kernel's real inputs at one mid-run step
+    # keep the paged kernel's real inputs at one mid-run step (of the
+    # engines that run op by op)
     captured = {}
     spy = {"step": -1}
     orig = E.paged_attention
@@ -2445,18 +2611,21 @@ def main(argv):
     if len(longest) < 4:
         raise Failed("the mix has fewer than 4 prompts of 192 tokens")
     prompts = np.stack([reqs[i][0] for i in longest])
-    zero_counters(FA, PA, FO)
-    try:
-        outs16, run16 = serve(G, ServingEngine, params, cfg, reqs, False,
-                              dev, spy)
-        outs8, run8 = serve(G, ServingEngine, params, cfg, reqs, True,
-                            dev, spy)
-        t0 = time.perf_counter()
-        gen = G.generate(params, cfg, prompts, 64, device=dev)
-        torch.cuda.synchronize()
-        t_gen = time.perf_counter() - t0
+    try:                    # op by op: the spy sees every step's inputs
+        outs16e, run16e = serve(G, ServingEngine, params, cfg, reqs, False,
+                                dev, spy, eager=True)
+        outs8e, run8e = serve(G, ServingEngine, params, cfg, reqs, True,
+                              dev, spy, eager=True)
     finally:
         E.paged_attention = orig
+    # the main path: the engine's captured step, then generate
+    zero_counters(FA, PA, FO)
+    outs16, run16 = serve(G, ServingEngine, params, cfg, reqs, False, dev)
+    outs8, run8 = serve(G, ServingEngine, params, cfg, reqs, True, dev)
+    t0 = time.perf_counter()
+    gen = G.generate(params, cfg, prompts, 64, device=dev)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
     launches = {"paged_attention": PA.paged_attention.launches,
                 "flash_fwd": FA.flash_fwd.launches}
     log("serving path launches:", json.dumps(launches))
@@ -2471,6 +2640,24 @@ def main(argv):
         if n <= 0:
             raise Failed("%s was never launched on the serving path"
                          % name)
+    if launches["paged_attention"] != steps * LAYERS:
+        raise Failed("paged_attention counted %d launches under replay, "
+                     "expected %d" % (launches["paged_attention"],
+                                      steps * LAYERS))
+    same_tokens("bf16/w8 engine, float KV, captured vs eager", outs16,
+                outs16e, failures)
+    same_tokens("bf16/w8 engine, int8 KV, captured vs eager", outs8,
+                outs8e, failures)
+    report = {"serving": {
+        "eager_tokens_per_s": [run16e["tokens"] / run16e["seconds"],
+                               run8e["tokens"] / run8e["seconds"]],
+        "captured_tokens_per_s": [run16["tokens"] / run16["seconds"],
+                                  run8["tokens"] / run8["seconds"]],
+        "eager_ms_per_step": [run16e["seconds"] * 1e3 / run16e["steps"],
+                              run8e["seconds"] * 1e3 / run8e["steps"]],
+        "captured_ms_per_step": [run16["seconds"] * 1e3 / run16["steps"],
+                                 run8["seconds"] * 1e3 / run8["steps"]],
+        "note": "[float KV, int8 KV], the 64-request mix"}}
     gen_np = gen.cpu().numpy()
     agree = np.mean([np.mean(outs16[i][192:256] ==
                              gen_np[j, 192:192 + outs16[i].size - 192])
@@ -2498,6 +2685,7 @@ def main(argv):
         if key == "bfloat16":
             errs["paged"] = e
 
+    phase("serving")
     # ---- 6. the training paths, each with its own counters from 0
     bert_cfg = T_.bert_base(**BERT)
     init_state, step = T_.make_train_step(bert_cfg, learning_rate=1e-4,
@@ -2514,6 +2702,11 @@ def main(argv):
         % (bert_s * 1e3, BERT_B * BERT_T / bert_s, BERT_WARM + 1,
            BERT_STEPS, torch.cuda.max_memory_allocated() / 2**30))
     check_remat(T_, bert_cfg, state[0], batch, dev, failures)
+    captured_vs_eager("BERT-base train", init_state, step, batch, dev, 0,
+                      failures)
+    report["bert"] = step_times(init_state, step, batch, dev, 10, 3, 0)
+    log("info: BERT-base train step ms, eager vs captured: %s"
+        % json.dumps(report["bert"]))
 
     gpt_train_cfg = G.gpt_config(vocab_size=VOCAB, max_len=MAX_LEN,
                                  d_model=D, n_heads=HEADS, n_layers=LAYERS,
@@ -2532,6 +2725,11 @@ def main(argv):
         "steps %d-%d, synchronised)" % (GPT_B, MAX_LEN, gpt_s * 1e3,
                                         GPT_WARM + 1, GPT_STEPS))
     gbatch = {k: torch.as_tensor(v).to(dev) for k, v in gbatch.items()}
+    captured_vs_eager("GPT causal train", g_init, g_step, gbatch, dev, 1,
+                      failures)
+    report["gpt"] = step_times(g_init, g_step, gbatch, dev, 8, 2, 1)
+    log("info: GPT causal train step ms, eager vs captured: %s"
+        % json.dumps(report["gpt"]))
     if parent is not None:        # before any profiler session
         PFA = load_parent(parent, "flash_attention")
         compare_parent_steps(PFA, FA, dev, {
@@ -2542,6 +2740,7 @@ def main(argv):
                                dev)
     check_small_f32(T_, dev, failures)
 
+    phase("training")
     # ---- 7. the Gluon path: ResNet-50 v1 through Trainer, then the
     # grouped update routes on one step's gradients (counters from 0)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
@@ -2549,6 +2748,7 @@ def main(argv):
                                                     failures, flush)
     check_small_resnet(mx, dev, failures)
 
+    phase("gluon")
     # ---- 7b. the extension surface, each path with its counters from 0:
     # the fused conv experiment's twin, then rtc kernels through CustomOp
     t_ext = time.perf_counter()
@@ -2560,6 +2760,7 @@ def main(argv):
     rtc_launches, err_rtc_path = rtc_path(mx, relu_fwd, relu_bwd, failures)
     t_ext = time.perf_counter() - t_ext
 
+    phase("extension")
     # ---- 8. timings at the paths' shapes
     kernels = []
     q, pool, s, bt, pos = captured["bfloat16"]
@@ -2660,23 +2861,39 @@ def main(argv):
         "note": "NVRTC-compiled user kernels; the timed one is upstream's "
                 "axpy"})
 
-    profile_steps(ServingEngine, params, cfg, reqs, dev)
-    profile_window(lambda: step(state, batch, torch.Generator(
-        device=dev).manual_seed(3)), BERT_PROFILE,
-        "BERT-base train steps")
-    del state
+    phase("kernel timings")
+    # each window's kernels of the port, held to their launch counters
+    paged_kernels = [(sym, lambda: PA.paged_attention.launches, [sym])
+                     for sym in ("paged_split", "paged_combine")]
+    flash_kernels = [(k, lambda k=k: getattr(FA, k).launches, symbols[k])
+                     for k in symbols]
+    for eager in (True, False):
+        mode = "eager" if eager else "captured"
+        report["serving"]["profile_" + mode] = profile_steps(
+            ServingEngine, params, cfg, reqs, dev, eager, paged_kernels)
     g_state = g_init(seed=1)
-    g_gen = torch.Generator(device=dev).manual_seed(1)
+    for name, st, stp, b, n in (("bert", state, step, batch, BERT_PROFILE),
+                                ("gpt", g_state, g_step, gbatch,
+                                 GPT_PROFILE)):
+        gen_p = torch.Generator(device=dev).manual_seed(3)
+        for eager in (True, False):
+            mode = "eager" if eager else "captured"
+            stp._eager = eager
+            try:
+                for _ in range(2):      # a captured step captures here
+                    stp(st, b, gen_p)
+                report[name]["profile_" + mode] = profile_window(
+                    lambda: stp(st, b, gen_p), n, "%s train steps, %s"
+                    % ("BERT-base" if name == "bert" else "GPT causal",
+                       mode), kernels=flash_kernels)
+            finally:
+                stp._eager = False
+    del state, g_state
+    report["resnet50"] = {k: resnet[k] for k in (
+        "ms_per_step", "images_per_s", "hybridized_ms_per_step",
+        "hybridized_images_per_s", "profile")}
 
-    def g_once():
-        nonlocal g_state
-        g_state, _ = g_step(g_state, gbatch, g_gen)
-
-    for _ in range(GPT_WARM):
-        g_once()
-    profile_window(g_once, GPT_STEPS, "GPT causal train steps")
-    del g_state
-
+    phase("step profiles")
     # ---- 9. small float32 engine on the card vs generate on the CPU
     tiny = G.gpt_tiny(dtype="float32", vocab_size=128, max_len=64,
                       dropout=0.0)
@@ -2696,17 +2913,26 @@ def main(argv):
     if np.mean(hits) < 0.9:
         failures.append("small f32 engine vs generate")
 
+    # the full-width f32 engine, captured and op by op, against generate
+    # on the card: token-identical
     f32cfg = G.gpt_config(**{**cfg.__dict__, "dtype": "float32"})
     few = [(p[:64], 32) for p, _ in reqs[:4]]
-    eng = ServingEngine(master, f32cfg, num_slots=SLOTS, page_size=PAGE,
-                        prefill_chunk=CHUNK, device=dev)
-    rids = [eng.submit(p, n) for p, n in few]
-    outs = eng.run()
-    same = [np.mean(outs[r] == G.generate(master, f32cfg, p[None], n,
-                                          device=dev)[0].cpu().numpy())
-            for r, (p, n) in zip(rids, few)]
-    log("info: full-width f32 engine vs generate on the card, 4 requests:"
-        " %.3f token agreement" % np.mean(same))
+    runs = []
+    for eager in (True, False):
+        eng = ServingEngine(master, f32cfg, num_slots=SLOTS, page_size=PAGE,
+                            prefill_chunk=CHUNK, device=dev)
+        eng._eager = eager
+        rids = [eng.submit(p, n) for p, n in few]
+        outs = eng.run()
+        runs.append({i: outs[r] for i, r in enumerate(rids)})
+    want = {i: G.generate(master, f32cfg, p[None], n, device=dev)[0]
+            .cpu().numpy() for i, (p, n) in enumerate(few)}
+    same_tokens("full-width f32 engine, captured vs eager", runs[1],
+                runs[0], failures)
+    same_tokens("full-width f32 engine (captured) vs generate", runs[1],
+                want, failures)
+    phase("small models")
+    log("info: compiled steps: %s" % json.dumps(report))
 
     log("chip_smoke: %.1f s in all" % (time.perf_counter() - t_start))
     if failures:

@@ -203,6 +203,22 @@ class Parameter:
         for g in self._grad.values():
             g._data.zero_()
 
+    def reset_ctx(self, ctx):
+        """Move the value to the context(s) ``ctx``: new arrays (and
+        gradient buffers) there, copied from the first context's
+        (reference ``Parameter.reset_ctx``)."""
+        if isinstance(ctx, Context):
+            ctx = [ctx]
+        if self._data is not None:
+            cur = next(iter(self._data.values()))
+            self._data = OrderedDict((c, cur.copyto(c)) for c in ctx)
+            self._ctx_list = list(ctx)
+            if self._grad_req != "null":
+                self._init_grad()
+        elif self._deferred_init:
+            init, _, default_init = self._deferred_init
+            self._deferred_init = (init, ctx, default_init)
+
     def set_data(self, data):
         """Write ``data`` into every context's copy, in place."""
         self.shape = tuple(data.shape)
@@ -301,6 +317,10 @@ class ParameterDict:
     def zero_grad(self):
         for v in self.values():
             v.zero_grad()
+
+    def reset_ctx(self, ctx):
+        for v in self.values():
+            v.reset_ctx(ctx)
 
     def __repr__(self):
         return "%s(\n%s)" % (type(self).__name__, "".join(

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ._counters import register
 
 __all__ = ["flash_attention", "flash_fwd", "flash_fwd_reference",
            "flash_bwd_dq", "flash_bwd_dq_reference", "flash_bwd_dkv",
@@ -314,9 +315,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, mask=None, causal=False,
     return dk, dv
 
 
-flash_fwd.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+register(flash_fwd, "launches")
+register(flash_bwd_dq, "launches")
+register(flash_bwd_dkv, "launches")
 
 
 def _aligned(x):

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ._counters import register
 
 __all__ = ["fused_multi_sgd", "fused_multi_sgd_reference"]
 
@@ -191,5 +192,4 @@ def fused_multi_sgd(weights, grads, moms=None, *, lrs, wds, momentum=0.0,
     return outs, moms
 
 
-fused_multi_sgd.sgd_launches = 0
-fused_multi_sgd.sgd_mom_launches = 0
+register(fused_multi_sgd, "sgd_launches", "sgd_mom_launches")

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ._counters import register
 
 __all__ = ["paged_attention", "paged_attention_reference", "split_pages",
            "vector_loads"]
@@ -173,4 +174,4 @@ def paged_attention(q, pool_kv, pool_s, block_tables, row_pos, *,
     return out
 
 
-paged_attention.launches = 0
+register(paged_attention, "launches")

@@ -58,31 +58,34 @@ def make_train_step(cfg, mesh=None, learning_rate=1e-4, weight_decay=0.01,
     ``transformer.make_train_step``); ``step(state, batch, generator)``
     where batch = dict(tokens[, mask]).  Labels are the tokens shifted
     left (next-token prediction); the last position and every position
-    whose next token is padding (the shifted mask) get -100."""
+    whose next token is padding (the shifted mask) get -100.  The shift
+    runs inside the step, in its CUDA graph on the card."""
     if not cfg.causal:
         cfg = dataclasses.replace(cfg, causal=True)
-    dev = resolve_device(device)
-    init_state, mlm_step = T.make_train_step(
+    init_state, step = T.make_train_step(
         cfg, mesh=mesh, learning_rate=learning_rate,
-        weight_decay=weight_decay, device=dev)
-
-    def step(state, batch, generator):
-        tokens = torch.as_tensor(batch["tokens"]).to(dev).long()
-        mask = batch.get("mask")
-        mask = (torch.ones(tokens.shape, dtype=torch.bool, device=dev)
-                if mask is None else torch.as_tensor(mask).to(dev).bool())
-        B = tokens.shape[0]
-        labels = torch.cat([tokens[:, 1:],
-                            torch.full((B, 1), -100, dtype=tokens.dtype,
-                                       device=dev)], dim=1)
-        shifted = torch.cat([mask[:, 1:],
-                             torch.zeros(B, 1, dtype=torch.bool,
-                                         device=dev)], dim=1)
-        labels = torch.where(shifted, labels, -100)
-        return mlm_step(state, {"tokens": tokens, "labels": labels,
-                                "mask": mask}, generator)
-
+        weight_decay=weight_decay, device=device)
+    step.prepare = _lm_batch
     return init_state, step
+
+
+def _lm_batch(batch):
+    """The masked-LM batch of a causal-LM one: next-token labels, -100
+    at the last position and where the next token is padding."""
+    tokens = batch["tokens"].long()
+    dev = tokens.device
+    mask = batch.get("mask")
+    mask = (torch.ones(tokens.shape, dtype=torch.bool, device=dev)
+            if mask is None else mask.bool())
+    B = tokens.shape[0]
+    labels = torch.cat([tokens[:, 1:],
+                        torch.full((B, 1), -100, dtype=tokens.dtype,
+                                   device=dev)], dim=1)
+    shifted = torch.cat([mask[:, 1:],
+                         torch.zeros(B, 1, dtype=torch.bool, device=dev)],
+                        dim=1)
+    labels = torch.where(shifted, labels, -100)
+    return {"tokens": tokens, "labels": labels, "mask": mask}
 
 
 def quantize_decode_params(params):

@@ -18,8 +18,10 @@ are not ported; they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import types
 from typing import Optional
 
 import torch
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from .._graphs import GraphCache, Program, warm_up
 from ..convert import tree_leaves, tree_map
 from ..kernels.flash_attention import dense_keep_mask, flash_attention
 
@@ -332,6 +335,146 @@ def mlm_loss(params, batch, generator, cfg: TransformerConfig, mesh=None):
     return _masked_nll(logits, batch["labels"])
 
 
+@contextlib.contextmanager
+def _restored(leaves, opt, generator):
+    """The parameters, the AdamW state and the generator as on entry,
+    again on exit (a warm-up step leaves no trace).  AdamW state made
+    inside is zeroed, which is AdamW's initial state."""
+    with torch.no_grad():
+        saved = [p.detach().clone() for p in leaves]
+        moments = {id(p): {k: v.clone() for k, v in opt.state[p].items()
+                           if torch.is_tensor(v)}
+                   for p in leaves if p in opt.state}
+    gen = None if generator is None else generator.get_state()
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for p, v in zip(leaves, saved):
+                p.copy_(v)
+            for p in leaves:
+                was = moments.get(id(p), {})
+                for k, v in opt.state[p].items():
+                    if not torch.is_tensor(v):
+                        continue
+                    if k in was:
+                        v.copy_(was[k])
+                    else:
+                        v.zero_()
+        if gen is not None:
+            generator.set_state(gen)
+
+
+class _TrainStep:
+    """``step(state, batch, generator) -> (state, loss)``: one AdamW
+    step of ``mlm_loss`` over ``prepare(batch)`` (the batch as given
+    for BERT; GPT sets its label shift), updating ``state`` IN PLACE.
+
+    On CUDA each batch signature (keys, shapes, dtypes) gets one CUDA
+    graph of the whole step, forward, backward and the AdamW update,
+    replayed for every batch of that signature, as the reference's
+    ``jax.jit`` retraces on a new shape.  The graphs bind one state
+    and, with dropout, one generator: a call with another state drops
+    the cached graphs, one with another generator captures its
+    signature again.  The batch is copied into static buffers and the
+    loss comes back as a copy of the graph's output.  Before a capture
+    one warm-up step runs and the parameters, the AdamW state and the
+    generator are put back (:func:`_restored`), so replay 1 is step 1.
+    The generator is registered with the graph, so replay k draws the
+    dropout of eager step k.  Gradients are the graph's: a leaf the
+    loss reaches gets the graph's gradient tensor (bound to ``.grad``
+    again at every call); one it does not reach keeps a zero gradient
+    made once, before the capture.
+
+    On the CPU nothing is captured: the same signature and
+    static-buffer code runs the eager step.  ``_eager = True`` runs the
+    eager step on CUDA too (to compare it with the captured one)."""
+
+    def __init__(self, cfg, device, prepare=None):
+        self.cfg = cfg
+        self.device = device
+        self.prepare = prepare or (lambda batch: batch)
+        self._eager = False
+        self._graphs = GraphCache(device)
+        self._opt = None                # the state the graphs bind
+
+    def _loss_backward(self, params, batch, generator):
+        loss = mlm_loss(params, self.prepare(batch), generator, self.cfg)
+        loss.backward()
+        return loss.detach()
+
+    def _eager_step(self, params, opt, batch, generator):
+        """The step op by op: (loss, the leaves the loss did not
+        reach, whose gradient is set to zeros as under ``jax.grad``)."""
+        opt.zero_grad(set_to_none=True)
+        loss = self._loss_backward(params, batch, generator)
+        unreached = [p for p in tree_leaves(params) if p.grad is None]
+        for p in unreached:
+            p.grad = torch.zeros_like(p)
+        opt.step()
+        return loss, unreached
+
+    def __call__(self, state, batch, generator):
+        params, opt = state
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+        if self._eager:
+            batch = {k: v.to(self.device) for k, v in batch.items()}
+            return state, self._eager_step(params, opt, batch,
+                                           generator)[0]
+        if self._opt is not opt:
+            self._graphs.clear()
+            self._opt = opt
+        generator_key = generator if self.cfg.dropout > 0 else None
+        key = tuple(sorted((k, tuple(v.shape), v.dtype)
+                           for k, v in batch.items()))
+        entry = self._graphs.get(key)
+        if entry is None or entry.generator is not generator_key:
+            entry = self._graphs.put(key, self._entry(
+                params, opt, batch, generator, generator_key))
+        for k, v in batch.items():
+            entry.batch[k].copy_(v)
+        loss = entry.program()
+        if entry.grads is not None:
+            for p, g in zip(tree_leaves(params), entry.grads):
+                p.grad = g
+        return state, loss.clone()
+
+    def _entry(self, params, opt, batch, generator, generator_key):
+        """A signature's static batch buffers and its step over them as
+        a :class:`Program` (captured on CUDA)."""
+        dev = self.device
+        static = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                  for k, v in batch.items()}
+        entry = types.SimpleNamespace(generator=generator_key, batch=static,
+                                      grads=None)
+        if dev.type != "cuda":
+            entry.program = Program(lambda: self._eager_step(
+                params, opt, static, generator)[0], dev)
+            return entry
+        if generator_key is None and self.cfg.dropout > 0:
+            raise ValueError("step: dropout > 0 needs a torch.Generator")
+        for k, v in batch.items():
+            static[k].copy_(v)
+        leaves = tree_leaves(params)
+        with _restored(leaves, opt, generator):
+            got = []
+            warm_up(lambda: got.append(self._eager_step(
+                params, opt, static, generator)[1]))
+        unreached = {id(p) for p in got[0]}
+        for p in leaves:
+            p.grad = torch.zeros_like(p) if id(p) in unreached else None
+
+        def body():
+            loss = self._loss_backward(params, static, generator)
+            opt.step()
+            return loss
+
+        entry.program = Program(body, dev, self._graphs.pool(), generators=(
+            [] if generator_key is None else [generator]))
+        entry.grads = [p.grad for p in leaves]
+        return entry
+
+
 def make_train_step(cfg: TransformerConfig, mesh=None, learning_rate=1e-4,
                     weight_decay=0.01, shard_optimizer=False,
                     scan_steps=None, scan_superbatch=False, fsdp=False,
@@ -341,13 +484,15 @@ def make_train_step(cfg: TransformerConfig, mesh=None, learning_rate=1e-4,
     ``init_state(seed=0, params=None)`` -> ``(params, optimizer)``: a
     copy of ``params`` (or :func:`init_params` of ``seed``) as leaf
     tensors in ``cfg.param_dtype`` on ``device``, and its
-    ``torch.optim.AdamW``.  ``step(state, batch, generator)`` ->
-    ``(state, loss)`` updates the state IN PLACE (the reference donates
-    and returns a new one) and leaves this step's gradients in each
-    leaf's ``.grad``.  ``batch``: dict of ``tokens``, ``labels`` (-100 ≡
-    unmasked) and optionally ``mask`` and ``type_ids``, as tensors or
-    numpy arrays.  ``generator``: the ``torch.Generator`` (on
-    ``device``) that dropout draws from; see :func:`forward_with_aux`.
+    ``torch.optim.AdamW`` (``capturable`` on CUDA).  ``step(state,
+    batch, generator)`` -> ``(state, loss)`` updates the state IN PLACE
+    (the reference donates and returns a new one) and leaves this
+    step's gradients in each leaf's ``.grad``; on CUDA it replays one
+    CUDA graph per batch signature (:class:`_TrainStep`).  ``batch``:
+    dict of ``tokens``, ``labels`` (-100 ≡ unmasked) and optionally
+    ``mask`` and ``type_ids``, as tensors or numpy arrays.
+    ``generator``: the ``torch.Generator`` (on ``device``) that dropout
+    draws from; see :func:`forward_with_aux`.
 
     The reference's ``optax.adamw`` (b1 0.9, b2 0.999, eps 1e-6, no
     decay mask) becomes ``torch.optim.AdamW`` with the same constants.
@@ -377,19 +522,8 @@ def make_train_step(cfg: TransformerConfig, mesh=None, learning_rate=1e-4,
             params)
         opt = torch.optim.AdamW(tree_leaves(params), lr=learning_rate,
                                 betas=(0.9, 0.999), eps=1e-6,
-                                weight_decay=weight_decay)
+                                weight_decay=weight_decay,
+                                capturable=dev.type == "cuda")
         return params, opt
 
-    def step(state, batch, generator):
-        params, opt = state
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        opt.zero_grad(set_to_none=True)
-        loss = mlm_loss(params, batch, generator, cfg)
-        loss.backward()
-        for p in tree_leaves(params):
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        opt.step()
-        return state, loss.detach()
-
-    return init_state, step
+    return init_state, _TrainStep(cfg, dev)

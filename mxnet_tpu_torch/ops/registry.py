@@ -15,23 +15,45 @@ Port of ``mxnet_tpu/ops/registry.py`` (``OpDef``, ``register``,
   write into them itself (the grouped SGD kernel writes the new
   weights there), saving the copy;
 * an op runs with torch's grad mode on only while ``autograd``
-  records, so torch's graph is the tape.
+  records, so torch's graph is the tape;
+* inside :func:`shape_resolve_scope` nothing is written back.
 
 PyTorch's stream is the engine (the reference's ``engine.py`` has no
 counterpart) and there is no eager-jit cache: torch runs eagerly.
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
+import threading
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from ..base import MXNetError, not_ported
 
-__all__ = ["OpDef", "register", "get_op", "list_ops", "op_exists", "invoke"]
+__all__ = ["OpDef", "register", "get_op", "list_ops", "op_exists", "invoke",
+           "shape_resolve_scope", "in_shape_resolve"]
 
 _OPS: Dict[str, "OpDef"] = {}
+_RESOLVE = threading.local()
+
+
+def in_shape_resolve() -> bool:
+    """True while a shape-resolving probe runs (a hybridized block
+    finishing deferred initialization): ``mutate`` write-back and
+    ``out=`` writes are skipped, so the probe moves no running
+    statistics (reference ``in_shape_resolve``)."""
+    return getattr(_RESOLVE, "active", 0) > 0
+
+
+@contextlib.contextmanager
+def shape_resolve_scope():
+    _RESOLVE.active = getattr(_RESOLVE, "active", 0) + 1
+    try:
+        yield
+    finally:
+        _RESOLVE.active -= 1
 
 
 class OpDef:
@@ -144,11 +166,14 @@ def invoke(op: OpDef, inputs: Sequence, pos_attrs=(), attrs=None,
                                            attrs)) \
         if callable(op.mutate) else op.mutate
     n_out = len(rlist) - len(mutate_idx)
+    resolving = in_shape_resolve()
     for idx, new in zip(mutate_idx, rlist[n_out:]):
-        if isinstance(inputs[idx], NDArray):
+        if isinstance(inputs[idx], NDArray) and not resolving:
             inputs[idx]._set_data(new)
     rlist = rlist[:n_out]
 
+    if outs is not None and resolving:
+        return out
     if outs is not None:
         if len(outs) != len(rlist):
             raise MXNetError("out= arity mismatch for op %s" % op.name)

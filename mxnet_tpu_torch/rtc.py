@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .base import MXNetError, not_ported, numeric_types
+from .kernels._counters import register
 
 __all__ = ["CudaModule", "CudaKernel", "PallasModule", "PallasKernel",
            "parse_signature"]
@@ -159,7 +160,7 @@ class CudaKernel:
         self.name = name
         self._lowered = lowered or name
         self._signature = signature
-        self.launches = 0
+        register(self, "launches")
 
     def _params(self, args, device):
         """The launch's argument values, checked against the signature,

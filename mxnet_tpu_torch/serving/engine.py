@@ -18,7 +18,10 @@ covers their prompt (+1 decode) pages; top up pages as sequences cross
 a page boundary, preempting the YOUNGEST running request when the pool
 is dry (it re-prefills its committed tokens on re-admission, which
 under greedy decode is exact); build the row batch, run the step,
-commit the sampled tokens.
+commit the sampled tokens.  The step's inputs travel in one static
+int32 buffer (one host-to-device copy a step), and on the card the step
+is one CUDA graph, captured at the first step and replayed after, as
+the reference compiles it once with ``jax.jit``.
 
 Under float32 greedy decode the outputs are token-identical to
 ``models/gpt.py generate`` (the port's and the reference's), whatever
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from .._graphs import GraphCache, Program, warm_up
 from ..kernels.paged_attention import paged_attention
 from ..models import gpt as G
 from ..models.transformer import _layer_norm, torch_dtype
@@ -78,8 +82,9 @@ class Request:
 def _step(params, cfg, pools, tokens, row_slot, row_pos, row_live, bt,
           slot_rows, page_size):
     """The fixed-shape unified prefill+decode step (the body of the
-    reference's ``_make_step``), run eagerly.  Scatters every row's k/v
-    into ``pools`` IN PLACE (the reference donates the pools to the
+    reference's ``_make_step``; on the card the engine replays it as
+    one CUDA graph, ``ServingEngine._program``).  Scatters every row's
+    k/v into ``pools`` IN PLACE (the reference donates the pools to the
     jitted step; here the engine owns them) before attending, so each
     row sees its own k/v.  Returns the (S, 1) argmax tokens."""
     cdt = torch_dtype(cfg.dtype)
@@ -122,32 +127,49 @@ def _step(params, cfg, pools, tokens, row_slot, row_pos, row_live, bt,
 
 
 class _StepBuffers:
-    """The host-side step inputs, packed in ONE int32 array so a step
-    stages with a single host-to-device copy."""
+    """The step inputs, packed in ONE int32 buffer: a host copy the
+    scheduler fills (pinned on CUDA) and a static device copy that one
+    host-to-device ``copy_`` a step refreshes.  The step reads six
+    views of the device copy, so a captured step replays on new
+    inputs."""
 
-    def __init__(self, n_rows, num_slots, pages_per_slot):
+    def __init__(self, n_rows, num_slots, pages_per_slot, device):
         T, S, PP = n_rows, num_slots, pages_per_slot
-        self.flat = np.zeros(4 * T + S + (S + 1) * PP, np.int32)
-        f = self.flat
+        n = 4 * T + S + (S + 1) * PP
+        self.host = torch.zeros(n, dtype=torch.int32,
+                                pin_memory=device.type == "cuda")
+        self.dev = torch.zeros(n, dtype=torch.int32, device=device)
+        f = self.flat = self.host.numpy()
         self.tokens = f[0:T]
         self.row_slot = f[T:2 * T]
         self.row_pos = f[2 * T:3 * T]
         self.row_live = f[3 * T:4 * T]
         self.slot_rows = f[4 * T:4 * T + S]
         self.bt = f[4 * T + S:].reshape(S + 1, PP)
+        d = self.dev
+        # (tokens, row_slot, row_pos, row_live, bt, slot_rows), as
+        # _step takes them
+        self.views = (d[0:T], d[T:2 * T], d[2 * T:3 * T], d[3 * T:4 * T],
+                      d[4 * T + S:].view(S + 1, PP), d[4 * T:4 * T + S, None])
         self.shape = (T, S, PP)
 
     def reset(self, num_slots):
         self.flat[:4 * self.shape[0] + num_slots] = 0
         self.row_slot.fill(num_slots)
 
-    def stage(self, device):
-        """Device views (tokens, row_slot, row_pos, row_live, bt,
-        slot_rows) over one copy of the packed buffer."""
-        T, S, PP = self.shape
-        d = torch.from_numpy(self.flat).to(device)
-        return (d[0:T], d[T:2 * T], d[2 * T:3 * T], d[3 * T:4 * T],
-                d[4 * T + S:].view(S + 1, PP), d[4 * T:4 * T + S, None])
+    def stage(self):
+        """Copy the host buffer into the device buffer (asynchronous
+        from pinned memory; the step's token read-back orders the next
+        refill after it)."""
+        self.dev.copy_(self.host, non_blocking=True)
+
+    def stage_dead(self, num_slots):
+        """Fill the device buffer with an all-dead row batch (every row
+        aimed at the all-scratch block-table row ``num_slots``), on the
+        device, leaving the host buffer alone."""
+        T = self.shape[0]
+        self.dev.zero_()
+        self.dev[T:2 * T].fill_(num_slots)
 
 
 class _Plan:
@@ -229,7 +251,10 @@ class ServingEngine:
         self.stats = {"steps": 0, "preemptions": 0, "admitted": 0,
                       "decode_rows": 0, "prefill_rows": 0,
                       "dead_rows": 0, "peak_pages": 0}
-        self._buf = _StepBuffers(self.n_rows, num_slots, pages_per_slot)
+        self._buf = _StepBuffers(self.n_rows, num_slots, pages_per_slot,
+                                 self.device)
+        self._graphs = GraphCache(self.device)
+        self._eager = False        # True: run _step op by op (comparisons)
         # canonical block table, patched at page alloc/free; row
         # num_slots stays all-scratch for dead rows
         self._bt = np.zeros((num_slots + 1, pages_per_slot), np.int32)
@@ -418,13 +443,35 @@ class ServingEngine:
                                        self.cache.pages_in_use)
         return plan
 
+    def _step_body(self):
+        buf = self._buf
+        return _step(self.params, self.cfg, self.cache.pools, *buf.views,
+                     self.page_size)
+
+    def _program(self):
+        """The step as one :class:`Program` over the static buffers,
+        made at the first dispatch (the reference's ``_step_cache``
+        entry: the shape is fixed per engine).  On CUDA it is warmed up
+        on an all-dead row batch, which writes only scratch page 0,
+        and captured in inference mode, the mode it replays in; the
+        pools are captured in place (the reference donates them)."""
+        prog = self._graphs.get("step")
+        if prog is None:
+            if self.device.type == "cuda":
+                self._buf.stage_dead(self.num_slots)
+                warm_up(self._step_body)
+            prog = self._graphs.put("step", Program(
+                self._step_body, self.device, self._graphs.pool()))
+        return prog
+
     def _dispatch(self, plan):
-        """Stage the plan with one host-to-device copy, run the step,
-        and read the sampled tokens back (the one sync per step)."""
-        staged = plan.buf.stage(self.device)
+        """Stage the plan with one host-to-device copy, run the step
+        (replay the captured one, or op by op when ``_eager``), and
+        read the sampled tokens back (the one sync per step)."""
         with torch.inference_mode():
-            tok = _step(self.params, self.cfg, self.cache.pools, *staged,
-                        self.page_size)
+            run = self._step_body if self._eager else self._program()
+            plan.buf.stage()
+            tok = run()
         return tok.cpu().numpy()
 
     def _commit(self, plan, next_tok):

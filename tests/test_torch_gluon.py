@@ -234,8 +234,9 @@ def test_set_block_params_refuses_mismatches():
 
 def test_gluon_basics():
     """Name scopes and prefixes, deferred init, grad_req, zero_grad,
-    hybridize (accepted, eager), and the seeded Xavier draw that matches
-    the reference's numpy stream."""
+    hybridize (a cached entry per signature; on the CPU it runs the
+    forward eagerly, tests/test_torch_compiled_steps.py), and the seeded
+    Xavier draw that matches the reference's numpy stream."""
     import mxnet_tpu as jmx
     import mxnet_tpu_torch as mx
     ctx = mx.cpu()
