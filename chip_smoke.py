@@ -59,6 +59,19 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    ``net.hybridize()`` (forward and backward as CUDA graphs, the
    Trainer's update per tensor as before), images/s beside the eager
    loop's;
+7b. drives bench.py's workload (the ``bench`` phase; the BERT and GPT
+   steps' graphs freed first): ResNet-50 v1 with the space-to-depth
+   stem, ``amp=True``, bs 128, through ``DataParallelTrainer.run_steps``
+   over ``make_mesh({"dp": -1})`` (a CUDA graph of one whole step,
+   replayed each step): 3 steps replayed against 3 run with ``_eager``
+   from the same weights, bit for bit under deterministic cuDNN; then,
+   with every launch counter from 0 (all stay 0: no hand-written kernel
+   is on this path), one warm and two timed ``run_steps(20)``
+   dispatches in turns with the 7x7 stem, a profiled window captured
+   and op by op, and ``BENCH_AMP=0`` (f32, bs 64) beside the Gluon
+   Trainer's hybridized figure; a ResNet-18 with the stem trains 3
+   ``DataParallelTrainer`` steps on the card and on the CPU from the
+   same weights, f32 (TF32 off) and ``amp=True``, losses compared;
 8. times each kernel, its plain version and a library call at the
    paths' shapes (L2 flushed between launches) beside the least time
    the card could take for the same work: the flash, paged and SGD
@@ -101,6 +114,7 @@ DIR's ``conv3x3_fused`` against this tree's at the conv path's four
 batch-128 shapes, conv alone and chain.
 """
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -206,6 +220,26 @@ RESNET_LR, RESNET_MOM = 0.1, 0.9
 # the first step (same weights, a forward) and the later ones, about 3x
 # the largest gaps of sound H100 runs (1e-6, then 6e-5 at losses < 0.1)
 SMALL_RESNET_LOSS_TOL = (1e-5, 2e-4)
+
+# bench.py's workload (bench.py:27-52): ResNet-50 v1 with the
+# space-to-depth stem, Xavier from np.random.seed(0), DataParallelTrainer
+# SGD lr 0.1 momentum 0.9 over make_mesh({"dp": -1}) with amp=True, bs 128
+# x 3 x 224 x 224, labels randint(0, 1000); BENCH_AMP=0 is f32 at bs 64;
+# depth not cut.  One run_steps dispatch is BENCH_STEPS steps (bench.py
+# takes 150; 20 keep the phase near a minute)
+BENCH_B, BENCH_F32_B = 128, 64
+BENCH_STEPS, BENCH_CHECK, BENCH_PROFILE = 20, 3, 5
+# the small DataParallelTrainer runs on the card and on the CPU from the
+# same weights: ResNet-18 v1 with the stem at 64 x 64, batch 8 (the last
+# stage's BatchNorm then normalises 32 values a channel; with fewer, or a
+# step large enough to take the loss from 3.9 to 0.17, rounding
+# differences of 1e-6 at step 1 grow to 1e-4 by step 3).  f32 with TF32
+# off at lr 1e-3, held to SMALL_RESNET_LOSS_TOL; amp=True at lr 1e-4 (the
+# loss stays away from 0 over the 3 steps), held to the bf16 limits of
+# tests/test_torch_data_parallel.py: step 1 within 1e-2 and the later
+# steps within 2e-2 of the CPU's loss
+BENCH_SMALL = {"f32": (8, 1e-3), "amp": (8, 1e-4)}
+AMP_LOSS_TOL = (1e-2, 2e-2)
 
 
 def log(*a):
@@ -513,8 +547,8 @@ def profile_window(step, n, what, top=8, kernels=()):
     ``step`` — host time per step, device busy time per step (kernels,
     copies and fills only: ``device_work``), the device's idle share,
     and the ``top`` kernels that take the most device time.  Returns
-    {"wall_ms", "busy_ms", "idle"} (None when the profiler records no
-    device time).
+    {"wall_ms", "busy_ms", "idle", "kernels_per_step"} (None when the
+    profiler records no device time).
 
     A check too, with ``kernels`` = [(label, counter, symbols)]: the
     device kernels of the window whose name holds one of ``symbols``
@@ -579,7 +613,8 @@ def profile_window(step, n, what, top=8, kernels=()):
             % (t / 1e3 / n, 100.0 * t / 1e3 / n / busy_ms, c // n,
                name[:90]))
     return {"wall_ms": wall_ms, "busy_ms": busy_ms,
-            "idle": 1.0 - busy_ms / wall_ms}
+            "idle": 1.0 - busy_ms / wall_ms,
+            "kernels_per_step": sum(c for _, c in by_name.values()) / n}
 
 
 def profile_steps(ServingEngine, params, cfg, reqs, dev, eager, kernels,
@@ -1781,6 +1816,226 @@ def check_small_resnet(mx, dev, failures):
         failures.append("small ResNet-18 card vs CPU")
 
 
+# ----------------------------------------------------------------- bench --
+def bench_trainer(mx, s2d, amp):
+    """bench.py's trainer on the card: ResNet-50 v1 (``stem_s2d``),
+    Xavier from np.random.seed(0), SGD lr 0.1 momentum 0.9 over
+    make_mesh({"dp": -1})."""
+    from mxnet_tpu_torch.parallel import DataParallelTrainer, make_mesh
+    np.random.seed(0)
+    net = mx.gluon.model_zoo.vision.resnet50_v1(stem_s2d=s2d)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    return DataParallelTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+        {"learning_rate": RESNET_LR, "momentum": RESNET_MOM},
+        mesh=make_mesh({"dp": -1}), amp=amp)
+
+
+def bench_batch(mx, B):
+    """bench.py's batch: randn images and randint labels after
+    np.random.seed(0), on the card."""
+    np.random.seed(0)
+    x = np.random.randn(B, 3, RESNET_HW, RESNET_HW).astype("float32")
+    y = np.random.randint(0, RESNET_CLASSES, (B,))
+    return mx.nd.array(x, ctx=mx.gpu(0)), mx.nd.array(y, ctx=mx.gpu(0))
+
+
+def bench_check(mx, x, y, failures):
+    """``run_steps`` of BENCH_CHECK steps replayed as a CUDA graph
+    against the same steps with ``_eager = True``, each trainer from the
+    same weights, cuDNN in deterministic mode: the losses, every
+    parameter, the momentum traces and the running statistics bit for
+    bit."""
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for eager in (True, False):
+            tr = bench_trainer(mx, True, True)
+            tr._eager = eager
+            losses = tr.run_steps(x, y, steps=BENCH_CHECK)._data
+            runs.append((losses, [t.clone() for t in tr._state_tensors()]))
+            del tr
+            gc.collect()
+    finally:
+        torch.backends.cudnn.deterministic = flag
+    (l0, s0), (l1, s1) = runs
+    same = torch.equal(l0, l1) and len(s0) == len(s1) and all(
+        torch.equal(a, b) for a, b in zip(s0, s1))
+    log("check bench.py ResNet-50 (stem_s2d, amp), %d run_steps steps "
+        "captured vs eager (deterministic cuDNN): losses %s vs %s, %d "
+        "state tensors (parameters, running statistics, momentum traces) "
+        "bit for bit: %s  %s"
+        % (BENCH_CHECK, " ".join("%.6f" % v for v in l1.tolist()),
+           " ".join("%.6f" % v for v in l0.tolist()), len(s0), same,
+           "ok" if same else "FAIL"))
+    if not same:
+        failures.append("bench.py ResNet-50 captured vs eager")
+
+
+def bench_dispatch(tr, x, y):
+    """One run_steps dispatch of BENCH_STEPS steps, synchronised:
+    (losses, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = tr.run_steps(x, y, steps=BENCH_STEPS)
+    tr.sync()
+    return losses.asnumpy().tolist(), time.perf_counter() - t0
+
+
+def bench_path(mx, failures, gluon):
+    """bench.py's workload through ``DataParallelTrainer.run_steps`` on
+    the card (a CUDA graph of whole steps replayed BENCH_STEPS times a
+    dispatch): the captured-vs-eager check, then the main path with
+    every launch counter from 0 (one warm dispatch and two timed ones,
+    in turns with the 7x7 stem: 7x7, s2d, s2d, 7x7), a profiled window,
+    and BENCH_AMP=0 (f32, bs 64) beside the Gluon Trainer's hybridized
+    figure ``gluon``.  Returns the numbers."""
+    from mxnet_tpu_torch._graphs import kept_launches
+    card = card_line()
+    torch.backends.cudnn.allow_tf32 = True       # PyTorch's default
+    x, y = bench_batch(mx, BENCH_B)
+    bench_check(mx, x, y, failures)
+    torch.cuda.reset_peak_memory_stats()
+    trainers = {"s2d": bench_trainer(mx, True, True),
+                "7x7": bench_trainer(mx, False, True)}
+    losses = {k: [] for k in trainers}
+    times = {k: [] for k in trainers}
+    with kept_launches() as (counters, _):
+        for h, a in counters:
+            setattr(h, a, 0)
+        for name in ("s2d", "7x7", "7x7", "s2d", "s2d", "7x7"):
+            got, sec = bench_dispatch(trainers[name], x, y)
+            losses[name] += got
+            times[name].append(sec)
+        launches = {"%s.%s" % (getattr(h, "__name__", type(h).__name__),
+                               a): getattr(h, a) for h, a in counters}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log("bench.py path launches of the port's kernels over %d steps: %s "
+        "(no hand-written kernel is on this path)"
+        % (sum(len(v) for v in losses.values()), json.dumps(launches)))
+    nums = {"card": card, "batch": BENCH_B, "steps_per_dispatch":
+            BENCH_STEPS, "peak_gib": peak, "launches": launches}
+    for name, tag in (("s2d", "stem_s2d=True"), ("7x7", "stem_s2d=False")):
+        ls = losses[name]
+        if not all(np.isfinite(ls)):
+            raise Failed("bench.py %s: loss not finite" % tag)
+        if not ls[-1] < ls[0]:
+            raise Failed("bench.py %s: loss did not fall (%.4f -> %.4f)"
+                         % (tag, ls[0], ls[-1]))
+        timed = times[name][1:]     # the first dispatch warms and captures
+        per = [t / BENCH_STEPS for t in timed]
+        nums[name] = {"ms_per_step": [p * 1e3 for p in per],
+                      "images_per_s": [BENCH_B / p for p in per],
+                      "warm_dispatch_s": times[name][0],
+                      "losses": ls[::BENCH_STEPS] + ls[-1:]}
+        log("bench.py ResNet-50 v1 %s amp bs %d: run_steps(%d) %s ms/step, "
+            "%s images/s (host clock over a synchronised dispatch; after "
+            "one warm dispatch each, which captures, two each in turns "
+            "7x7, s2d, s2d, 7x7), losses %s; %s"
+            % (tag, BENCH_B, BENCH_STEPS,
+               " ".join("%.3f" % v for v in nums[name]["ms_per_step"]),
+               " ".join("%.1f" % v for v in nums[name]["images_per_s"]),
+               " ".join("%.4f" % v for v in nums[name]["losses"]), card))
+    log("bench.py ResNet-50 peak memory %.2f GiB (both trainers and their "
+        "graphs)" % peak)
+    tr = trainers["s2d"]
+    nums["profile"] = profile_window(
+        lambda: tr.run_steps(x, y, steps=1), BENCH_PROFILE,
+        "bench.py ResNet-50 (stem_s2d, amp) run_steps steps, captured")
+    tr._eager = True                # the same steps op by op, for the gap
+    tr.run_steps(x, y, steps=2)
+    sec = bench_dispatch(tr, x, y)[1]
+    nums["eager_ms_per_step"] = sec * 1e3 / BENCH_STEPS
+    log("bench.py ResNet-50 v1 stem_s2d=True amp bs %d, op by op "
+        "(_eager): run_steps(%d) %.3f ms/step, %.1f images/s; %s"
+        % (BENCH_B, BENCH_STEPS, nums["eager_ms_per_step"],
+           BENCH_B * BENCH_STEPS / sec, card))
+    nums["profile_eager"] = profile_window(
+        lambda: tr.run_steps(x, y, steps=1), BENCH_PROFILE,
+        "bench.py ResNet-50 (stem_s2d, amp) run_steps steps, eager")
+    del trainers, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    x, y = bench_batch(mx, BENCH_F32_B)
+    tr = bench_trainer(mx, True, False)
+    got, _ = bench_dispatch(tr, x, y)
+    per = [bench_dispatch(tr, x, y)[1] / BENCH_STEPS for _ in range(2)]
+    nums["f32"] = {"batch": BENCH_F32_B,
+                   "ms_per_step": [p * 1e3 for p in per],
+                   "images_per_s": [BENCH_F32_B / p for p in per],
+                   "gluon_hybridized_images_per_s":
+                       gluon["hybridized_images_per_s"]}
+    log("bench.py BENCH_AMP=0 ResNet-50 v1 stem_s2d f32 bs %d "
+        "(cudnn.allow_tf32=%s): run_steps(%d) %s ms/step, %s images/s; the "
+        "Gluon Trainer hybridized (7x7 stem, bs %d, f32) %.1f images/s "
+        "in this call; %s"
+        % (BENCH_F32_B, torch.backends.cudnn.allow_tf32, BENCH_STEPS,
+           " ".join("%.3f" % v for v in nums["f32"]["ms_per_step"]),
+           " ".join("%.1f" % v for v in nums["f32"]["images_per_s"]),
+           RESNET_B, gluon["hybridized_images_per_s"], card))
+    if not (np.isfinite(got).all() and got[-1] < got[0]):
+        raise Failed("bench.py BENCH_AMP=0: losses %s" % got)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    return nums
+
+
+def check_small_bench(mx, failures):
+    """ResNet-18 v1 with the space-to-depth stem trains 3
+    DataParallelTrainer steps on the card (a captured run_steps, TF32
+    off) and on the CPU from the same weights: f32 losses within
+    SMALL_RESNET_LOSS_TOL, ``amp=True`` losses within AMP_LOSS_TOL."""
+    from mxnet_tpu_torch.convert import set_block_params
+    from mxnet_tpu_torch.parallel import DataParallelTrainer, make_mesh
+    for kind, (B, lr) in BENCH_SMALL.items():
+        rng = np.random.RandomState(5)
+        x = rng.randn(B, 3, 64, 64).astype(np.float32)
+        y = rng.randint(0, 10, B).astype(np.float32)
+        np.random.seed(5)
+        src = mx.gluon.model_zoo.vision.resnet18_v1(classes=10,
+                                                    stem_s2d=True)
+        src.initialize(mx.init.Xavier(), ctx=mx.cpu())
+        src(mx.nd.array(x, ctx=mx.cpu()))
+        arrays = {k: v.data().asnumpy()
+                  for k, v in src._collect_params_with_prefix().items()}
+        runs = []
+        for ctx, devices in ((mx.gpu(0), None),
+                             (mx.cpu(), [torch.device("cpu")])):
+            net = mx.gluon.model_zoo.vision.resnet18_v1(classes=10,
+                                                        stem_s2d=True)
+            set_block_params(net, arrays, ctx=ctx)
+            tr = DataParallelTrainer(
+                net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+                {"learning_rate": lr, "momentum": 0.9},
+                mesh=make_mesh({"dp": -1}, devices=devices),
+                amp=kind == "amp")
+            runs.append(tr.run_steps(x, y, steps=3).asnumpy().tolist())
+        gaps = [abs(a - b) for a, b in zip(*runs)]
+        if kind == "f32":
+            first, later = SMALL_RESNET_LOSS_TOL
+            lims = [(first if i == 0 else later) * (1 + abs(b))
+                    for i, b in enumerate(runs[1])]
+            what = "tol %.0e then %.0e, times 1+|loss|" % (first, later)
+        else:
+            first, later = AMP_LOSS_TOL
+            lims = [(first if i == 0 else later) * abs(b)
+                    for i, b in enumerate(runs[1])]
+            what = "tol %.0e then %.0e, times |loss|" % (first, later)
+        ok = all(g <= lim for g, lim in zip(gaps, lims))
+        log("check small ResNet-18 (stem_s2d) DataParallelTrainer 3 steps, "
+            "%s, card vs CPU: %s vs %s, gaps %s (%s)  %s"
+            % (kind, " ".join("%.6f" % v for v in runs[0]),
+               " ".join("%.6f" % v for v in runs[1]),
+               " ".join("%.2e" % g for g in gaps), what,
+               "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("small ResNet-18 DataParallelTrainer %s card "
+                            "vs CPU" % kind)
+
+
 # ------------------------------------------------------------ fused conv --
 # The ResNet-50 3x3 convolutions of benchmark/fused_conv_exp.py:21-26
 # (B, H, W, C == K, th, bk): batch 128 for the timing, 16 for the check
@@ -2749,6 +3004,17 @@ def main(argv):
     check_small_resnet(mx, dev, failures)
 
     phase("gluon")
+    # ---- 7c. bench.py's workload through DataParallelTrainer; the BERT and
+    # GPT steps' graphs and pools are freed first (captured again for the
+    # profiles below)
+    for stp in (step, g_step):
+        stp._graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["bench"] = bench_path(mx, failures, resnet)
+    check_small_bench(mx, failures)
+
+    phase("bench")
     # ---- 7b. the extension surface, each path with its counters from 0:
     # the fused conv experiment's twin, then rtc kernels through CustomOp
     t_ext = time.perf_counter()

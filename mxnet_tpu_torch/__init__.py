@@ -15,8 +15,9 @@ The MXNet surface reads as in the reference, ``import mxnet_tpu_torch
 as mx``: ``mx.nd``, ``mx.autograd``, ``mx.gluon``, ``mx.init`` /
 ``mx.initializer``, ``mx.optimizer``, ``mx.operator`` (CustomOp),
 ``mx.rtc`` (CUDA source compiled at run time), ``mx.runtime``,
-``mx.library``, ``mx.cpu()`` and ``mx.gpu(i)``; the default context is
-the card.
+``mx.library``, ``mx.contrib.amp``, ``mx.parallel``
+(``DataParallelTrainer``), ``mx.cpu()`` and ``mx.gpu(i)``; the default
+context is the card.
 """
 from __future__ import annotations
 
@@ -59,3 +60,4 @@ from . import ndarray as nd  # noqa: E402
 from . import autograd, initializer, optimizer, gluon  # noqa: E402
 from . import initializer as init  # noqa: E402
 from . import runtime, library, rtc  # noqa: E402
+from . import contrib, parallel  # noqa: E402

@@ -1,4 +1,4 @@
-"""Gluon losses: ``Loss`` and ``SoftmaxCrossEntropyLoss``.
+"""Gluon losses: ``Loss``, ``L2Loss`` and ``SoftmaxCrossEntropyLoss``.
 
 Port of those classes of ``mxnet_tpu/gluon/loss.py``: the per-sample
 loss, averaged over every axis but ``batch_axis``, with the optional
@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from .block import HybridBlock
 
-__all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
+__all__ = ["Loss", "L2Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
 
 
 def _apply_weighting(F, loss, weight=None, sample_weight=None):
@@ -33,6 +33,20 @@ class Loss(HybridBlock):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+
+class L2Loss(Loss):
+    """``weight / 2 * (label - pred)^2`` per element, ``label`` reshaped
+    to ``pred``'s shape."""
+
+    def __init__(self, weight=1., batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = label.reshape(pred.shape)
+        loss = F.square(label - pred)
+        loss = _apply_weighting(F, loss, self._weight / 2, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
 class SoftmaxCrossEntropyLoss(Loss):

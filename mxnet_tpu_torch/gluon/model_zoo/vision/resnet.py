@@ -2,25 +2,74 @@
 
 Port of ``mxnet_tpu/gluon/model_zoo/vision/resnet.py``: the same blocks
 (BasicBlock/Bottleneck, v1 post-activation and v2 pre-activation), the
-same layer names and structure, ResNet-18/34/50/101/152.  The TPU
-space-to-depth stem (``stem_s2d=True``) is not ported.
+same layer names and structure, ResNet-18/34/50/101/152, and the
+space-to-depth stem (``stem_s2d=True``).
 """
 from __future__ import annotations
 
-from ....base import MXNetError, not_ported
+import numpy as np
+
+from ....base import MXNetError
 from ...block import HybridBlock
 from ... import nn
 
 __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
-           "BottleneckV1", "BottleneckV2", "resnet18_v1", "resnet34_v1",
-           "resnet50_v1", "resnet101_v1", "resnet152_v1", "resnet18_v2",
-           "resnet34_v2", "resnet50_v2", "resnet101_v2", "resnet152_v2",
-           "get_resnet"]
+           "BottleneckV1", "BottleneckV2", "SpaceToDepthStem",
+           "resnet18_v1", "resnet34_v1", "resnet50_v1", "resnet101_v1",
+           "resnet152_v1", "resnet18_v2", "resnet34_v2", "resnet50_v2",
+           "resnet101_v2", "resnet152_v2", "get_resnet"]
 
 
 def _conv3x3(channels, stride, in_channels):
     return nn.Conv2D(channels, kernel_size=3, strides=stride, padding=1,
                      use_bias=False, in_channels=in_channels)
+
+
+class SpaceToDepthStem(HybridBlock):
+    """The stem of ``stem_s2d=True``: space-to-depth by 2, then a 4x4
+    stride-1 convolution over the 12 channels, an exact
+    reparameterization of the 7x7/s2 stem over 3 channels (reference
+    ``SpaceToDepthStem``).
+
+    With ``i - 3 = 2a + di`` (tap i in [0, 7), parity di in {0, 1}, a in
+    [-2, 2)), ``x[2y + i - 3]`` is ``z[y + a]`` at space-to-depth
+    channel (di, dj, c), so the 7x7/s2 convolution equals a 4x4/s1 one
+    on the space-to-depth tensor padded by 2 before and 1 after.
+    :meth:`convert_weight` maps 7x7 weights into that layout."""
+
+    def __init__(self, channels, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.conv = nn.Conv2D(channels, kernel_size=4, strides=1,
+                                  padding=0, use_bias=False,
+                                  in_channels=12)
+
+    def hybrid_forward(self, F, x):
+        z = F.space_to_depth(x, block_size=2)
+        z = F.pad(z, mode="constant", constant_value=0,
+                  pad_width=(0, 0, 0, 0, 2, 1, 2, 1))
+        return self.conv(z)
+
+    @staticmethod
+    def convert_weight(w7):
+        """(O, C, 7, 7) stem weights -> (O, 4C, 4, 4)."""
+        O, C = w7.shape[:2]
+        w4 = np.zeros((O, 4 * C, 4, 4), w7.dtype)
+        for di in range(2):
+            for dj in range(2):
+                for a in range(-2, 2):
+                    for b in range(-2, 2):
+                        i, j = 2 * a + di + 3, 2 * b + dj + 3
+                        if 0 <= i < 7 and 0 <= j < 7:
+                            w4[:, (di * 2 + dj) * C:(di * 2 + dj + 1)
+                               * C, a + 2, b + 2] = w7[:, :, i, j]
+        return w4
+
+
+def _stem(channels, stem_s2d):
+    if stem_s2d:
+        return SpaceToDepthStem(channels)
+    return nn.Conv2D(channels, 7, 2, 3, use_bias=False)
 
 
 class BasicBlockV1(HybridBlock):
@@ -149,17 +198,12 @@ class ResNetV1(HybridBlock):
                  thumbnail=False, stem_s2d=False, **kwargs):
         super().__init__(**kwargs)
         assert len(layers) == len(channels) - 1
-        if stem_s2d:
-            raise not_ported("stem_s2d=True (the TPU space-to-depth stem)",
-                             "mxnet_tpu.gluon.model_zoo.vision.resnet."
-                             "SpaceToDepthStem")
         with self.name_scope():
             self.features = nn.HybridSequential(prefix="")
             if thumbnail:
                 self.features.add(_conv3x3(channels[0], 1, 0))
             else:
-                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
-                                            use_bias=False))
+                self.features.add(_stem(channels[0], stem_s2d))
                 self.features.add(nn.BatchNorm())
                 self.features.add(nn.Activation("relu"))
                 self.features.add(nn.MaxPool2D(3, 2, 1))
@@ -193,18 +237,13 @@ class ResNetV2(HybridBlock):
                  thumbnail=False, stem_s2d=False, **kwargs):
         super().__init__(**kwargs)
         assert len(layers) == len(channels) - 1
-        if stem_s2d:
-            raise not_ported("stem_s2d=True (the TPU space-to-depth stem)",
-                             "mxnet_tpu.gluon.model_zoo.vision.resnet."
-                             "SpaceToDepthStem")
         with self.name_scope():
             self.features = nn.HybridSequential(prefix="")
             self.features.add(nn.BatchNorm(scale=False, center=False))
             if thumbnail:
                 self.features.add(_conv3x3(channels[0], 1, 0))
             else:
-                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
-                                            use_bias=False))
+                self.features.add(_stem(channels[0], stem_s2d))
                 self.features.add(nn.BatchNorm())
                 self.features.add(nn.Activation("relu"))
                 self.features.add(nn.MaxPool2D(3, 2, 1))

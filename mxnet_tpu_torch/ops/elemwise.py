@@ -1,4 +1,4 @@
-"""Elementwise arithmetic: ``negative``, the binary ops with
+"""Elementwise arithmetic: ``negative``, ``square``, the binary ops with
 broadcasting, and the scalar ops behind NDArray's Python operators.
 
 Port of the arithmetic of ``mxnet_tpu/ops/elemwise.py``, what NDArray's
@@ -14,6 +14,11 @@ from .registry import register
 @register("negative")
 def negative(data, **kw):
     return -data
+
+
+@register("square")
+def square(data, **kw):
+    return data * data
 
 
 def _binary(name, fn, aliases=()):

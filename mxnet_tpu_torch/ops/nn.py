@@ -1,6 +1,6 @@
 """Neural-network ops, NC(D)HW layout.
 
-Port of a subset of ``mxnet_tpu/ops/nn.py``: ``FullyConnected``,
+Port of a subset of ``mxnet_tpu/ops/nn.py``: ``dot``, ``FullyConnected``,
 ``Convolution``, ``Pooling`` (max and avg, windowed or global),
 ``Activation``, ``softmax``, ``log_softmax`` and ``BatchNorm``.  Where
 the reference left the math to XLA (matmul, convolution), the port
@@ -15,6 +15,16 @@ import torch.nn.functional as F
 
 from ..base import MXNetError, not_ported
 from .registry import register
+
+
+@register("dot")
+def dot(lhs, rhs, transpose_a=False, transpose_b=False, **kw):
+    """MXNet ``dot``: the last axis of ``lhs`` against the first of
+    ``rhs``; ``transpose_a``/``transpose_b`` reverse an operand's axes
+    first."""
+    a = lhs.permute(*reversed(range(lhs.dim()))) if transpose_a else lhs
+    b = rhs.permute(*reversed(range(rhs.dim()))) if transpose_b else rhs
+    return torch.tensordot(a, b, dims=([a.dim() - 1], [0]))
 
 
 @register("FullyConnected")

@@ -16,7 +16,10 @@ Port of ``mxnet_tpu/ops/registry.py`` (``OpDef``, ``register``,
   weights there), saving the copy;
 * an op runs with torch's grad mode on only while ``autograd``
   records, so torch's graph is the tape;
-* inside :func:`shape_resolve_scope` nothing is written back.
+* inside :func:`shape_resolve_scope` nothing is written back;
+* the AMP cast hook (:func:`set_cast_hook`, set by ``contrib.amp``)
+  maps the input tensors before the impl runs, inside the grad-mode
+  block, so that autograd records the casts.
 
 PyTorch's stream is the engine (the reference's ``engine.py`` has no
 counterpart) and there is no eager-jit cache: torch runs eagerly.
@@ -33,10 +36,18 @@ import torch
 from ..base import MXNetError, not_ported
 
 __all__ = ["OpDef", "register", "get_op", "list_ops", "op_exists", "invoke",
-           "shape_resolve_scope", "in_shape_resolve"]
+           "shape_resolve_scope", "in_shape_resolve", "set_cast_hook"]
 
 _OPS: Dict[str, "OpDef"] = {}
 _RESOLVE = threading.local()
+
+# set by contrib.amp: a callable (op, tensors) -> tensors
+_CAST_HOOK = None
+
+
+def set_cast_hook(hook):
+    global _CAST_HOOK
+    _CAST_HOOK = hook
 
 
 def in_shape_resolve() -> bool:
@@ -155,6 +166,8 @@ def invoke(op: OpDef, inputs: Sequence, pos_attrs=(), attrs=None,
     if op.writes_out and outs is not None:
         attrs = dict(attrs, out=[o._data for o in outs])
     with torch.set_grad_enabled(recording):
+        if _CAST_HOOK is not None:
+            arrays = _CAST_HOOK(op, arrays)
         if op.variadic:
             results = op.impl(list(arrays), *pos_attrs, **attrs)
         else:

@@ -73,8 +73,9 @@ def test_resnet50_structure_matches_reference():
     # torchvision's ResNet-50 count, 25,557,032, plus the 18,880 biases
     # of the bottlenecks' 1x1 body convs (3x320 + 4x640 + 6x1280 + 3x2560)
     assert sum(int(np.prod(p.shape)) for p in trainable) == 25_575_912
-    with pytest.raises(NotImplementedError, match="stem_s2d"):
-        mx.gluon.model_zoo.vision.resnet50_v1(stem_s2d=True)
+    s2d = mx.gluon.model_zoo.vision.resnet50_v1(stem_s2d=True)
+    assert s2d._collect_params_with_prefix()["features.0.conv.weight"] \
+        .shape == (64, 12, 4, 4)
 
 
 def test_forward_matches_reference():
