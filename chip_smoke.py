@@ -31,6 +31,29 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    every request finished, no page leaked, each kernel launched (the
    paged kernel once a layer a step under replay), and the captured
    engines' tokens identical to the eager ones;
+4b. drives the engine's three options: a small f32 model (2 layers,
+   d_model 128, 2 heads, vocab 128) through the captured engine on the card with
+   ``prefix_cache``, ``spec_K=3`` and ``overlap`` each alone and all three
+   together on a preempting pool (ngram and an adversarial callable
+   drafter), each token-identical to ``generate`` on the card, and greedy
+   ``generate_speculative`` (ngram and self drafters) equal to it; then
+   on the ``full`` preset (captured, one warm request outside the clock):
+   the 64-request mix with overlap off and on in turns (tokens identical,
+   tok/s, ms/step, ``host_hidden_ms``, ``overlap_steps``, a profiled
+   window each for busy time and idle share, and one more run each with
+   timers for the host's phases and the device's time a step),
+   serve_bench's shared-prefix
+   mix (``shared_prefix_frac=0.5``, 96-token prefix) with the prefix cache
+   off and on in turns (tokens identical, ``prefix_hit_tokens``,
+   ``cow_copies``),
+   ``run_gate_prefix``'s hit and cold TTFT (P = 192, N = 4, best of 3),
+   ``spec_K`` = 0, 2, 4 with the ngram drafter (accept rate, tokens
+   committed per decode slot-step; tokens against ``spec_K=0`` reported)
+   after holding the paged kernel against its plain version on a live
+   ``spec_K=4`` step's inputs (96 rows),
+   and all three options on the shared-prefix mix with the paged
+   kernel's counter from 0 held to steps x layers; every run ends with
+   no page or prefix ref left;
 5. holds the paged kernel against its plain version on the inputs kept
    from the live engine (its real pools, block table and positions);
 6. drives the training paths, each with the counters set to 0 just
@@ -140,6 +163,12 @@ VOCAB, D, HEADS, LAYERS, FF, MAX_LEN = 32000, 768, 12, 12, 3072, 512
 SLOTS, PAGE, CHUNK, N_REQ = 16, 16, 16, 64
 PROMPT_LENS = (16, 32, 64, 128, 192)
 OUT_LENS = (16, 32, 64, 128, 160)
+PREFIX_LEN = (max(PROMPT_LENS) // 2 // PAGE) * PAGE      # 96
+# the serving options on the preset (serve_bench.py: the shared-prefix
+# mix at shared_prefix_frac 0.5, run_gate_prefix's TTFT at P = 192,
+# N = 4, best of 3; speculation depths)
+SHARED_FRAC, TTFT_NEW, TTFT_REPS = 0.5, 4, 3
+SPEC_KS = (0, 2, 4)
 
 # kernel-vs-plain tolerances (max |kernel - plain| <= atol + rtol*|plain|):
 # f32 differs only by summation order; bf16 flash by where p and the
@@ -273,17 +302,26 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def workload(seed=0):
+def workload(seed=0, shared_prefix_frac=0.0):
     """The preset's request mix, drawn as serve_bench.py ``_workload``
-    draws it (same seed, same sequence of draws): [(prompt, n_new)]."""
+    draws it (same seed, same sequence of draws): [(prompt, n_new)].
+    With ``shared_prefix_frac`` F, a fraction F of the requests open
+    with one fixed prefix of PREFIX_LEN tokens (a "system prompt": half
+    the longest prompt on the page grid, at most the prompt less one
+    token) and a random tail."""
     rng = np.random.RandomState(seed)
-    rng.randint(1, VOCAB, (max(PROMPT_LENS) // 2 // PAGE) * PAGE)
+    shared = rng.randint(1, VOCAB, PREFIX_LEN).astype(np.int32)
     out = []
     for _ in range(N_REQ):
         rng.exponential(1.0 / 100.0)
         P = int(rng.choice(PROMPT_LENS))
         N = int(rng.choice(OUT_LENS))
-        out.append((rng.randint(1, VOCAB, P).astype(np.int32), N))
+        if shared_prefix_frac > 0.0 and rng.rand() < shared_prefix_frac:
+            head = shared[:min(P - 1, PREFIX_LEN)]
+            tail = rng.randint(1, VOCAB, P - head.size).astype(np.int32)
+            out.append((np.concatenate([head, tail]), N))
+        else:
+            out.append((rng.randint(1, VOCAB, P).astype(np.int32), N))
     return out
 
 
@@ -618,21 +656,25 @@ def profile_window(step, n, what, top=8, kernels=()):
 
 
 def profile_steps(ServingEngine, params, cfg, reqs, dev, eager, kernels,
-                  warm=60, n=20):
-    """Profile ``n`` engine steps (bf16/w8, float KV) after ``warm``, the
-    step captured or (``eager``) op by op, its paged kernels held to
-    the launch counter (``kernels``, as profile_window takes them);
-    returns profile_window's numbers."""
+                  warm=60, n=20, **kw):
+    """Profile ``n`` engine steps (bf16/w8, float KV, engine options
+    ``kw``) after ``warm``, the step captured or (``eager``) op by op,
+    its paged kernels held to the launch counter (``kernels``, as
+    profile_window takes them); returns profile_window's numbers."""
     eng = ServingEngine(params, cfg, num_slots=SLOTS, page_size=PAGE,
-                        prefill_chunk=CHUNK, device=dev)
+                        prefill_chunk=CHUNK, device=dev, **kw)
     eng._eager = eager
     for p, n_new in reqs:
         eng.submit(p, n_new)
     for _ in range(warm):
         eng.step()
-    return profile_window(eng.step, n, "engine steps, %s"
-                          % ("eager" if eager else "captured"),
-                          kernels=kernels)
+    try:
+        return profile_window(eng.step, n, "engine steps, %s%s"
+                              % ("eager" if eager else "captured",
+                                 "".join(", %s=%s" % x for x in kw.items())),
+                              kernels=kernels)
+    finally:
+        eng.close()
 
 
 # --------------------------------------------------------------- training --
@@ -2714,6 +2756,400 @@ def time_rtc(axpy, X, Y, mx, flush):
     return row
 
 
+# -------------------------------------------------------- serving options --
+def leak_check(name, eng, failures):
+    """No page in use but the prefix cache's, no ref held; with the
+    cache cleared, no page in use at all."""
+    cached = 0 if eng.prefix is None else eng.prefix.cached_pages
+    refs = 0 if eng.prefix is None else eng.prefix.refs_total
+    held = eng.cache.pages_in_use - cached
+    if eng.prefix is not None:
+        eng.prefix.clear()
+    ok = held == 0 and refs == 0 and eng.cache.pages_in_use == 0
+    log("check leak %s: %d pages in use besides %d cached, %d refs, %d "
+        "pages in use after clearing the cache  %s"
+        % (name, held, cached, refs, eng.cache.pages_in_use,
+           "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("leak " + name)
+
+
+def small_options(G, ServingEngine, dev, failures):
+    """Gate: a small f32 model (2 layers, d_model 128, 2 heads: head dim
+    64, which the flash kernel of ``generate``'s prefill takes) on the
+    card through the captured engine,
+    each option alone, then all three together on a preempting pool with
+    the ngram and an adversarial callable drafter, each token-identical
+    to the port's ``generate`` on the card; greedy
+    ``generate_speculative`` (ngram and self drafters) equal to it."""
+    tiny = G.gpt_tiny(dtype="float32", vocab_size=128, max_len=64,
+                      d_model=128, n_heads=2, d_ff=256, dropout=0.0)
+    tp = G.init_params(3, tiny, device=dev)
+    rng = np.random.RandomState(0)
+    shared = rng.randint(1, 90, 12)
+    cases = [(np.concatenate([shared, rng.randint(1, 90, 2 + i)]), 6 + i)
+             for i in range(5)]
+    cases += [(rng.randint(1, 90, P), N)
+              for P, N in [(5, 8), (3, 12), (9, 4), (2, 6), (7, 10)]]
+    cases.append((shared, 8))         # whole-input match: a copy on write
+    want = {i: G.generate(tp, tiny, p[None], n, device=dev)[0].cpu().numpy()
+            for i, (p, n) in enumerate(cases)}
+    pool = dict(num_pages=14, pages_per_slot=8)
+    variants = [
+        ("prefix_cache", dict(prefix_cache=True)),
+        ("spec_K=3 ngram", dict(spec_K=3)),
+        ("overlap", dict(overlap=True)),
+        ("all three, preempting pool, ngram",
+         dict(prefix_cache=True, spec_K=2, overlap=True, **pool)),
+        ("all three, preempting pool, adversarial drafter",
+         dict(prefix_cache=True, spec_K=2, overlap=True,
+              spec_drafter=lambda t, K: np.full(K, 7, np.int32), **pool))]
+    for name, kw in variants:
+        eng = ServingEngine(tp, tiny, num_slots=3, page_size=4,
+                            prefill_chunk=6, device=dev, **kw)
+        rids = [eng.submit(p, n) for p, n in cases]
+        outs = eng.run()
+        eng.close()
+        st = eng.stats
+        log("info: small f32 engine %s: %d steps, %d preemptions, %d "
+            "prefix hit tokens, %d copies on write, %d/%d drafts accepted, "
+            "%d overlapped steps, %d fences"
+            % (name, st["steps"], st["preemptions"],
+               st["prefix_hit_tokens"], st["cow_copies"],
+               st["spec_accepted"], st["spec_drafted"],
+               st["overlap_steps"], st["overlap_fences"]))
+        same_tokens("small f32 engine (card, captured) %s vs generate "
+                    "(card)" % name, {i: outs[r] for i, r in enumerate(rids)},
+                    want, failures)
+        leak_check("small f32 " + name, eng, failures)
+    prompts = np.tile(rng.randint(1, 90, (2, 4)), 3)
+    ref = G.generate(tp, tiny, prompts, 24, device=dev).cpu().numpy()
+    dp, dc = G.draft_slice_params(tp, tiny, 1)
+    for drafter, kw in (("ngram", {}),
+                        ("self", dict(draft_params=dp, draft_cfg=dc))):
+        out, st = G.generate_speculative(tp, tiny, prompts, 24, K=3,
+                                         drafter=drafter, return_stats=True,
+                                         device=dev, **kw)
+        log("info: small f32 generate_speculative %s: %s"
+            % (drafter, json.dumps(st)))
+        same_tokens("small f32 generate_speculative %s vs generate (card)"
+                    % drafter, dict(enumerate(out.cpu().numpy())),
+                    dict(enumerate(ref)), failures)
+
+
+def serve_mix(ServingEngine, params, cfg, reqs, dev, failures, name,
+              **kw):
+    """The mix through one captured engine with options ``kw``, after a
+    warm request outside the clock (the capture); asserts every request
+    finished and no page leaked.  Returns (outputs, numbers of the timed
+    run: tokens/s, ms/step and the stats' changes)."""
+    eng = ServingEngine(params, cfg, num_slots=SLOTS, page_size=PAGE,
+                        prefill_chunk=CHUNK, device=dev, **kw)
+    eng.submit(np.arange(1, PAGE + 1, dtype=np.int32), 4)
+    eng.run()
+    base = dict(eng.stats)
+    rids = [eng.submit(p, n) for p, n in reqs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.step() is not False:
+        pass
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    eng.close()
+    st = {k: eng.stats[k] - base[k] for k in base}
+    bad = [r for r in rids if eng.requests[r].state != "done"
+           or len(eng.requests[r].generated) != eng.requests[r]
+           .max_new_tokens]
+    if bad:
+        raise Failed("%s: requests not finished: %s" % (name, bad[:8]))
+    toks = sum(len(eng.requests[r].generated) for r in rids)
+    run = {"tokens_per_s": toks / dt, "ms_per_step": dt * 1e3 / st["steps"],
+           "seconds": dt, "tokens": toks, "warm_steps": base["steps"], **st}
+    leak_check(name, eng, failures)
+    return [eng.requests[r].output for r in rids], run
+
+
+def step_breakdown(ServingEngine, params, cfg, reqs, dev, **kw):
+    """Information: where a step's time goes, on one more run of the mix
+    with options ``kw`` (timers on, so its wall time is not the timed
+    one): host milliseconds a step in the plan build, the dispatch, the
+    wait for the tokens, the commit and (overlap) the wait for the
+    planner; the device's time a step (CUDA events around each dispatch:
+    its copies and the replayed graph, gaps between kernels included);
+    and the pages the live rows walk a step."""
+    eng = ServingEngine(params, cfg, num_slots=SLOTS, page_size=PAGE,
+                        prefill_chunk=CHUNK, device=dev, **kw)
+    eng.submit(np.arange(1, PAGE + 1, dtype=np.int32), 4)
+    eng.run()
+    host, events, walk = {}, [], []
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                host[name] = host.get(name, 0.0) + time.perf_counter() - t0
+        return run
+
+    build, dispatch, put = eng._build_plan, eng._dispatch, eng._readback.put
+
+    def build_walk(overlap=False):
+        plan = build(overlap)
+        if plan.buf is not None:
+            pos = plan.buf.row_pos[plan.buf.row_live != 0]
+            walk.append(int((pos // PAGE + 1).sum()))
+        return plan
+
+    def dispatch_timed(plan):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = dispatch(plan)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    eng._build_plan = timed("build", build_walk)
+    eng._dispatch = timed("dispatch", dispatch_timed)
+    eng._commit = timed("commit", eng._commit)
+    eng._take_plan = timed("take_plan", eng._take_plan)
+    eng._readback.put = lambda tok: timed("token_wait", put(tok))
+    for p, n in reqs:
+        eng.submit(p, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.step() is not False:
+        pass
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng.close()
+    n = len(events)
+    dev_ms = [a.elapsed_time(b) for a, b in events]
+    out = {"steps": n, "wall_ms_per_step": wall * 1e3 / n,
+           "device_ms_per_step": float(np.mean(dev_ms)),
+           "device_ms_median": float(np.median(dev_ms)),
+           "pages_walked_per_step": float(np.mean(walk)),
+           **{"host_%s_ms" % k: v * 1e3 / n for k, v in sorted(host.items())}}
+    log("info: step breakdown %s: %s" % (
+        ", ".join("%s=%s" % x for x in kw.items()),
+        json.dumps({k: round(v, 4) for k, v in out.items()})))
+    return out
+
+
+def prefix_ttft(ServingEngine, params, cfg, dev):
+    """serve_bench.py ``run_gate_prefix`` on the card: TTFT of a request
+    whose whole prompt (P = 192) sits in the prefix cache against a cold
+    prompt of that length, N = 4 new tokens, best of 3 each, on one
+    captured engine."""
+    rng = np.random.RandomState(0)
+    P = max(PROMPT_LENS)
+    eng = ServingEngine(params, cfg, num_slots=SLOTS, page_size=PAGE,
+                        prefill_chunk=CHUNK, prefix_cache=True, device=dev)
+    wid = eng.submit(rng.randint(1, VOCAB, P).astype(np.int32), TTFT_NEW)
+    eng.run()
+    del eng.requests[wid]
+
+    def ttft_ms(prompt):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rid = eng.submit(prompt, TTFT_NEW)
+        req = eng.requests[rid]
+        while not req.generated:
+            eng.step()
+        dt = (time.perf_counter() - t0) * 1e3
+        eng.run()
+        return dt
+
+    shared = rng.randint(1, VOCAB, P).astype(np.int32)
+    cold = min(ttft_ms(rng.randint(1, VOCAB, P).astype(np.int32))
+               for _ in range(TTFT_REPS))
+    ttft_ms(shared)                       # populate the cache
+    hit = min(ttft_ms(shared) for _ in range(TTFT_REPS))
+    return {"ttft_cold_ms": cold, "ttft_hit_ms": hit,
+            "speedup": cold / hit,
+            "hit_tokens": eng.stats["prefix_hit_tokens"], "prompt_len": P}
+
+
+def check_paged_spec(PA, ServingEngine, params, cfg, reqs, dev, failures):
+    """The paged kernel against its plain version on the inputs of a live
+    spec_K=4 engine step: 96 rows, each decode slot's pending and four
+    draft rows at consecutive positions over one block table (kept at
+    step 60 of an op-by-op run, before any counter is read)."""
+    from mxnet_tpu_torch.serving import engine as E
+    kept, at = {}, {"step": -1}
+    orig = E.paged_attention
+
+    def spy(q, pool_kv, pool_s, bt, pos, *, page_size):
+        if at["step"] == 60 and not kept:
+            kept["in"] = tuple(None if x is None else x.clone()
+                               for x in (q, pool_kv, pool_s, bt, pos))
+        return orig(q, pool_kv, pool_s, bt, pos, page_size=page_size)
+
+    E.paged_attention = spy
+    try:
+        eng = ServingEngine(params, cfg, num_slots=SLOTS, page_size=PAGE,
+                            prefill_chunk=CHUNK, spec_K=4, device=dev)
+        eng._eager = True
+        for p, n in reqs[:SLOTS]:
+            eng.submit(p, n)
+        for i in range(61):
+            at["step"] = i
+            eng.step()
+    finally:
+        E.paged_attention = orig
+    q, pool, s, bt, pos = kept["in"]
+    got = PA.paged_attention(q, pool, s, bt, pos, page_size=PAGE)
+    torch.cuda.synchronize()
+    live = int((bt[:, 0] != 0).sum())
+    return check_paged(PA, "paged bfloat16 spec_K=4 engine step (%d rows, "
+                       "%d live)" % (q.shape[0], live), got, q, pool, s, bt,
+                       pos, failures)
+
+
+def serving_options(G, PA, ServingEngine, params, cfg, dev, card, failures):
+    """Gates and numbers of the three serving options on the card: the
+    small f32 gates; on the ``full`` preset overlap off and on in turns
+    (tokens identical), the shared-prefix mix with the cache off and on
+    (tokens identical) and its hit/cold TTFT, speculation at spec_K = 0,
+    2, 4 (tokens against spec_K = 0 reported), and all three together on
+    the shared-prefix mix with the paged kernel's launch counter from 0
+    held to the steps.  Returns the report and the paged launches."""
+    small_options(G, ServingEngine, dev, failures)
+    reqs = workload(0)
+    mix = workload(0, SHARED_FRAC)
+    shared = shared_prefix(0)
+    log("shared-prefix mix: %d requests, %d opening with the %d-token "
+        "prefix, prompt tokens %d, new tokens %d"
+        % (len(mix), sum(np.array_equal(p[:8], shared[:8]) for p, _ in mix),
+           PREFIX_LEN, sum(p.size for p, _ in mix),
+           sum(n for _, n in mix)))
+    rep = {"card": card}
+
+    def show(name, run):
+        log("serve %s [%s]: %.1f tok/s, %.3f ms/step, %d steps, %d tokens, "
+            "host_hidden_ms %.3f, overlap_steps %d, prefix_hit_tokens %d, "
+            "cow_copies %d, spec %d/%d accepted"
+            % (name, card, run["tokens_per_s"], run["ms_per_step"],
+               run["steps"], run["tokens"], run["host_hidden_ms"],
+               run["overlap_steps"], run["prefix_hit_tokens"],
+               run["cow_copies"], run["spec_accepted"], run["spec_drafted"]))
+
+    # overlap off and on, in turns
+    outs, runs = {}, {False: [], True: []}
+    for overlap in (False, True, True, False):
+        name = "full mix overlap=%s" % overlap
+        o, run = serve_mix(ServingEngine, params, cfg, reqs, dev, failures,
+                           name, overlap=overlap)
+        show(name, run)
+        outs.setdefault(overlap, o)
+        runs[overlap].append(run)
+    same_tokens("full mix bf16/w8, overlap on vs off",
+                dict(enumerate(outs[True])), dict(enumerate(outs[False])),
+                failures)
+    paged = [("paged_split", lambda: PA.paged_attention.launches,
+              ["paged_split"]),
+             ("paged_combine", lambda: PA.paged_attention.launches,
+              ["paged_combine"])]
+    rep["overlap"] = {}
+    for overlap in (False, True):
+        prof = profile_steps(ServingEngine, params, cfg, reqs, dev, False,
+                             paged, overlap=overlap)
+        rep["overlap"][str(overlap)] = {
+            "tokens_per_s": [r["tokens_per_s"] for r in runs[overlap]],
+            "ms_per_step": [r["ms_per_step"] for r in runs[overlap]],
+            "host_hidden_ms": [r["host_hidden_ms"] for r in runs[overlap]],
+            "overlap_steps": [r["overlap_steps"] for r in runs[overlap]],
+            "profile": prof}
+        rep["overlap"][str(overlap)]["breakdown"] = step_breakdown(
+            ServingEngine, params, cfg, reqs, dev, overlap=overlap)
+    log("info: overlap off vs on [%s]: %s" % (card,
+                                              json.dumps(rep["overlap"])))
+
+    # the shared-prefix mix, cache off and on, in turns; TTFT
+    mouts, pruns = {}, {False: [], True: []}
+    for on in (False, True, True, False):
+        name = "shared-prefix mix prefix_cache=%s" % on
+        o, run = serve_mix(ServingEngine, params, cfg, mix, dev, failures,
+                           name, prefix_cache=on)
+        show(name, run)
+        mouts.setdefault(on, o)
+        pruns[on].append(run)
+    same_tokens("shared-prefix mix bf16/w8, prefix cache on vs off",
+                dict(enumerate(mouts[True])), dict(enumerate(mouts[False])),
+                failures)
+    rep["prefix"] = {str(on): {
+        "tokens_per_s": [r["tokens_per_s"] for r in pruns[on]],
+        "ms_per_step": [r["ms_per_step"] for r in pruns[on]],
+        **{k: pruns[on][0][k] for k in ("steps", "prefill_rows",
+                                        "prefix_hit_tokens", "cow_copies",
+                                        "peak_pages")},
+        "breakdown": step_breakdown(ServingEngine, params, cfg, mix, dev,
+                                    prefix_cache=on)} for on in pruns}
+    rep["ttft"] = prefix_ttft(ServingEngine, params, cfg, dev)
+    log("serve prefix TTFT (run_gate_prefix, P=%d, N=%d, best of %d) [%s]: "
+        "hit %.3f ms, cold %.3f ms, %.2fx"
+        % (rep["ttft"]["prompt_len"], TTFT_NEW, TTFT_REPS, card,
+           rep["ttft"]["ttft_hit_ms"], rep["ttft"]["ttft_cold_ms"],
+           rep["ttft"]["speedup"]))
+
+    # speculation depths on the full mix; the paged kernel at 96 rows
+    rep["paged_spec4_max_abs_err"] = check_paged_spec(
+        PA, ServingEngine, params, cfg, reqs, dev, failures)
+    rep["spec"] = {}
+    souts = {}
+    for K in SPEC_KS:
+        name = "full mix spec_K=%d ngram" % K
+        o, run = serve_mix(ServingEngine, params, cfg, reqs, dev, failures,
+                           name, spec_K=K)
+        show(name, run)
+        souts[K] = o
+        run["accept_rate"] = run["spec_accepted"] / max(1, run["spec_drafted"])
+        run["tokens_per_slot_step"] = (run["decode_rows"]
+                                       + run["spec_accepted"]) \
+            / max(1, run["decode_rows"])
+        run["same_requests_as_spec0"] = sum(
+            np.array_equal(a, b) for a, b in zip(o, souts[0]))
+        run["token_agreement_with_spec0"] = float(np.mean(
+            [np.mean(a == b) for a, b in zip(o, souts[0])]))
+        log("info: spec_K=%d [%s]: accept rate %.4f, %.4f tokens committed "
+            "per decode slot-step, %d of %d requests and %.4f of tokens as "
+            "spec_K=0 (reported, not gated: bf16)"
+            % (K, card, run["accept_rate"], run["tokens_per_slot_step"],
+               run["same_requests_as_spec0"], len(o),
+               run["token_agreement_with_spec0"]))
+        rep["spec"][str(K)] = run
+
+    # all three together on the shared-prefix mix, the paged counter from 0
+    PA.paged_attention.launches = 0
+    name = "shared-prefix mix, all three options"
+    o, run = serve_mix(ServingEngine, params, cfg, mix, dev, failures, name,
+                       prefix_cache=True, spec_K=2, overlap=True)
+    launches = PA.paged_attention.launches
+    show(name, run)
+    rep["all_three"] = run
+    # the counter counts the warm request's steps too
+    steps_all = run["steps"] + run["warm_steps"]
+    ok = launches == steps_all * LAYERS
+    log("check all three options: paged_attention counted %d launches, %d "
+        "steps x %d layers = %d  %s" % (launches, steps_all, LAYERS,
+                                        steps_all * LAYERS,
+                                        "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("all three options: paged launches")
+    agree = float(np.mean([np.mean(a == b) for a, b in zip(o, mouts[False])]))
+    log("info: all three options vs the plain engine on the shared-prefix "
+        "mix: %.4f of tokens agree (bf16, spec_K=2 verify rows: reported)"
+        % agree)
+    return rep, launches
+
+
+def shared_prefix(seed):
+    """The shared prefix of ``workload(seed, F)``: the seeded
+    generator's first draw."""
+    return np.random.RandomState(seed).randint(1, VOCAB, PREFIX_LEN)
+
+
 # ------------------------------------------------------------------- main --
 def serve(G, ServingEngine, params, cfg, reqs, kv_int8, dev, spy=None,
           eager=False):
@@ -2788,7 +3224,8 @@ def main(argv):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log("card:", card_line())
+    card = card_line()
+    log("card:", card)
     dev = torch.device("cuda", 0)
     failures = []
 
@@ -2941,6 +3378,15 @@ def main(argv):
             errs["paged"] = e
 
     phase("serving")
+    # ---- 4b. the serving options (prefix cache, speculation, overlap):
+    # the small f32 gates, then the preset's runs, each path's paged
+    # launches from 0
+    report["serving_options"], options_launches = serving_options(
+        G, PA, ServingEngine, params, cfg, dev, card, failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("serving options")
     # ---- 6. the training paths, each with its own counters from 0
     bert_cfg = T_.bert_base(**BERT)
     init_state, step = T_.make_train_step(bert_cfg, learning_rate=1e-4,
@@ -3036,6 +3482,10 @@ def main(argv):
         "replaces": "mxnet_tpu/kernels/paged_attention.py:209",
         "device_symbols": ["paged_split", "paged_combine"],
         "launches": launches["paged_attention"],
+        "launches_by_path": {
+            "serving": launches["paged_attention"],
+            "serving, all three options, shared-prefix mix":
+                options_launches},
         "launches_note": "calls, two kernel launches each",
         "max_abs_err": errs["paged"], "tolerance": PAGED_TOL_TEXT,
         **time_paged(PA, q, pool, s, bt, pos, flush),

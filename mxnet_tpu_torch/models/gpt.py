@@ -15,8 +15,15 @@ takes ``params`` expects a prepared tree.
 
 The full-sequence prefill attention goes through the flash-forward
 kernel (``kernels/flash_attention.py``); the single-row decode
-attention (:func:`_attend_rows`) is plain torch, as it is plain XLA in
-the reference.
+attention (:func:`_attend_rows`) and the block attention of the
+speculative verify (:func:`_attend_block`) are plain torch, as they are
+plain XLA in the reference.
+
+:func:`generate_speculative` drafts K tokens an iteration (prompt
+lookup, :func:`_draft_ngram`, or a small self-drafting model, such as
+:func:`draft_slice_params` makes) and verifies them in one block
+forward (:func:`_decode_block`); greedy output is token-identical to
+:func:`generate` under float32.
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ from . import transformer as T
 
 __all__ = ["gpt_config", "gpt_tiny", "init_params", "forward",
            "make_train_step", "prepare_params", "quantize_decode_params",
-           "generate"]
+           "generate", "generate_speculative", "draft_slice_params"]
 
 init_params = T.init_params
 forward = T.forward
@@ -381,3 +388,246 @@ def generate(params, cfg, prompt, max_new_tokens, *, temperature=0.0,
             logits, caches = _decode_one(dparams, cfg, tok, P + i, caches)
         toks.append(sample(logits))
         return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+
+
+def _attend_block(q, ckv, cs, pos, dh):
+    """Block (multi-token) attention over a fused (R, L, 2*dh) KV view:
+    q is (R, S, dh) at positions [pos, pos+S), block row i attending to
+    view slots <= pos+i; ``cs`` as in :func:`_attend_rows`.  Returns
+    (R, S, dh) f32, with the dots' operands in the compute dtype and
+    float32 accumulation, as :func:`_attend_rows`."""
+    cdt = q.dtype
+    L, S = ckv.shape[1], q.shape[1]
+    k = ckv[:, :, :dh].to(cdt).float()
+    v = ckv[:, :, dh:].to(cdt).float()
+    s = torch.bmm(k, q.float().transpose(1, 2))        # (R, L, S)
+    if cs is not None:
+        s = s * cs[:, :, 0:1]
+    s = s / _sqrt_f32(dh)
+    dev = q.device
+    valid = torch.arange(L, device=dev)[None, :, None] <= \
+        pos + torch.arange(S, device=dev)[None, None, :]
+    s = s.masked_fill(~valid, -1e30)
+    p = torch.softmax(s, dim=1)
+    if cs is not None:
+        p = p * cs[:, :, 1:2]
+    p = p.to(cdt).float()
+    return torch.bmm(p.transpose(1, 2), v)             # (R, S, dh)
+
+
+def _decode_block(params, cfg, tokens, pos, caches):
+    """Batched multi-token decode step (the speculative verify
+    forward): ``tokens`` (B, S) at positions [pos, pos+S), one causal
+    forward over the block.  Writes the block's k/v into ``caches`` at
+    [pos, pos+S) IN PLACE first, then attends with the per-row causal
+    mask, so :func:`_decode_one` is the S=1 case.  Returns (logits
+    (B, S, V) f32, caches).
+
+    Stale cache slots past the committed length need no rollback: the
+    next block write at the committed position overwrites them before
+    any mask exposes them."""
+    cdt = T.torch_dtype(cfg.dtype)
+    B, S = tokens.shape
+    D, H = cfg.d_model, cfg.n_heads
+    dh = D // H
+
+    x = _embed(params, tokens, cdt) + params["pos_emb"][pos:pos + S][None]
+    x = T._layer_norm(x, params["emb_ln"]["g"], params["emb_ln"]["b"])
+    for layer, cache in zip(params["layers"], caches):
+        def attend(qkv):
+            q, k, v = (qkv[..., i * D:(i + 1) * D].reshape(B, S, H, dh)
+                       .permute(0, 2, 1, 3).reshape(B * H, S, dh)
+                       for i in range(3))
+            if "s" in cache:
+                kvq, skv = _kv_quantize(k, v)
+                cache["kv"][:, pos:pos + S] = kvq
+                cache["s"][:, pos:pos + S] = skv
+                attn = _attend_block(q, cache["kv"], cache["s"], pos, dh)
+            else:
+                cache["kv"][:, pos:pos + S] = torch.cat([k, v], dim=2)
+                attn = _attend_block(q, cache["kv"], None, pos, dh)
+            return attn.to(cdt).reshape(B, H, S, dh).permute(0, 2, 1, 3) \
+                .reshape(B, S, D)
+
+        x = _layer(layer, x, attend)
+    return _lm_head(params, x, cdt), caches
+
+
+def draft_slice_params(params, cfg, n_layers=2):
+    """Self-drafting: the draft model is the target's own first
+    ``n_layers`` decoder layers with the shared embedding and LM head.
+    Returns (draft_params, draft_cfg) for
+    ``generate_speculative(drafter="self")``."""
+    dcfg = dataclasses.replace(cfg, n_layers=n_layers)
+    dparams = dict(params)
+    dparams["layers"] = list(params["layers"][:n_layers])
+    return dparams, dcfg
+
+
+def _draft_ngram(token_buf, n_next, K, g):
+    """Prompt-lookup drafter on the device: find the most recent earlier
+    occurrence of the last ``g`` committed tokens of each row and
+    propose the K tokens that followed it; repeat the last committed
+    token where no match covers.  token_buf (B, BUF) with positions
+    [0, n_next) committed.  Returns (B, K) proposals for positions
+    [n_next, n_next+K), in token_buf's dtype.  The twin of
+    ``serving/drafters.py ngram_draft``."""
+    B, BUF = token_buf.shape
+    dev = token_buf.device
+    W = BUF - g + 1                       # candidate window starts
+    # the reference's dynamic_slice clamps its start into [0, BUF-g]
+    st = min(max(n_next - g, 0), BUF - g)
+    key = token_buf[:, st:st + g]
+    eq = torch.ones(B, W, dtype=torch.bool, device=dev)
+    for j in range(g):
+        eq &= token_buf[:, j:W + j] == key[:, j:j + 1]
+    # a usable match ends before the key, its continuation starting
+    # inside the committed region
+    starts = torch.arange(W, device=dev)[None, :]
+    eq &= starts + g < n_next
+    s_star = torch.where(eq, starts, -1).amax(dim=1)   # (B,)
+    idx = s_star[:, None] + g + torch.arange(K, device=dev)[None, :]
+    ok = (s_star >= 0)[:, None] & (idx < n_next)
+    cand = torch.gather(token_buf, 1, idx.clamp(0, BUF - 1))
+    lt = min(max(n_next - 1, 0), BUF - 1)
+    last = token_buf[:, lt:lt + 1].expand(B, K)
+    return torch.where(ok, cand, last)
+
+
+def generate_speculative(params, cfg, prompt, max_new_tokens, *, K=4,
+                         drafter="ngram", draft_params=None,
+                         draft_cfg=None, ngram=2, temperature=0.0,
+                         generator=None, kv_int8=False,
+                         return_stats=False, device=None):
+    """Speculative generation: draft K tokens an iteration, verify them
+    in ONE causal block forward of the target (:func:`_decode_block`)
+    and accept the longest prefix that matches what the target itself
+    produces, plus the target's token at the first mismatch.  Greedy
+    decoding is token-identical to :func:`generate` (bit-exact under
+    float32); ``temperature > 0`` uses the draft-rejection rule (accept
+    d with probability min(1, p(d)/q(d)), else sample the renormalised
+    residual max(p - q, 0)), drawing from ``generator`` (a
+    ``torch.Generator`` on ``device``; seeded with 0 when omitted).
+
+    ``drafter="ngram"`` proposes by prompt lookup over the last
+    ``ngram`` tokens (:func:`_draft_ngram`); ``drafter="self"`` runs a
+    small GPT (``draft_params``/``draft_cfg``, same vocabulary; e.g.
+    :func:`draft_slice_params`) for K+1 cached decode steps an
+    iteration.  Acceptance is synchronised across the batch (the
+    pointer advances by the smallest accept count + 1); rejected
+    positions roll back by pointer only.  Needs ``P + max_new_tokens +
+    K <= cfg.max_len``.  Returns (B, P + max_new_tokens) int64 on
+    ``device``, and with ``return_stats`` also ``{"iters", "drafted",
+    "accepted", "tokens"}``."""
+    dev = resolve_device(device)
+    if not cfg.causal:
+        cfg = dataclasses.replace(cfg, causal=True)
+    if K < 1:
+        raise ValueError("generate_speculative: K must be >= 1")
+    if drafter == "self":
+        if draft_params is None or draft_cfg is None:
+            raise ValueError("drafter='self' needs draft_params and "
+                             "draft_cfg")
+        if draft_cfg.vocab_size != cfg.vocab_size:
+            raise ValueError("draft model must share the vocab")
+        if not draft_cfg.causal:
+            draft_cfg = dataclasses.replace(draft_cfg, causal=True)
+    elif drafter != "ngram":
+        raise ValueError("drafter must be 'ngram' or 'self'")
+    prompt = torch.as_tensor(prompt).to(dev).long()
+    B, P = prompt.shape
+    if max_new_tokens <= 0:
+        stats = {"iters": 0, "drafted": 0, "accepted": 0, "tokens": 0}
+        return (prompt, stats) if return_stats else prompt
+    total = P + max_new_tokens + K      # the verify may overshoot by <= K
+    if total > cfg.max_len:
+        raise ValueError(
+            "generate_speculative: %d tokens (incl. K=%d overshoot "
+            "headroom) > cfg.max_len=%d" % (total, K, cfg.max_len))
+    if drafter == "self" and total > draft_cfg.max_len:
+        raise ValueError("draft_cfg.max_len too small: need %d" % total)
+    if temperature != 0.0 and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+
+    def sample(logits):
+        if temperature == 0.0:
+            return torch.argmax(logits, dim=-1)
+        probs = torch.softmax(logits / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+    with torch.inference_mode():
+        tparams = prepare_params(params, cfg, dev)
+        logits, caches = _prefill_full(tparams, cfg, prompt, total,
+                                       kv_int8=kv_int8)
+        pending = sample(logits)                       # (B,)
+        # prompt + committed tokens; slots past the committed pointer
+        # hold stale drafts, which the drafter masks out
+        token_buf = torch.zeros(B, total, dtype=torch.long, device=dev)
+        token_buf[:, :P] = prompt
+        token_buf[:, P] = pending
+        if drafter == "self":
+            dparams = prepare_params(draft_params, draft_cfg, dev)
+            _, dcaches = _prefill_full(dparams, draft_cfg, prompt, total)
+        emitted, iters, accepted = 1, 0, 0
+        while emitted < max_new_tokens:
+            n = P + emitted - 1           # cache position of `pending`
+            q = None
+            if drafter == "ngram":
+                drafts = _draft_ngram(token_buf, n + 1, K, ngram)
+            else:
+                # K+1 steps: the draft caches end the iteration filled
+                # through n+K; the last proposal is discarded
+                tok, toks, lgs = pending, [], []
+                for i in range(K + 1):
+                    lg, dcaches = _decode_one(dparams, draft_cfg, tok,
+                                              n + i, dcaches)
+                    tok = sample(lg)
+                    toks.append(tok)
+                    lgs.append(lg)
+                drafts = torch.stack(toks[:K], dim=1)
+                if temperature != 0.0:
+                    q = torch.softmax(torch.stack(lgs[:K], dim=1).float()
+                                      / temperature, dim=-1)  # (B, K, V)
+            block = torch.cat([pending[:, None], drafts], dim=1)
+            logits_blk, caches = _decode_block(tparams, cfg, block, n,
+                                               caches)  # (B, K+1, V)
+            if temperature == 0.0:
+                tgt = torch.argmax(logits_blk, dim=-1)
+                ok = drafts == tgt[:, :K]
+            else:
+                p = torch.softmax(logits_blk.float() / temperature, dim=-1)
+                p_d = torch.gather(p[:, :K], 2, drafts[:, :, None])[:, :, 0]
+                if q is None:              # deterministic (one-hot) draft
+                    ratio = p_d
+                else:
+                    q_d = torch.gather(q, 2, drafts[:, :, None])[:, :, 0]
+                    ratio = p_d / q_d.clamp_min(1e-30)
+                u = torch.rand(B, K, generator=generator, device=dev)
+                ok = u < ratio
+            a_b = torch.cumprod(ok.int(), dim=1).sum(dim=1)    # (B,)
+            a = int(a_b.min())            # batch-synchronised commit
+            if temperature == 0.0:
+                cont = tgt[:, a]
+            else:
+                # residual sampling at the first rejected position; rows
+                # that accepted past `a` keep their verified draft
+                j = min(a, K - 1)
+                p_a = p[:, a]
+                q_a = (F.one_hot(drafts[:, j], cfg.vocab_size).float()
+                       if q is None else q[:, j])
+                res = (p_a - (0.0 if a >= K else 1.0) * q_a).clamp_min(0.0)
+                rs = res.sum(dim=-1, keepdim=True)
+                res = torch.where(rs > 0, res / rs.clamp_min(1e-30), p_a)
+                cont_s = torch.multinomial(res, 1, generator=generator)[:, 0]
+                cont = torch.where(a_b > a, drafts[:, j], cont_s)
+            token_buf[:, n + 1:n + 1 + K] = drafts
+            token_buf[:, n + a + 1] = cont
+            pending = cont
+            emitted += a + 1
+            iters += 1
+            accepted += a
+        out = token_buf[:, :P + max_new_tokens]
+    if return_stats:
+        return out, {"iters": iters, "drafted": iters * K,
+                     "accepted": accepted, "tokens": emitted}
+    return out

@@ -15,6 +15,13 @@ plain ints; the pools are torch tensors that the engine's step writes
 in place.  Freed pages are not zero-filled: a sequence only attends to
 positions it has written itself.
 
+``pressure_cb`` (the reference's hook, ``paged_kv.py:238``): when
+``alloc`` would fail, the callback is asked to surrender pages first;
+the engine's ``PrefixCache`` frees LRU refcount-0 chains there, so
+cached but unreferenced prefixes never starve a live request.
+:meth:`PagedKVCache.copy_page` is the whole-page copy of a
+copy-on-write (the reference engine's ``_make_copy``), in place.
+
 Page export/install (disaggregated serving) and the tensor-parallel
 ``mesh`` layout of the reference are not ported yet.
 """
@@ -60,6 +67,7 @@ class PagedKVCache:
             self.pools.append(pool)
         self._free = deque(range(1, num_pages))    # page 0 is scratch
         self._in_use = 0
+        self.pressure_cb = None
 
     @property
     def free_pages(self):
@@ -74,6 +82,8 @@ class PagedKVCache:
         cannot satisfy the request (never a partial allocation)."""
         if n < 0:
             raise ValueError("alloc: n must be >= 0")
+        if n > len(self._free) and self.pressure_cb is not None:
+            self.pressure_cb(n - len(self._free))
         if n > len(self._free):
             return None
         out = [self._free.popleft() for _ in range(n)]
@@ -87,3 +97,11 @@ class PagedKVCache:
                 raise ValueError("free: bad page id %r" % (p,))
         self._free.extend(pages)
         self._in_use -= len(pages)
+
+    def copy_page(self, src, dst):
+        """Copy page ``src`` into page ``dst`` in every layer's pools,
+        in place on the current stream: the storage the engine's
+        captured step reads is never rebound."""
+        for pool in self.pools:
+            for t in pool.values():
+                t[dst].copy_(t[src])

@@ -130,3 +130,73 @@ def check_flash_on_card(dev, dtype, T, dh, causal, use_mask, dropout, seed,
         assert bool(torch.isfinite(x).all()), name
         err = (x - r).abs()
         assert bool((err <= lim).all()), (name, float((err / lim).max()))
+
+
+# ---------------------------------------------------------------- serving --
+# the engine stats that depend on the schedule alone (not on the clock)
+ENGINE_STATS = ("steps", "preemptions", "admitted", "decode_rows",
+                "prefill_rows", "dead_rows", "peak_pages",
+                "prefix_hit_tokens", "cow_copies", "spec_drafted",
+                "spec_accepted", "overlap_steps", "overlap_fences")
+
+
+def ref_generate(tree, jcfg, prompt, n, **kw):
+    """The reference ``generate`` of one prompt, as numpy (P + n,)."""
+    import jax.numpy as jnp
+    from mxnet_tpu.models import gpt
+    return np.asarray(gpt.generate(tree, jcfg, jnp.asarray(prompt)[None],
+                                   n, **kw))[0]
+
+
+def port_engine(tree, tcfg, **kw):
+    """The port's ``ServingEngine`` on the CPU over a numpy tree."""
+    from mxnet_tpu_torch.serving import ServingEngine
+    return ServingEngine(to_port(tree), tcfg, device="cpu", **kw)
+
+
+def ref_engine(tree, jcfg, **kw):
+    from mxnet_tpu.serving import ServingEngine
+    return ServingEngine(tree, jcfg, **kw)
+
+
+def run_both(tree, jcfg, tcfg, cases, **kw):
+    """The same requests, ``[(prompt, n_new[, eos_id])]``, through the
+    reference engine and the port's with the same options ``kw``, each
+    run to the end and closed.  Returns (reference engine, port engine,
+    rids) — the two engines number requests alike."""
+    engines = []
+    for make, cfg in ((ref_engine, jcfg), (port_engine, tcfg)):
+        eng = make(tree, cfg, **kw)
+        rids = [eng.submit(c[0], c[1], *c[2:]) for c in cases]
+        eng.run()
+        eng.close()
+        engines.append(eng)
+    return engines[0], engines[1], rids
+
+
+def assert_same_engines(ref, eng, rids, agreement=None):
+    """Token for token and state for state equal requests (with
+    ``agreement``, at least that share of equal tokens a request: the
+    int8-KV bar), equal schedule-determined stats, and no page or prefix
+    ref left over."""
+    for rid in rids:
+        a, b = ref.requests[rid], eng.requests[rid]
+        assert a.state == b.state, (rid, a.state, b.state)
+        if agreement is None:
+            assert list(a.generated) == list(b.generated), rid
+        else:
+            assert len(a.generated) == len(b.generated), rid
+            assert np.mean(np.equal(a.generated, b.generated)) >= \
+                agreement, (rid, a.generated, b.generated)
+        assert a.prefix_hit_tokens == b.prefix_hit_tokens, rid
+    assert {k: ref.stats[k] for k in ENGINE_STATS} == \
+        {k: eng.stats[k] for k in ENGINE_STATS}
+    assert_no_leak(eng)
+
+
+def assert_no_leak(eng):
+    """Every page in use is a cached prefix page, and no ref is held."""
+    cached = 0 if eng.prefix is None else eng.prefix.cached_pages
+    assert eng.cache.pages_in_use == cached
+    if eng.prefix is not None:
+        assert eng.prefix.refs_total == 0

@@ -432,7 +432,7 @@ def test_engine_static_staging_token_identical():
         outs = eng.run()
         runs.append([outs[r] for r in rids])
         assert len(eng._graphs) == (0 if eager else 1)
-        assert eng._buf.dev.dtype == torch.int32
+        assert eng._dev.dtype == torch.int32
     for p, (_, n), got, same in zip(prompts, shapes, *runs):
         want = np.asarray(gpt.generate(tree, jcfg, jnp.asarray(p)[None],
                                        n))[0]

@@ -149,10 +149,9 @@ def test_forced_preempt_resumes_exact():
             outs[rid], _ref(tree, jcfg, eng.requests[rid].prompt, 8))
 
 
-@pytest.mark.parametrize("opt", [dict(prefix_cache=True),
-                                 dict(tier_bytes=1 << 20), dict(spec_K=2),
-                                 dict(overlap=True), dict(tp=2),
-                                 dict(mesh=object()), dict(metrics=True)])
+@pytest.mark.parametrize("opt", [dict(tier_bytes=1 << 20), dict(tp=2),
+                                 dict(mesh=object()), dict(metrics=True),
+                                 dict(kernel="pallas")])
 def test_unported_options_raise(opt):
     _, tcfg, tree = _setup(0)
     with pytest.raises(NotImplementedError):
