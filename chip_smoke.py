@@ -54,6 +54,26 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    and all three options on the shared-prefix mix with the paged
    kernel's counter from 0 held to steps x layers; every run ends with
    no page or prefix ref left;
+4c. drives telemetry (``metrics=True``, the profiler's request lanes)
+   and the host-DRAM KV tier (``tier_bytes``), the kernel counters from
+   0: the small f32 model through a captured engine with the prefix
+   cache, a 64 MB tier and a 12-page pool that preempts and spills,
+   overlap off and on, float KV token-identical to ``generate`` on the
+   card and int8 KV to the same engine with the tier off, tier spills,
+   installs and swap-ins > 0, no page, ref or tier entry left; on the
+   ``full`` preset serve_bench's ``run_gate_tier`` (TTFT of a P = 192
+   prompt cold, hot and warm, best of 3, ``hot < warm < cold``; resume
+   after ``preempt()`` with the tier on and off, ``swap <
+   recompute``, tokens identical); the 64-request mix through a
+   150-page pool with the tier on and off (tokens identical, swap-ins >
+   0); the 12-page chain's export and install by CUDA events beside
+   plain pinned copies and ``nvidia-smi``'s PCIe link; and the mix,
+   overlapped, with metrics off, on, and on with the profiler
+   recording, in turns (tokens identical; ``serving_steps_total``,
+   ``serving_tokens_total`` and the TTFT count equal to the steps,
+   tokens and requests; the profiler's dump loads as JSON with a ``req
+   N`` lane per request holding admission_wait, prefill, decode and
+   retire);
 5. holds the paged kernel against its plain version on the inputs kept
    from the live engine (its real pools, block table and positions);
 6. drives the training paths, each with the counters set to 0 just
@@ -141,8 +161,10 @@ import gc
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -169,6 +191,14 @@ PREFIX_LEN = (max(PROMPT_LENS) // 2 // PAGE) * PAGE      # 96
 # N = 4, best of 3; speculation depths)
 SHARED_FRAC, TTFT_NEW, TTFT_REPS = 0.5, 4, 3
 SPEC_KS = (0, 2, 4)
+# the telemetry and tier phase: serve_bench.py run_gate_tier's host tier
+# (_TIER_BYTES, 64 MB) and resume pair (n_new 8, preempted after 4);
+# the 64-request mix through a pool of TIER_POOL pages (of the 513 the
+# 16 slots need at most), so that preemptions swap out; the 12-page
+# chain's transfers timed TRANSFER_REPS times
+TIER_BYTES, TIER_POOL, RESUME_NEW, TRANSFER_REPS = 1 << 26, 150, 8, 10
+# PCIe per-lane rates (GT/s) and line-code efficiency by generation
+PCIE_GTS = {1: 2.5, 2: 5.0, 3: 8.0, 4: 16.0, 5: 32.0, 6: 64.0}
 
 # kernel-vs-plain tolerances (max |kernel - plain| <= atol + rtol*|plain|):
 # f32 differs only by summation order; bf16 flash by where p and the
@@ -2949,23 +2979,11 @@ def prefix_ttft(ServingEngine, params, cfg, dev):
     wid = eng.submit(rng.randint(1, VOCAB, P).astype(np.int32), TTFT_NEW)
     eng.run()
     del eng.requests[wid]
-
-    def ttft_ms(prompt):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rid = eng.submit(prompt, TTFT_NEW)
-        req = eng.requests[rid]
-        while not req.generated:
-            eng.step()
-        dt = (time.perf_counter() - t0) * 1e3
-        eng.run()
-        return dt
-
     shared = rng.randint(1, VOCAB, P).astype(np.int32)
-    cold = min(ttft_ms(rng.randint(1, VOCAB, P).astype(np.int32))
-               for _ in range(TTFT_REPS))
-    ttft_ms(shared)                       # populate the cache
-    hit = min(ttft_ms(shared) for _ in range(TTFT_REPS))
+    cold = min(ttft_ms(eng, rng.randint(1, VOCAB, P).astype(np.int32),
+                       TTFT_NEW) for _ in range(TTFT_REPS))
+    ttft_ms(eng, shared, TTFT_NEW)        # populate the cache
+    hit = min(ttft_ms(eng, shared, TTFT_NEW) for _ in range(TTFT_REPS))
     return {"ttft_cold_ms": cold, "ttft_hit_ms": hit,
             "speedup": cold / hit,
             "hit_tokens": eng.stats["prefix_hit_tokens"], "prompt_len": P}
@@ -3142,6 +3160,446 @@ def serving_options(G, PA, ServingEngine, params, cfg, dev, card, failures):
         "mix: %.4f of tokens agree (bf16, spec_K=2 verify rows: reported)"
         % agree)
     return rep, launches
+
+
+def tier_leak_check(name, eng, failures):
+    """No swap entry left in the tier, its pages exactly the spilled
+    chains'; then ``leak_check`` (which clears the prefix cache) and an
+    empty tier after it."""
+    swaps = [k for k in eng.tier._entries if k[0] == "swap"]
+    spilled = 0 if eng.prefix is None else eng.prefix.spilled_pages
+    held = eng.tier.pages_held
+    leak_check(name, eng, failures)
+    ok = not swaps and held == spilled and eng.tier.pages_held == 0 \
+        and len(eng.tier) == 0
+    log("check tier leak %s: %d swap entries, %d tier pages for %d "
+        "spilled, %d tier pages after clearing  %s"
+        % (name, len(swaps), held, spilled, eng.tier.pages_held,
+           "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("tier leak " + name)
+
+
+def small_tier(G, ServingEngine, dev, failures):
+    """Gate: the small f32 model of ``small_options`` through a captured
+    engine with the prefix cache, a host tier and a 12-page pool that
+    preempts (victims swap out and back in) and spills (refcount-0
+    chains go to the tier and come back as warm hits), overlap off and
+    on, float and int8 KV: float KV token-identical to ``generate`` on
+    the card, int8 KV to the same engine with the tier off; the tier's
+    counters > 0 and nothing left over."""
+    tiny = G.gpt_tiny(dtype="float32", vocab_size=128, max_len=64,
+                      d_model=128, n_heads=2, d_ff=256, dropout=0.0)
+    tp = G.init_params(3, tiny, device=dev)
+    rng = np.random.RandomState(3)
+    shared = rng.randint(1, 90, 12).astype(np.int32)
+    first = [(np.concatenate([shared, rng.randint(1, 90, 3 + i)
+                              .astype(np.int32)]), 5 + 2 * i)
+             for i in range(4)]
+    first += [(rng.randint(1, 90, P).astype(np.int32), N)
+              for P, N in [(11, 9), (6, 12), (14, 6)]]
+    waves = [first, [(shared, 6), (first[0][0], 4)]]
+    cases = first + waves[1]
+    want = {i: G.generate(tp, tiny, torch.as_tensor(p)[None], n,
+                          device=dev)[0].cpu().numpy()
+            for i, (p, n) in enumerate(cases)}
+    kw = dict(num_slots=3, page_size=4, prefill_chunk=6, pages_per_slot=8,
+              num_pages=13, prefix_cache=True, metrics=True)
+
+    def run(**more):
+        eng = ServingEngine(tp, tiny, device=dev, **kw, **more)
+        rids = []
+        for wave in waves:
+            rids += [eng.submit(p, n) for p, n in wave]
+            eng.run()
+        eng.close()
+        return eng, {i: eng.requests[r].output for i, r in enumerate(rids)}
+
+    counters = {}
+    for kv_int8 in (False, True):
+        for overlap in (False, True):
+            name = "small f32 tiered engine kv_int8=%s overlap=%s" % (
+                kv_int8, overlap)
+            eng, outs = run(kv_int8=kv_int8, overlap=overlap,
+                            tier_bytes=TIER_BYTES)
+            c = eng.metrics()["counters"]
+            counters[name] = {k: c[k] for k in (
+                "serving_tier_spills_total", "serving_tier_installs_total",
+                "serving_tier_bytes_total", "serving_swap_outs_total",
+                "serving_swap_ins_total", "serving_preemptions_total",
+                "serving_prefix_warm_hit_tokens_total")}
+            log("info: %s: %s" % (name, json.dumps(counters[name])))
+            moved = all(c[k] > 0 for k in (
+                "serving_tier_spills_total", "serving_tier_installs_total",
+                "serving_swap_ins_total"))
+            log("check %s: tier spills, installs and swap-ins all > 0  %s"
+                % (name, "ok" if moved else "FAIL"))
+            if not moved:
+                failures.append(name + ": tier not exercised")
+            if kv_int8:
+                off, outs_off = run(kv_int8=True, overlap=overlap,
+                                    tier_bytes=0)
+                same_tokens(name + " vs tier off", outs, outs_off, failures)
+                leak_check(name + " (tier off)", off, failures)
+            else:
+                same_tokens(name + " vs generate (card)", outs, want,
+                            failures)
+            tier_leak_check(name, eng, failures)
+    return counters
+
+
+def ttft_ms(eng, prompt, n):
+    """Submit to first committed token on a serial engine (synchronised
+    host clock), then drain.  Returns the milliseconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rid = eng.submit(prompt, n)
+    req = eng.requests[rid]
+    while not req.generated:
+        eng.step()
+    dt = (time.perf_counter() - t0) * 1e3
+    eng.run()
+    return dt
+
+
+def tier_gate(ServingEngine, params, cfg, dev, failures):
+    """serve_bench.py ``run_gate_tier`` on the card (the ``full`` preset,
+    captured, one warm request outside the clock): TTFT of a P = 192
+    prompt (12 whole pages, N = 4) cold, hot (its chain in the prefix
+    cache) and warm (the chain spilled to the host tier by
+    ``prefix.spill()`` and restored by the match), best of 3 each,
+    ``hot < warm < cold`` required; then the wall time from
+    ``preempt()`` to the next committed token with the tier on (swap
+    out, install at resume) and off (recompute), best of 3 on the same
+    3 prompts, ``swap < recompute`` required and the two resumes'
+    tokens identical.  Returns the report and the gate's engine."""
+    rng = np.random.RandomState(0)
+    P = (max(PROMPT_LENS) // PAGE) * PAGE
+    chain = P // PAGE
+    eng = ServingEngine(params, cfg, num_slots=SLOTS, page_size=PAGE,
+                        prefill_chunk=CHUNK, prefix_cache=True, metrics=True,
+                        tier_bytes=TIER_BYTES, device=dev)
+    wid = eng.submit(np.ones(1, np.int32), 1)
+    eng.run()
+    del eng.requests[wid]
+    eng.reset_metrics()
+
+    def draw():
+        return rng.randint(1, VOCAB, P).astype(np.int32)
+
+    shared = draw()
+    cold = min(ttft_ms(eng, draw(), TTFT_NEW) for _ in range(TTFT_REPS))
+    ttft_ms(eng, shared, TTFT_NEW)                # populate the chain
+    hot = min(ttft_ms(eng, shared, TTFT_NEW) for _ in range(TTFT_REPS))
+    warms, probes = [], []
+    for _ in range(TTFT_REPS):
+        eng.prefix.spill()
+        # the reference's spill() returns once its exports landed; the
+        # port's queues them for the next dispatch: run them before the
+        # clock, as a spill under pressure runs before its step
+        eng.cache.run_transfers()
+        probes.append(eng.prefix.probe_depth(shared))
+        warms.append(ttft_ms(eng, shared, TTFT_NEW))
+    warm = min(warms)
+    deep = all(h == 0 and w >= chain - 1 for h, w in probes)
+    log("check tier gate: spill() left the shared chain (hot, warm) "
+        "pages %s of %d  %s" % (probes, chain, "ok" if deep else "FAIL"))
+    if not deep:
+        failures.append("tier gate: the warm runs missed the host tier")
+    ordered = hot < warm < cold
+    log("serve tier TTFT (run_gate_tier, P=%d, N=%d, best of %d): hot %.3f "
+        "ms, warm %.3f ms, cold %.3f ms  %s"
+        % (P, TTFT_NEW, TTFT_REPS, hot, warm, cold,
+           "ok" if ordered else "FAIL"))
+    if not ordered:
+        failures.append("tier gate: hot < warm < cold")
+    c = eng.metrics()["counters"]
+    rep = {"prompt_len": P, "ttft_cold_ms": cold, "ttft_hot_ms": hot,
+           "ttft_warm_ms": warm, "ttft_warm_all_ms": warms,
+           "counters": {k: c[k] for k in (
+               "serving_tier_spills_total", "serving_tier_installs_total",
+               "serving_tier_bytes_total",
+               "serving_prefix_warm_hit_tokens_total",
+               "serving_prefix_hit_tokens_total")}}
+    log("info: tier gate counters: %s" % json.dumps(rep["counters"]))
+
+    prompts = [draw() for _ in range(TTFT_REPS)]
+    resume, outs = {}, {}
+    for tier_on in (True, False):
+        e2 = ServingEngine(params, cfg, num_slots=2, page_size=PAGE,
+                           prefill_chunk=CHUNK, prefix_cache=False,
+                           tier_bytes=TIER_BYTES if tier_on else 0,
+                           device=dev)
+        w2 = e2.submit(np.ones(1, np.int32), 1)
+        e2.run()
+        del e2.requests[w2]
+        times = []
+        for i, pr in enumerate(prompts):
+            rid = e2.submit(pr, RESUME_NEW)
+            req = e2.requests[rid]
+            while len(req.generated) < RESUME_NEW // 2:
+                e2.step()
+            k = len(req.generated)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            swapped = e2.preempt(rid)
+            while len(req.generated) <= k:
+                e2.step()
+            times.append((time.perf_counter() - t0) * 1e3)
+            e2.run()
+            outs[(tier_on, i)] = req.output
+            if swapped != tier_on:
+                failures.append("tier gate: preempt() swapped=%s with the "
+                                "tier %s" % (swapped, tier_on))
+        if tier_on and e2.stats["swap_ins"] != len(prompts):
+            failures.append("tier gate: %d swap-ins for %d preemptions"
+                            % (e2.stats["swap_ins"], len(prompts)))
+        leak_check("tier gate resume tier=%s" % tier_on, e2, failures)
+        resume["swap" if tier_on else "recompute"] = times
+    swap, recompute = min(resume["swap"]), min(resume["recompute"])
+    ok = swap < recompute
+    log("serve tier resume (preempt -> next token, best of %d): swap %.3f "
+        "ms, recompute %.3f ms  %s" % (len(prompts), swap, recompute,
+                                       "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("tier gate: swap-resume < recompute-resume")
+    same_tokens("tier gate swap-resume vs recompute-resume",
+                {i: outs[(True, i)] for i in range(len(prompts))},
+                {i: outs[(False, i)] for i in range(len(prompts))},
+                failures)
+    rep.update({"resume_swap_ms": swap, "resume_recompute_ms": recompute,
+                "resume_all_ms": resume})
+    return rep, eng
+
+
+def pcie_link():
+    """(generation, width, max generation) of the card's host link, from
+    ``nvidia-smi``; None where it does not say."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.current,"
+         "pcie.link.width.current,pcie.link.gen.max",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    try:
+        return tuple(int(x) for x in out.stdout.splitlines()[0].split(","))
+    except (ValueError, IndexError):
+        log("info: nvidia-smi gave no PCIe link: %r" % out.stdout)
+        return None
+
+
+def link_bound(gen, width):
+    """One direction's bytes/s over a PCIe link of ``gen`` x ``width``
+    (line code 8b/10b to gen 2, 128b/130b from gen 3)."""
+    enc = 0.8 if gen <= 2 else 128.0 / 130.0
+    return PCIE_GTS[gen] * 1e9 * width * enc / 8.0
+
+
+def copy_rates(nbytes, reps):
+    """Median GB/s of one plain copy of ``nbytes`` between pinned host
+    memory and the card, each way, by CUDA events: what the host link
+    gives a single copy of that size."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    out = {}
+    for name, dst, src in (("d2h", host, card), ("h2d", card, host)):
+        ms = []
+        for _ in range(reps + 1):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            dst.copy_(src, non_blocking=True)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        out[name + "_GBps"] = nbytes / float(np.median(ms[1:])) / 1e6
+    return out
+
+
+def transfer_rates(cfg, dev, card):
+    """Export (gather + copy into pinned host memory) and install (copy
+    to the card + scatter) of the ``full`` preset's 12-page chain, float
+    (bf16) and int8 KV, each TRANSFER_REPS times between CUDA events on
+    the stream the engine uses; GB/s beside the host link: its bound
+    from ``nvidia-smi`` (read right after the transfers; "[N/A]" in some
+    sandboxes) and the rate of one plain pinned copy of the chain's
+    bytes and of 256 MB, each way."""
+    from mxnet_tpu_torch.serving.paged_kv import PagedKVCache
+    chain = (max(PROMPT_LENS) // PAGE)
+    out = {}
+    for kv_int8 in (False, True):
+        cache = PagedKVCache(cfg, 4 * chain + 1, PAGE, kv_int8=kv_int8,
+                             device=dev)
+        cache.deferred = True
+        ids = cache.alloc(chain)
+        ms = {"export": [], "install": []}
+        for _ in range(TRANSFER_REPS + 1):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            e[0].record()
+            content = cache.export_pages(ids)
+            cache.run_transfers()
+            e[1].record()
+            cache.install_pages(ids, content)
+            cache.run_transfers()
+            e[2].record()
+            torch.cuda.synchronize()
+            ms["export"].append(e[0].elapsed_time(e[1]))
+            ms["install"].append(e[1].elapsed_time(e[2]))
+        nbytes = chain * cache.bytes_per_page
+        row = {"pages": chain, "bytes_per_page": cache.bytes_per_page,
+               "bytes": nbytes}
+        for k, v in ms.items():
+            v = v[1:]                               # the first warms up
+            row[k + "_ms_median"] = float(np.median(v))
+            row[k + "_ms_min"] = float(np.min(v))
+            row[k + "_GBps_median"] = nbytes / float(np.median(v)) / 1e6
+        out["int8" if kv_int8 else "bf16"] = row
+    out["plain_copy_chain"] = copy_rates(out["bf16"]["bytes"],
+                                         TRANSFER_REPS)
+    out["plain_copy_256MB"] = copy_rates(256 << 20, 3)
+    link = pcie_link()
+    if link is not None:
+        gen, width, gen_max = link
+        out["link"] = {"gen": gen, "width": width, "gen_max": gen_max,
+                       "bound_GBps": link_bound(gen, width) / 1e9,
+                       "bound_GBps_at_gen_max": link_bound(gen_max,
+                                                           width) / 1e9}
+    log("info: tier transfers of the %d-page chain [%s]: %s"
+        % (chain, card, json.dumps(out)))
+    return out
+
+
+def telemetry_mix(ServingEngine, params, cfg, reqs, dev, failures, mode):
+    """The mix through one captured overlapped engine with metrics
+    ``mode`` ("off", "on", or "profiler": on, with the profiler
+    recording), after a warm request outside the clock (and
+    ``reset_metrics()``).  With metrics, holds ``serving_steps_total``
+    to the steps, ``serving_tokens_total`` to the tokens committed and
+    the TTFT histogram's count to the requests; with the profiler, its
+    dump must load as JSON with a ``req N`` lane per request, each
+    holding admission_wait, prefill, decode and retire events."""
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.obs import REQ_TID_BASE
+    eng = ServingEngine(params, cfg, num_slots=SLOTS, page_size=PAGE,
+                        prefill_chunk=CHUNK, device=dev, overlap=True,
+                        metrics=mode != "off")
+    eng.submit(np.arange(1, PAGE + 1, dtype=np.int32), 4)
+    eng.run()
+    eng.reset_metrics()
+    base = eng.stats["steps"]
+    rids = [eng.submit(p, n) for p, n in reqs]
+    if mode == "profiler":
+        trace_dir = tempfile.mkdtemp()
+        profiler.set_config(filename=os.path.join(trace_dir, "serve.json"))
+        profiler.set_state("run")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.step() is not False:
+        pass
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    eng.close()
+    steps = eng.stats["steps"] - base
+    toks = sum(len(eng.requests[r].generated) for r in rids)
+    run = {"tokens_per_s": toks / dt, "ms_per_step": dt * 1e3 / steps,
+           "steps": steps, "tokens": toks}
+    if mode != "off":
+        m = eng.metrics()
+        got = (m["counters"]["serving_steps_total"],
+               m["counters"]["serving_tokens_total"],
+               m["histograms"]["serving_ttft_ms"]["count"])
+        ok = got == (steps, toks, len(rids))
+        log("check telemetry %s: steps_total %d, tokens_total %d, ttft "
+            "count %d against %d steps, %d tokens, %d requests  %s"
+            % (mode, *got, steps, toks, len(rids), "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("telemetry %s: counters" % mode)
+        run["ttft_ms"] = m["histograms"]["serving_ttft_ms"]
+        run["tbt_ms"] = m["histograms"]["serving_tbt_ms"]
+        run["step_ms"] = m["histograms"]["serving_step_ms"]
+    if mode == "profiler":
+        profiler.set_state("stop")
+        with open(profiler.dump()) as f:
+            events = json.load(f)["traceEvents"]
+        shutil.rmtree(trace_dir)
+        lanes = {}
+        for e in events:
+            if e.get("tid", 0) >= REQ_TID_BASE:
+                lanes.setdefault(e["tid"] - REQ_TID_BASE, []).append(e)
+        need = {"admission_wait", "decode", "retire"}
+        bad = [r for r in rids if r not in lanes
+               or sum(e["name"] == "thread_name"
+                      and e["args"]["name"] == "req %d" % r
+                      for e in lanes[r]) != 1
+               or not need <= {e["name"] for e in lanes[r]}
+               or not any(e["name"].startswith("prefill[")
+                          for e in lanes[r])]
+        log("check telemetry trace: %d events, %d request lanes, %d of %d "
+            "requests with a named lane and admission_wait, prefill, "
+            "decode and retire  %s"
+            % (len(events), len(lanes), len(rids) - len(bad), len(rids),
+               "FAIL" if bad else "ok"))
+        if bad:
+            failures.append("telemetry trace lanes")
+        run["trace_events"] = len(events)
+    leak_check("telemetry " + mode, eng, failures)
+    return [eng.requests[r].output for r in rids], run
+
+
+def telemetry_and_tier(G, ServingEngine, params, cfg, dev, card, failures):
+    """The telemetry and tier phase: the small f32 tier gates, the
+    ``run_gate_tier`` twin, the tier on and off over the 64-request mix
+    through a TIER_POOL-page pool (tokens identical), the transfer
+    rates, and telemetry's cost over the mix (metrics off, on, on with
+    the profiler, in turns: tokens identical)."""
+    rep = {"card": card}
+    rep["small_gates"] = small_tier(G, ServingEngine, dev, failures)
+    rep["gate"], gate_eng = tier_gate(ServingEngine, params, cfg, dev,
+                                      failures)
+    reqs = workload(0)
+    outs, rep["mix"] = {}, {}
+    for on in (True, False):
+        name = "full mix, %d-page pool, tier %s" % (TIER_POOL,
+                                                    "on" if on else "off")
+        o, run = serve_mix(ServingEngine, params, cfg, reqs, dev, failures,
+                           name, num_pages=TIER_POOL, prefix_cache=True,
+                           tier_bytes=TIER_BYTES if on else 0)
+        log("serve %s [%s]: %.1f tok/s, %.3f ms/step, %d steps, %d "
+            "preemptions, %d swap-outs, %d swap-ins"
+            % (name, card, run["tokens_per_s"], run["ms_per_step"],
+               run["steps"], run["preemptions"], run["swap_outs"],
+               run["swap_ins"]))
+        outs[on] = o
+        rep["mix"]["tier_on" if on else "tier_off"] = run
+    same_tokens("full mix bf16/w8, tier on vs off",
+                dict(enumerate(outs[True])), dict(enumerate(outs[False])),
+                failures)
+    if rep["mix"]["tier_on"]["swap_ins"] == 0:
+        failures.append("full mix: the tier served no swap-in")
+    del gate_eng
+    rep["transfers"] = transfer_rates(cfg, dev, card)
+    touts, truns = {}, {"off": [], "on": [], "profiler": []}
+    for mode in ("off", "on", "profiler", "profiler", "on", "off"):
+        o, run = telemetry_mix(ServingEngine, params, cfg, reqs, dev,
+                               failures, mode)
+        log("serve full mix overlap, metrics %s [%s]: %.1f tok/s, %.3f "
+            "ms/step, %d steps, %d tokens" % (mode, card, run["tokens_per_s"],
+                                              run["ms_per_step"], run["steps"],
+                                              run["tokens"]))
+        touts.setdefault(mode, o)
+        truns[mode].append(run)
+    for mode in ("on", "profiler"):
+        same_tokens("full mix bf16/w8 overlap, metrics %s vs off" % mode,
+                    dict(enumerate(touts[mode])),
+                    dict(enumerate(touts["off"])), failures)
+    rep["telemetry"] = truns
+    log("info: telemetry and tier [%s]: %s" % (card, json.dumps(
+        {k: v for k, v in rep.items() if k != "telemetry"})))
+    log("info: telemetry cost [%s]: %s" % (card, json.dumps(
+        {m: {"tokens_per_s": [r["tokens_per_s"] for r in runs],
+             "ms_per_step": [r["ms_per_step"] for r in runs]}
+         for m, runs in truns.items()})))
+    return rep
+
 
 
 def shared_prefix(seed):
@@ -3387,6 +3845,22 @@ def main(argv):
     torch.cuda.empty_cache()
 
     phase("serving options")
+    # ---- 4c. telemetry (metrics, the profiler's request lanes) and the
+    # host-DRAM KV tier, the phase's kernel counters from 0
+    zero_counters(FA, PA, FO)
+    report["telemetry_and_tier"] = telemetry_and_tier(
+        G, ServingEngine, params, cfg, dev, card, failures)
+    tier_launches = {"paged_attention": PA.paged_attention.launches,
+                     "flash_fwd": FA.flash_fwd.launches}
+    log("telemetry and tier path launches:", json.dumps(tier_launches))
+    for name, n in tier_launches.items():
+        if n <= 0:
+            raise Failed("%s was never launched on the telemetry and tier "
+                         "path" % name)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("telemetry and tier")
     # ---- 6. the training paths, each with its own counters from 0
     bert_cfg = T_.bert_base(**BERT)
     init_state, step = T_.make_train_step(bert_cfg, learning_rate=1e-4,
@@ -3485,7 +3959,8 @@ def main(argv):
         "launches_by_path": {
             "serving": launches["paged_attention"],
             "serving, all three options, shared-prefix mix":
-                options_launches},
+                options_launches,
+            "telemetry and tier": tier_launches["paged_attention"]},
         "launches_note": "calls, two kernel launches each",
         "max_abs_err": errs["paged"], "tolerance": PAGED_TOL_TEXT,
         **time_paged(PA, q, pool, s, bt, pos, flush),
@@ -3502,7 +3977,7 @@ def main(argv):
 
     time_prefill(FA, dev, flush, errs["flash"])
 
-    by_path = {"serving": launches,
+    by_path = {"serving": launches, "telemetry and tier": tier_launches,
                "bert": bert_launches, "gpt": gpt_launches}
     sources = {"flash_fwd": ("flash_fwd.cu", 169),
                "flash_bwd_dq": ("flash_bwd.cu", 333),

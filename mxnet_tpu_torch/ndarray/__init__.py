@@ -4,7 +4,7 @@ Port of ``mxnet_tpu/ndarray/__init__.py``: the creation functions, the
 ``.params`` container and one function per registered op.  A name the
 reference has and the port does not raises ``NotImplementedError``.
 """
-from .ndarray import NDArray, array, zeros, ones, save, load
+from .ndarray import NDArray, array, zeros, ones, save, load, waitall
 from . import ndarray as _ndmod
 from . import register as _register
 from .. import ops as _ops  # noqa: F401  (fills the registry)

@@ -21,7 +21,11 @@ import torch
 from ..base import MXNetError, numeric_types
 from ..context import Context, cpu, current_context
 
-__all__ = ["NDArray", "array", "zeros", "ones", "save", "load"]
+__all__ = ["NDArray", "array", "zeros", "ones", "save", "load", "waitall"]
+
+# set by profiler.py while memory profiling runs: called with every
+# tensor an NDArray takes (the reference's chunk-buffer hook)
+_MEM_HOOK = None
 
 _NP_OF = {torch.float32: np.float32, torch.float64: np.float64,
           torch.float16: np.float16, torch.int64: np.int64,
@@ -45,6 +49,8 @@ class NDArray:
         self._grad = None
         self._grad_req = "null"
         self._hook = None
+        if _MEM_HOOK is not None:
+            _MEM_HOOK(data)
 
     def _set_data(self, new):
         """Write ``new`` into this array: in place when shape, dtype and
@@ -61,6 +67,8 @@ class NDArray:
                              "variable (attach_grad) in place")
         else:
             self._data = new.detach()
+            if _MEM_HOOK is not None:
+                _MEM_HOOK(self._data)
 
     def _mark_variable(self, grad, req):
         if self._hook is not None:
@@ -103,7 +111,14 @@ class NDArray:
     def grad(self):
         return self._grad
 
-    # -- host copies -------------------------------------------------------
+    # -- sync and host copies ----------------------------------------------
+    def wait_to_read(self):
+        """Wait until the value is computed (reference
+        ``Engine::WaitForVar``); a deferred device error surfaces here."""
+        from ..engine import Engine
+        Engine.wait_for_var(self._data)
+        return self
+
     def asnumpy(self) -> np.ndarray:
         """A host copy; bfloat16 (which numpy lacks) comes back as
         float32, which holds it exactly."""
@@ -272,6 +287,12 @@ def _install_methods():
     for opname in _METHOD_OPS:
         if not hasattr(NDArray, opname) and _r.op_exists(opname):
             setattr(NDArray, opname, make(opname))
+
+
+def waitall():
+    """Wait for all device work (reference ``mx.nd.waitall``)."""
+    from ..engine import Engine
+    Engine.get().wait_for_all()
 
 
 # ---------------------------------------------------------------------------

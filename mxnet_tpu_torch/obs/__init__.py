@@ -1,0 +1,35 @@
+"""Structured observability for the serving engine.  Port of
+``mxnet_tpu/obs`` (pure Python; the port keeps its own copy of each
+module and imports nothing of the reference).
+
+* ``metrics``: lock-cheap Counter / Gauge / fixed-bucket Histogram
+  instruments in a ``MetricsRegistry`` (no per-sample retained
+  allocation on the hot path).
+* ``trace``: request-lifecycle chrome-trace spans on the clock and pid
+  convention of ``profiler.py``'s op events, so one dump interleaves
+  operator timing with per-request admission, prefill, decode,
+  preempt and retire swimlanes.
+* ``prometheus``: text exposition of the default registry and every
+  live ``ServingEngine`` registry.
+
+Serving metrics are off by default: ``ServingEngine(..., metrics=True)``
+or ``MXNET_SERVING_METRICS=1`` turns them on.  The disabled path is one
+``is None`` branch per call site: no dormant instruments, no
+allocation.  The reference's flight recorder (``obs/flight.py``) is not
+ported yet.
+"""
+from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
+                      DEFAULT_MS_BUCKETS, sanitize_name)
+from .prometheus import (default_registry, engine_registries,
+                         prometheus_text, register_engine_registry)
+from .trace import (RequestTraceEmitter, REQ_TID_BASE, SpanBuffer,
+                    MergedTraceEmitter, LANE_PID_BASE)
+
+__all__ = [
+    "Counter", "Gauge", "Histogram", "MetricsRegistry",
+    "DEFAULT_MS_BUCKETS", "sanitize_name",
+    "default_registry", "engine_registries", "prometheus_text",
+    "register_engine_registry",
+    "RequestTraceEmitter", "REQ_TID_BASE",
+    "SpanBuffer", "MergedTraceEmitter", "LANE_PID_BASE",
+]

@@ -21,8 +21,11 @@ Port of ``mxnet_tpu/ops/registry.py`` (``OpDef``, ``register``,
   maps the input tensors before the impl runs, inside the grad-mode
   block, so that autograd records the casts.
 
-PyTorch's stream is the engine (the reference's ``engine.py`` has no
-counterpart) and there is no eager-jit cache: torch runs eagerly.
+PyTorch's stream is the engine: ``invoke`` goes through
+``engine.Engine.push`` (the op hooks the profiler sets, the
+``NaiveEngine`` wait) only while a hook is set or the engine is
+synchronous, as the reference does, and runs the op directly
+otherwise.  There is no eager-jit cache: torch runs eagerly.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 
 from ..base import MXNetError, not_ported
+from ..engine import Engine
 
 __all__ = ["OpDef", "register", "get_op", "list_ops", "op_exists", "invoke",
            "shape_resolve_scope", "in_shape_resolve", "set_cast_hook"]
@@ -146,6 +150,17 @@ def _bind_pos_attrs(op, n_arrays, pos_attrs, attrs):
     return merged
 
 
+def _run(op, arrays, pos_attrs, attrs, recording):
+    """The op's impl under the grad mode of ``recording``, after the
+    AMP cast hook."""
+    with torch.set_grad_enabled(recording):
+        if _CAST_HOOK is not None:
+            arrays = _CAST_HOOK(op, arrays)
+        if op.variadic:
+            return op.impl(list(arrays), *pos_attrs, **attrs)
+        return op.impl(*arrays, *pos_attrs, **attrs)
+
+
 def invoke(op: OpDef, inputs: Sequence, pos_attrs=(), attrs=None,
            out=None):
     """Run ``op`` on NDArrays ``inputs``; returns an NDArray or a tuple
@@ -165,13 +180,13 @@ def invoke(op: OpDef, inputs: Sequence, pos_attrs=(), attrs=None,
         (out if isinstance(out, (tuple, list)) else [out])
     if op.writes_out and outs is not None:
         attrs = dict(attrs, out=[o._data for o in outs])
-    with torch.set_grad_enabled(recording):
-        if _CAST_HOOK is not None:
-            arrays = _CAST_HOOK(op, arrays)
-        if op.variadic:
-            results = op.impl(list(arrays), *pos_attrs, **attrs)
-        else:
-            results = op.impl(*arrays, *pos_attrs, **attrs)
+    eng = Engine.get()
+    if eng._op_hooks or eng.synchronous:
+        # the profiler's hook or NaiveEngine: through the engine's push
+        results = eng.push(lambda: _run(op, arrays, pos_attrs, attrs,
+                                        recording), op.name)
+    else:
+        results = _run(op, arrays, pos_attrs, attrs, recording)
 
     multi = isinstance(results, (tuple, list))
     rlist = list(results) if multi else [results]

@@ -46,20 +46,43 @@ Options, with the reference's semantics:
   step already dispatched reconciles exactly (its rows land past every
   committed position), and a step that drafts runs serially (the
   speculation fence: drafting reads committed host tokens).  The
-  planner touches host state only: copy-on-write copies it plans run
-  on the engine thread at dispatch.
+  planner touches host state only: the page copies, exports and
+  installs it plans are queued on the ``PagedKVCache`` and run on the
+  engine thread at dispatch.
+* ``tier_bytes=N`` (or ``MXNET_SERVE_TIER_BYTES=N``): a host-DRAM KV
+  tier of N bytes (``serving/tier_store.py``).  Refcount-0 prefix
+  chains evicted under pool pressure spill to it and come back as warm
+  hits (``prefix_cache.py``), and a preemption victim's written pages
+  swap out to it and are installed again at its resume instead of
+  recomputed; a refused or LRU-aged entry falls back to recompute.
+  Every transfer is asked for in scheduling order and runs on the
+  engine thread, on the stream the step runs on, before the inputs are
+  staged (``PagedKVCache.run_transfers``): an export reads a page
+  before any later step or install overwrites it, and an install lands
+  before the step that reads it.  ``preempt()``, ``prefix.spill()`` and
+  ``cancel()`` from outside a step queue on the same stream.
+* ``metrics=True`` (or ``MXNET_SERVING_METRICS=1``): the ``obs/``
+  layer, :class:`_EngineObs`: counters, gauges and TTFT, TBT,
+  admission-wait and step histograms in a ``MetricsRegistry``
+  (``metrics()``, ``registry``, ``reset_metrics()``), and, while the
+  profiler records, per-request lifecycle spans on its clock.  All
+  host-side: no device synchronisation is added; under ``overlap`` the
+  times are taken at commit, after the token read-back, as in the
+  reference.  Off, no instrument exists and each call site is one
+  ``is None`` branch.
 
 Under float32 greedy decode the outputs are token-identical to
 ``models/gpt.py generate`` (the port's and the reference's), whatever
-the options, drafter, batch mix, admission order, page reuse or
-preemption.
+the options, drafter, batch mix, admission order, page reuse,
+preemption, spill or swap.
 
 Not ported yet (the constructor raises ``NotImplementedError``):
-``tier_bytes``, ``tp > 1``/``mesh``, ``metrics`` and ``kernel``.
+``tp > 1``/``mesh`` and ``kernel``.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import threading
 import time
@@ -69,14 +92,18 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import profiler, resolve_device
 from .._graphs import GraphCache, Program, warm_up
+from ..engine import Engine as _HostEngine
 from ..kernels.paged_attention import paged_attention
 from ..models import gpt as G
 from ..models.transformer import _layer_norm, torch_dtype
+from ..obs import (MetricsRegistry, RequestTraceEmitter,
+                   register_engine_registry)
 from . import drafters
 from .paged_kv import PagedKVCache
 from .prefix_cache import PrefixCache
+from .tier_store import HostTierStore
 
 __all__ = ["Request", "ServingEngine"]
 
@@ -100,6 +127,11 @@ class Request:
     shared_pages: set = dataclasses.field(default_factory=set)
     chain_upto: int = 0                   # leading pages known to cache
     prefix_hit_tokens: int = 0            # prefill rows skipped via hits
+    # time.perf_counter() seconds, the profiler's trace clock
+    submit_t: float = 0.0
+    wait_start: float = 0.0               # submit or last preemption
+    token_times: List[float] = dataclasses.field(default_factory=list)
+    trace_id: Optional[str] = None        # caller's id, put on the trace
 
     @property
     def resume_input(self):
@@ -272,8 +304,9 @@ class _Plan:
     positions."""
 
     __slots__ = ("buf", "samplers", "spec_plan", "decode_pos",
-                 "was_decode", "prefill_mid", "copies", "fenced", "empty",
-                 "pipelined")
+                 "was_decode", "prefill_mid", "n_dec_rows", "n_pre_rows",
+                 "n_rows_used", "decode_rids", "prefill_spans", "fenced",
+                 "empty", "pipelined")
 
     def __init__(self):
         self.buf = None
@@ -282,7 +315,11 @@ class _Plan:
         self.decode_pos = {}        # rid -> its sampling row's pos
         self.was_decode = {}        # rid -> fed a decode row?
         self.prefill_mid = []       # (req, n_prefilled) mid-prefill
-        self.copies = []            # (src, dst) copy-on-write pages
+        self.n_dec_rows = 0         # metrics: the step's row mix
+        self.n_pre_rows = 0
+        self.n_rows_used = 0
+        self.decode_rids = []       # trace: rids fed a decode row
+        self.prefill_spans = []     # trace: (rid, row_lo, row_hi)
         self.fenced = False         # spec fence: nothing built
         self.empty = True           # no live rows
         self.pipelined = False      # built for the overlap path
@@ -322,6 +359,223 @@ def _stop_planner(ctl, go):
     go.set()
 
 
+_engine_seq = itertools.count()
+
+
+class _EngineObs:
+    """Per-engine observability bundle: a labeled ``MetricsRegistry``
+    (instrument handles bound once at construction — the step path
+    does attribute increments, never name lookups) plus the
+    request-span trace emitter.  Constructed only when metrics are
+    enabled; the engine otherwise carries ``_obs = None`` and every
+    call site is a single ``is None`` branch."""
+
+    def __init__(self, registry=None):
+        if registry is None:
+            registry = MetricsRegistry(
+                labels={"engine": str(next(_engine_seq))})
+            # self-created registries join the process-wide Prometheus
+            # scrape; an explicitly passed registry stays caller-scoped
+            register_engine_registry(registry)
+        self.registry = registry
+        c, g, h = registry.counter, registry.gauge, registry.histogram
+        self.submitted = c("serving_requests_submitted_total",
+                           "requests accepted by submit()")
+        self.admitted = c("serving_requests_admitted_total",
+                          "admissions into a decode slot (resumes "
+                          "after preemption count again)")
+        self.finished = c("serving_requests_finished_total",
+                          "requests retired done")
+        self.cancelled = c("serving_requests_cancelled_total",
+                           "requests retired by cancel()")
+        self.preemptions = c("serving_preemptions_total",
+                             "youngest-victim preemptions")
+        self.steps = c("serving_steps_total", "engine iterations")
+        self.tokens = c("serving_tokens_total",
+                        "tokens committed to requests")
+        self.decode_rows = c("serving_decode_rows_total",
+                             "decode rows fed to the step program")
+        self.prefill_rows = c("serving_prefill_rows_total",
+                              "chunked-prefill rows fed")
+        self.dead_rows = c("serving_dead_rows_total",
+                           "padding rows aimed at the scratch page")
+        self.alloc_calls = c("serving_page_alloc_calls_total",
+                             "page-allocator calls")
+        self.pages_allocated = c("serving_pages_allocated_total",
+                                 "pages handed out")
+        self.pages_freed = c("serving_pages_freed_total",
+                             "pages recycled")
+        self.alloc_failures = c("serving_page_alloc_failures_total",
+                                "allocations refused by a dry pool "
+                                "(caller stalls or preempts)")
+        # in-engine speculative decode (all zero at spec_K=0)
+        self.spec_drafted = c("serving_spec_drafted_tokens_total",
+                              "draft tokens fed to the batched "
+                              "verify forward")
+        self.spec_accepted = c("serving_spec_accepted_tokens_total",
+                               "draft tokens committed (matched the "
+                               "verify argmax)")
+        self.spec_rejected = c("serving_spec_rejected_tokens_total",
+                               "draft tokens rolled back by pointer "
+                               "(drafted - accepted)")
+        self.g_spec_accept_rate = g(
+            "serving_spec_accept_rate",
+            "cumulative accepted / drafted draft tokens")
+        # host-DRAM KV tier (all zero when disabled)
+        self.tier_spills = c("serving_tier_spills_total",
+                             "KV pages spilled HBM -> host tier "
+                             "(pressure-evicted prefix chains + "
+                             "preemption swap-outs)")
+        self.tier_installs = c("serving_tier_installs_total",
+                               "KV pages installed host tier -> HBM "
+                               "(warm prefix hits + swap-in resumes)")
+        self.tier_bytes = c("serving_tier_bytes_total",
+                            "bytes moved through the host tier, both "
+                            "directions (spill + install + peer "
+                            "fetches served from the tier)")
+        self.tier_evicted = c("serving_tier_evicted_pages_total",
+                              "pages LRU-dropped from the host tier "
+                              "(its byte budget, not pool pressure)")
+        self.g_tier_pages = g("serving_tier_pages",
+                              "KV pages currently held by the host "
+                              "tier")
+        self.g_tier_bytes = g("serving_tier_bytes_held",
+                              "host-DRAM bytes currently held by the "
+                              "tier (vs its byte budget)")
+        self.g_tier_budget = g("serving_tier_budget_bytes",
+                               "the host tier's configured byte "
+                               "budget")
+        self.warm_hit_tokens = c(
+            "serving_prefix_warm_hit_tokens_total",
+            "prefill tokens served by re-installing SPILLED chain "
+            "pages (the warm-hit outcome between hot-hit and miss)")
+        self.swap_outs = c("serving_swap_outs_total",
+                           "preemptions whose victim pages were "
+                           "swapped to the host tier instead of "
+                           "discarded")
+        self.swap_ins = c("serving_swap_ins_total",
+                          "preemption resumes served install-exact "
+                          "from the host tier instead of recomputed")
+        # shared-prefix cache (all zero when disabled)
+        self.prefix_hit_tokens = c("serving_prefix_hit_tokens_total",
+                                   "prefill tokens skipped via "
+                                   "prefix-cache hits")
+        self.prefix_lookup_tokens = c(
+            "serving_prefix_lookup_tokens_total",
+            "prefill tokens eligible for prefix reuse (admissions)")
+        self.prefix_pages_hit = c("serving_prefix_pages_hit_total",
+                                  "cached pages mapped read-only into "
+                                  "block tables")
+        self.prefix_pages_inserted = c(
+            "serving_prefix_pages_inserted_total",
+            "prompt pages donated to the prefix cache")
+        self.prefix_pages_evicted = c(
+            "serving_prefix_pages_evicted_total",
+            "refcount-0 chains evicted under pool pressure")
+        self.prefix_cows = c("serving_prefix_cow_total",
+                             "copy-on-write page copies at divergence")
+        self.g_prefix_cached = g("serving_prefix_cached_pages",
+                                 "pages owned by the prefix cache")
+        self.g_prefix_hit_ratio = g(
+            "serving_prefix_hit_ratio",
+            "cumulative hit tokens / lookup tokens")
+        self.g_running = g("serving_running", "requests holding a slot")
+        self.g_queued = g("serving_queued", "requests waiting for a "
+                          "slot (incl. preempted)")
+        self.g_page_free = g("serving_page_free",
+                             "free-list length (pages)")
+        self.g_pages_in_use = g("serving_pages_in_use",
+                                "allocated non-scratch pages")
+        self.g_hbm_held = g("serving_hbm_held_bytes",
+                            "device bytes held by allocated pages")
+        self.g_step_decode = g("serving_step_decode_rows",
+                               "decode rows in the latest step")
+        self.g_step_prefill = g("serving_step_prefill_rows",
+                                "prefill rows in the latest step")
+        self.g_step_dead = g("serving_step_dead_rows",
+                             "dead rows in the latest step")
+        self.h_admission = h("serving_admission_wait_ms",
+                             help="submit (or preemption) -> slot "
+                                  "admission")
+        self.h_ttft = h("serving_ttft_ms",
+                        help="submit -> first committed token")
+        self.h_tbt = h("serving_tbt_ms",
+                       help="interval between committed tokens "
+                            "(preemption gaps included)")
+        self.h_step = h("serving_step_ms", help="engine step duration")
+        self.trace = RequestTraceEmitter()
+        # last-seen allocator totals, so sync_cache feeds DELTAS: with
+        # a caller-shared registry two engines would otherwise assign
+        # competing cumulative values and the counters would go
+        # backwards (a Prometheus rate() reads that as a reset)
+        self._cache_seen = [0, 0, 0, 0]
+        self._prefix_seen = [0, 0, 0, 0, 0, 0]
+        self._tier_seen = [0, 0, 0, 0]
+        self._warm_seen = [0]             # sync_prefix: warm tokens
+        self._swap_seen = [0, 0]          # sync_tier: outs, ins
+
+    @staticmethod
+    def _fold(ctrs, vals, seen):
+        """Increment each counter by its total's growth since ``seen``
+        (totals only grow between resets).  v < last seen means a
+        ``reset_telemetry()`` re-baselined the total: v IS the activity
+        since the reset, so count it rather than dropping everything
+        until the total passes the stale baseline."""
+        for i, (ctr, v) in enumerate(zip(ctrs, vals)):
+            d = v - seen[i]
+            if d < 0:
+                d = v
+            if d > 0:
+                ctr.inc(d)
+            seen[i] = v
+
+    def sync_cache(self, cache):
+        """Fold the allocator's plain-int telemetry into the registry
+        by increment."""
+        self._fold((self.alloc_calls, self.pages_allocated,
+                    self.pages_freed, self.alloc_failures),
+                   (cache.alloc_calls, cache.alloc_pages_total,
+                    cache.freed_pages_total, cache.alloc_failures),
+                   self._cache_seen)
+        self.g_page_free.set(cache.free_pages)
+        self.g_pages_in_use.set(cache.pages_in_use)
+        self.g_hbm_held.set(cache.bytes_held)
+
+    def sync_prefix(self, prefix):
+        """Fold the prefix cache's host ints in, delta-wise like
+        sync_cache (same shared-registry aggregation argument)."""
+        self._fold((self.prefix_hit_tokens, self.prefix_lookup_tokens,
+                    self.prefix_pages_hit, self.prefix_pages_inserted,
+                    self.prefix_pages_evicted, self.prefix_cows),
+                   (prefix.hit_tokens_total, prefix.lookup_tokens_total,
+                    prefix.pages_hit_total, prefix.pages_inserted_total,
+                    prefix.pages_evicted_total, prefix.cow_total),
+                   self._prefix_seen)
+        self.g_prefix_cached.set(prefix.cached_pages)
+        self.g_prefix_hit_ratio.set(
+            prefix.hit_tokens_total
+            / max(1, prefix.lookup_tokens_total))
+        # warm-hit tokens ride the prefix sync (the counter lives on
+        # the prefix cache, tier or not)
+        self._fold((self.warm_hit_tokens,),
+                   (prefix.warm_hit_tokens_total,), self._warm_seen)
+
+    def sync_tier(self, tier, swap_outs, swap_ins):
+        """Fold the host tier's plain-int telemetry in, delta-wise
+        like sync_cache (same shared-registry aggregation argument);
+        occupancy gauges carry the current tier state."""
+        self._fold((self.tier_spills, self.tier_installs,
+                    self.tier_bytes, self.tier_evicted),
+                   (tier.spilled_pages_total, tier.installed_pages_total,
+                    tier.bytes_moved_total, tier.evicted_pages_total),
+                   self._tier_seen)
+        self.g_tier_pages.set(tier.pages_held)
+        self.g_tier_bytes.set(tier.bytes_held)
+        self.g_tier_budget.set(tier.budget_bytes)
+        self._fold((self.swap_outs, self.swap_ins), (swap_outs, swap_ins),
+                   self._swap_seen)
+
+
 class ServingEngine:
     """Continuous-batching greedy decode over a ``PagedKVCache``.
 
@@ -345,6 +599,14 @@ class ServingEngine:
     overlap : pipelined scheduling with a planner thread; None reads
         ``MXNET_SERVE_OVERLAP`` (on when "1").  ``close()`` joins the
         thread.
+    tier_bytes : host-DRAM KV tier budget in bytes; None reads
+        ``MXNET_SERVE_TIER_BYTES`` (off unless set), 0 disables.
+    metrics : the obs layer on or off; None reads
+        ``MXNET_SERVING_METRICS`` (on when "1"), or is on when a
+        ``registry`` is given.
+    registry : an ``obs.MetricsRegistry`` to feed; by default the
+        engine makes its own, labelled ``{engine="<n>"}``, and registers
+        it with the process-wide Prometheus scrape.
     device : where the engine runs; None means the CUDA device (and
         raises without one), ``"cpu"`` runs the plain versions.
     """
@@ -353,10 +615,9 @@ class ServingEngine:
                  num_pages=None, pages_per_slot=None, prefill_chunk=8,
                  kv_int8=False, prefix_cache=False, spec_K=0,
                  spec_drafter="ngram", spec_ngram=2, overlap=None,
-                 device=None, tier_bytes=None, tp=1, mesh=None,
-                 metrics=None, kernel=None):
-        unported = {"tier_bytes": bool(tier_bytes), "tp": tp != 1,
-                    "mesh": mesh is not None, "metrics": bool(metrics),
+                 device=None, tier_bytes=None, metrics=None,
+                 registry=None, tp=1, mesh=None, kernel=None):
+        unported = {"tp": tp != 1, "mesh": mesh is not None,
                     "kernel": kernel is not None}
         for name, on in unported.items():
             if on:
@@ -386,6 +647,22 @@ class ServingEngine:
                 % (num_pages, pages_per_slot))
         if overlap is None:
             overlap = os.environ.get("MXNET_SERVE_OVERLAP", "0") == "1"
+        if tier_bytes is None:
+            env = os.environ.get("MXNET_SERVE_TIER_BYTES", "")
+            try:
+                tier_bytes = int(env) if env else 0
+            except ValueError:
+                raise ValueError(
+                    "MXNET_SERVE_TIER_BYTES=%r: expected int" % env)
+        if metrics is None:
+            # a registry given is a request for telemetry; otherwise the
+            # environment decides
+            metrics = registry is not None or \
+                os.environ.get("MXNET_SERVING_METRICS", "0") == "1"
+        elif not metrics and registry is not None:
+            raise ValueError(
+                "ServingEngine: registry= given but metrics=False — "
+                "the registry would be silently ignored")
         with torch.inference_mode():
             self.params = G.prepare_params(params, cfg, self.device)
         self.cfg = cfg
@@ -404,12 +681,17 @@ class ServingEngine:
         self.n_rows = num_slots * (1 + self.spec_K) + prefill_chunk
         self.cache = PagedKVCache(cfg, num_pages, page_size,
                                   kv_int8=self.kv_int8, device=self.device)
-        self.prefix = PrefixCache(self.cache) if prefix_cache else None
+        self.tier = HostTierStore(tier_bytes) if tier_bytes else None
+        self.prefix = PrefixCache(self.cache, tier=self.tier) \
+            if prefix_cache else None
         if self.prefix is not None:
             self.cache.pressure_cb = self.prefix.evict
             # the reference compiles its copy program here; the port's
             # first copy (scratch onto scratch) runs here likewise
             self.cache.copy_page(0, 0)
+        # from here on page copies, exports and installs queue and run
+        # at dispatch, on the engine thread (the planner asks for them)
+        self.cache.deferred = True
         self._queue: List[Request] = []
         self._slots: List[Optional[Request]] = [None] * num_slots
         self._next_rid = 0
@@ -419,6 +701,7 @@ class ServingEngine:
                       "dead_rows": 0, "peak_pages": 0,
                       "prefix_hit_tokens": 0, "cow_copies": 0,
                       "spec_drafted": 0, "spec_accepted": 0,
+                      "swap_outs": 0, "swap_ins": 0,
                       "host_hidden_ms": 0.0, "overlap_steps": 0,
                       "overlap_fences": 0}
         # One lock guards everything both the engine thread and the
@@ -457,10 +740,12 @@ class ServingEngine:
         self._planner = None         # spawned at the first overlap step
         self._planner_ctl = None
         self._finalizer = None
+        self._obs = _EngineObs(registry) if metrics else None
 
     # ------------------------------------------------------- intake --
-    def submit(self, prompt, max_new_tokens, eos_id=None):
-        """Queue a request; returns its id.  prompt: (P,) ints."""
+    def submit(self, prompt, max_new_tokens, eos_id=None, trace_id=None):
+        """Queue a request; returns its id.  prompt: (P,) ints;
+        ``trace_id`` tags its lifecycle trace events."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("submit: empty prompt")
@@ -474,12 +759,17 @@ class ServingEngine:
         if total > self.cfg.max_len:
             raise ValueError("submit: %d tokens > cfg.max_len=%d"
                              % (total, self.cfg.max_len))
+        now = time.perf_counter()
         with self._mu:
             req = Request(rid=self._next_rid, prompt=prompt,
-                          max_new_tokens=int(max_new_tokens), eos_id=eos_id)
+                          max_new_tokens=int(max_new_tokens), eos_id=eos_id,
+                          submit_t=now, wait_start=now, trace_id=trace_id)
             self._next_rid += 1
             self.requests[req.rid] = req
             self._queue.append(req)
+            if self._obs is not None:
+                self._obs.submitted.inc()
+                self._obs.g_queued.set(len(self._queue))
             return req.rid
 
     def cancel(self, rid):
@@ -491,20 +781,37 @@ class ServingEngine:
                 return
             if req.state == "queued":
                 self._queue.remove(req)
+                if self.tier is not None:
+                    # a swapped-out victim cancelled while queued must
+                    # not squat in the host tier until LRU age-out
+                    self.tier.drop(("swap", rid))
             elif req.state == "running":
                 self._release(req)
             req.state = "cancelled"
+            if self._obs is not None:
+                self._obs.cancelled.inc()
+                self._obs.g_queued.set(len(self._queue))
+                self._obs.g_running.set(
+                    sum(r is not None for r in self._slots))
+                if profiler.is_recording():
+                    cargs = {"state": "cancelled"}
+                    if req.trace_id:
+                        cargs["trace_id"] = req.trace_id
+                    self._obs.trace.add_instant(
+                        rid, "retire", time.perf_counter(), args=cargs)
+                    self._obs.trace.flush()
 
     def preempt(self, rid):
-        """Force-preempt one RUNNING request (recompute on resume).
-        Returns False: there is no host tier to swap pages into."""
+        """Force-preempt one RUNNING request through the victim path:
+        with a host tier its written pages swap out (and its resume
+        installs them), else it recomputes at resume.  Returns True if
+        the pages were swapped out, False for a recompute resume."""
         with self._mu:
             req = self.requests[rid]
             if req.state != "running":
                 raise ValueError("preempt(%d): request is %s, not running"
                                  % (rid, req.state))
-            self._preempt_victim(req)
-            return False
+            return self._preempt_victim(req)
 
     # ----------------------------------------------------- plumbing --
     # (every helper below changes state the planner thread also reads
@@ -544,7 +851,26 @@ class ServingEngine:
         return True
 
     def _preempt_victim(self, victim):
-        """Evict ``victim`` from its slot and requeue it at the front."""
+        """Evict ``victim`` from its slot and requeue it at the front.
+        With a host tier its written pages (positions ``[0, n_cached)``)
+        swap out first, so its resume installs them instead of
+        recomputing; the export is asked for before ``_release`` frees
+        the pages (the allocation that forced this preemption may take
+        them at once).  A refused swap falls back to recompute.
+        Returns whether the pages were swapped out."""
+        swapped = False
+        if self.tier is not None and victim.n_cached > 0:
+            n = -(-victim.n_cached // self.page_size)
+            # budget check before the export: a victim the tier must
+            # refuse would pay a whole transfer for nothing
+            if n * self.cache.bytes_per_page <= self.tier.budget_bytes:
+                content = self.cache.export_pages(victim.pages[:n])
+                swapped = self.tier.put(
+                    ("swap", victim.rid), content, n,
+                    meta={"n_cached": victim.n_cached,
+                          "pending": victim.pending})
+            if swapped:
+                self.stats["swap_outs"] += 1
         self._release(victim)
         victim.state = "queued"
         victim.n_prefilled = 0
@@ -552,6 +878,16 @@ class ServingEngine:
         victim.pending = None
         self._queue.insert(0, victim)
         self.stats["preemptions"] += 1
+        if self._obs is not None:
+            now = time.perf_counter()
+            victim.wait_start = now
+            self._obs.preemptions.inc()
+            if profiler.is_recording():
+                self._obs.trace.add_instant(
+                    victim.rid, "preempt", now,
+                    args={"committed": len(victim.generated),
+                          "swapped": swapped})
+        return swapped
 
     def _insert_prefix(self, req):
         """Donate req's completed pages, fully covered by its prompt, to
@@ -584,16 +920,22 @@ class ServingEngine:
         if grew and req.slot is not None:
             self._bt_set(req.slot, req.pages)
 
-    def _admit(self, copies):
+    def _admit(self):
         """Admit queued requests into free slots while the pool covers
-        them; copy-on-write page pairs go to ``copies`` (the plan's),
-        run at dispatch."""
+        them (swap-ins first, with a tier); the page copies and installs
+        they need queue on the cache and run at dispatch."""
         while self._queue:
             free = [i for i, r in enumerate(self._slots) if r is None]
             if not free:
                 return
             req = self._queue[0]
             inp = req.resume_input
+            if self.tier is not None:
+                swapped = self._swap_in(req, inp, free[0])
+                if swapped == "admitted":
+                    continue
+                if swapped == "stall":
+                    return
             total = -(-min(inp.size + 1, self.max_seq) // self.page_size)
             # shared-prefix match: map cached pages read-only, skip their
             # prefill rows; always re-feed at least the final input
@@ -631,14 +973,17 @@ class ServingEngine:
                     raise RuntimeError("ServingEngine: copy-on-write "
                                        "page is not the last mapped one")
                 priv = got.pop()
-                copies.append((hit_pages[cow_idx], priv))
+                self.cache.copy_page(hit_pages[cow_idx], priv)
                 req.pages[cow_idx] = priv
                 req.shared_pages.discard(hit_pages[cow_idx])
                 self.prefix.release([req.prefix_entries.pop()])
+                self.prefix.note_cow()
                 self.stats["cow_copies"] += 1
             req.chain_upto = len(req.prefix_entries)
             req.pages.extend(got)
             if self.prefix is not None:
+                self.prefix.note_admit(skip, inp.size,
+                                       len(req.shared_pages))
                 self.stats["prefix_hit_tokens"] += skip
                 req.prefix_hit_tokens = skip
             req.slot = free[0]
@@ -649,6 +994,73 @@ class ServingEngine:
             self._slots[req.slot] = req
             self._bt_set(req.slot, req.pages)
             self.stats["admitted"] += 1
+            if self._obs is not None:
+                now = time.perf_counter()
+                self._obs.admitted.inc()
+                self._obs.h_admission.observe(
+                    (now - req.wait_start) * 1e3)
+                if profiler.is_recording():
+                    self._obs.trace.add_span(
+                        req.rid, "admission_wait", req.wait_start, now)
+                    if req.generated:
+                        self._obs.trace.add_instant(req.rid, "resume",
+                                                    now)
+
+    def _swap_in(self, req, inp, slot):
+        """Install-exact resume: if ``req`` was preempted with its pages
+        swapped to the host tier, install them again and resume at the
+        saved ``(n_cached, pending)``, no re-prefill.  Returns
+        ``"admitted"`` (slot taken), ``"stall"`` (the pool cannot hold
+        the swap now: admission stalls, the entry is kept) or ``"none"``
+        (no swap entry: the caller admits by match and alloc, so a swap
+        the tier LRU-evicted degrades to recompute, never to wrong)."""
+        entry = self.tier.peek(("swap", req.rid))
+        if entry is None:
+            return "none"
+        # the admission path's page coverage: a mid-prefill victim's
+        # chunked-prefill plan needs every input position's page, and
+        # the swapped pages are a prefix of that set
+        total = max(entry.n_pages,
+                    -(-min(inp.size + 1, self.max_seq) // self.page_size))
+        got = self.cache.alloc(total)
+        if got is None:
+            return "stall"
+        entry = self.tier.pop(("swap", req.rid))
+        if entry is None:
+            # evicted between peek and pop (the alloc's own pressure
+            # spills went in ahead of it): give the pages back, recompute
+            self.cache.free(got)
+            return "none"
+        self.cache.install_pages(got[:entry.n_pages], entry.content)
+        self._queue.pop(0)
+        req.pages = got
+        req.shared_pages = set()
+        req.prefix_entries = []
+        req.chain_upto = 0
+        req.slot = slot
+        req.state = "running"
+        req.n_cached = entry.meta["n_cached"]
+        req.pending = entry.meta["pending"]
+        # a decode-phase victim resumes fully prefilled; one caught
+        # mid-prefill (pending is None) continues its chunked prefill
+        # from the first unwritten position
+        req.n_prefilled = inp.size if req.pending is not None \
+            else req.n_cached
+        self._slots[slot] = req
+        self._bt_set(slot, req.pages)
+        self.stats["admitted"] += 1
+        self.stats["swap_ins"] += 1
+        if self._obs is not None:
+            now = time.perf_counter()
+            self._obs.admitted.inc()
+            self._obs.h_admission.observe((now - req.wait_start) * 1e3)
+            if profiler.is_recording():
+                self._obs.trace.add_span(
+                    req.rid, "admission_wait", req.wait_start, now)
+                self._obs.trace.add_instant(
+                    req.rid, "resume", now,
+                    args={"swap_in": True, "pages": len(req.pages)})
+        return "admitted"
 
     def _plan_speculation(self):
         """Phase-A speculation planning: for every running decode row
@@ -702,12 +1114,23 @@ class ServingEngine:
         commit."""
         if not self._queue and all(r is None for r in self._slots):
             return False
+        obs = self._obs
+        t_step0 = time.perf_counter() if obs is not None else 0.0
         self._bufs[self._buf_idx].wait_free()
         with self._mu:
             plan = self._build_plan(overlap=False)
-        next_tok = self._dispatch(plan)()
+        if obs is not None:
+            # the step is the serving layer's operator: a recording
+            # profiler logs it through the engine's op hooks
+            _HostEngine.get().notify("start", "serving_step")
+        try:
+            next_tok = self._dispatch(plan)()
+        finally:
+            if obs is not None:
+                _HostEngine.get().notify("stop", "serving_step")
+        now = time.perf_counter()
         with self._mu:
-            return self._commit(plan, next_tok)
+            return self._commit(plan, next_tok, now, t_step0)
 
     def _step_overlap(self):
         """One pipelined iteration.  Call k: take plan k (planner-built
@@ -716,6 +1139,8 @@ class ServingEngine:
         and commit step k-1; the commit of k-1 and the planner's build of
         k+1 both hide behind step k on the device."""
         self._ensure_planner()
+        obs = self._obs
+        t0 = time.perf_counter() if obs is not None else 0.0
         plan = self._take_plan()
         if plan is None:
             return False
@@ -727,7 +1152,7 @@ class ServingEngine:
             self._inflight = None
             self._inflight_tok = None
             if old is not None:
-                finished += self._drain(old, old_tok)
+                finished += self._drain(old, old_tok, t0)
             out = self._step_serial()
             if out is not False:
                 finished += out
@@ -735,14 +1160,21 @@ class ServingEngine:
             return finished
         old, old_tok = self._inflight, self._inflight_tok
         if not plan.empty:
+            if obs is not None:
+                _HostEngine.get().notify("start", "serving_step")
+            try:
+                tok = self._dispatch(plan)
+            finally:
+                if obs is not None:
+                    _HostEngine.get().notify("stop", "serving_step")
             self._inflight = plan
-            self._inflight_tok = self._dispatch(plan)
+            self._inflight_tok = tok
         else:
             # nothing to dispatch (every live request rides the in-flight
             # step): just drain
             self._inflight = None
             self._inflight_tok = None
-        finished = self._drain(old, old_tok) if old is not None else []
+        finished = self._drain(old, old_tok, t0) if old is not None else []
         self._maybe_plan_ahead()
         return finished
 
@@ -766,12 +1198,14 @@ class ServingEngine:
                 return None
             return self._build_plan(overlap=True)
 
-    def _drain(self, plan, tok):
+    def _drain(self, plan, tok, t0):
         """Wait for a dispatched step's tokens and commit it.  Under
-        overlap this runs after the next step was dispatched."""
+        overlap this runs after the next step was dispatched; the
+        commit's clock reads after the token read-back."""
         next_tok = tok()
+        now = time.perf_counter()
         with self._mu:
-            return self._commit(plan, next_tok)
+            return self._commit(plan, next_tok, now, t0)
 
     def _maybe_plan_ahead(self):
         """Signal the planner to build the next plan while the step just
@@ -844,7 +1278,7 @@ class ServingEngine:
             plan.fenced = True
             self.stats["overlap_fences"] += 1
             return plan
-        self._admit(plan.copies)
+        self._admit()
 
         # ---- phase A: secure pages.  _ensure_page may PREEMPT the
         # youngest running request, so all allocation happens before any
@@ -885,6 +1319,7 @@ class ServingEngine:
 
         # ---- phase B: the row batch, into the next host buffer set (the
         # one the in-flight step was staged from is never touched)
+        tracing = self._obs is not None and profiler.is_recording()
         buf = self._bufs[self._buf_idx]
         self._buf_idx ^= 1
         buf.reset(self.num_slots)
@@ -907,6 +1342,9 @@ class ServingEngine:
                 plan.decode_pos[req.rid] = pos
                 plan.was_decode[req.rid] = True
                 self.stats["decode_rows"] += 1
+                plan.n_dec_rows += 1
+                if tracing:
+                    plan.decode_rids.append(req.rid)
                 r += 1
         for req in list(self._slots):      # decode (+ draft) rows
             if req is None or req.pending is None \
@@ -921,6 +1359,9 @@ class ServingEngine:
             plan.decode_pos[req.rid] = req.n_cached
             plan.was_decode[req.rid] = True
             self.stats["decode_rows"] += 1
+            plan.n_dec_rows += 1
+            if tracing:
+                plan.decode_rids.append(req.rid)
             r += 1
             # draft rows at n_cached+1 .. n_cached+K_eff, one verify
             # argmax each; rejected tails are overwritten at the
@@ -937,6 +1378,7 @@ class ServingEngine:
                     or req.rid in inflight_rids:
                 continue
             inp = req.resume_input
+            p0 = req.n_prefilled
             sampled = False
             for _ in range(pre.get(req.rid, 0)):
                 p = req.n_prefilled
@@ -958,7 +1400,11 @@ class ServingEngine:
                 # rows THIS plan wrote (recorded now: by commit time the
                 # planner may have pushed n_prefilled on)
                 plan.prefill_mid.append((req, req.n_prefilled))
+            if tracing and req.n_prefilled > p0:
+                plan.prefill_spans.append((req.rid, p0, req.n_prefilled))
 
+        plan.n_rows_used = r
+        plan.n_pre_rows = sum(pre.values())
         plan.empty = r == 0
         if r or not overlap:
             # an empty pipelined plan is never dispatched: book no batch
@@ -1011,28 +1457,34 @@ class ServingEngine:
         return prog
 
     def _dispatch(self, plan):
-        """Run the plan's copy-on-write copies, stage its inputs with one
-        host-to-device copy, run the step (replay the captured one, or op
-        by op when ``_eager``) and start the token read-back.  Returns
-        the read-back's wait (asynchronous on CUDA).  Engine thread
-        only."""
+        """Run the page transfers queued so far (the plan's copies on
+        write, exports and installs, and any asked for outside a step,
+        in the order asked), stage the plan's inputs with one
+        host-to-device copy, run the step (replay the captured one, or
+        op by op when ``_eager``) and start the token read-back.
+        Returns the read-back's wait (asynchronous on CUDA).  Engine
+        thread only."""
         with torch.inference_mode():
-            for src, dst in plan.copies:
-                self.cache.copy_page(src, dst)
+            self.cache.run_transfers()
             run = self._step_body if self._eager else self._program()
             plan.buf.stage(self._dev)
             tok = run()
             return self._readback.put(tok)
 
-    def _commit(self, plan, next_tok):
+    def _commit(self, plan, next_tok, now, t_step0):
         """Consume a completed step's sampled tokens: speculation
-        acceptance, stop conditions, retirement, prefix donation.  Under
-        overlap this runs one step after the build (and after the NEXT
-        plan was built), so it reads no live planner state."""
+        acceptance, stop conditions, retirement, prefix donation,
+        metrics (``now``: after the read-back; ``t_step0``: the step's
+        start).  Under overlap this runs one step after the build (and
+        after the NEXT plan was built), so it reads no live planner
+        state."""
+        obs = self._obs
+        tracing = obs is not None and profiler.is_recording()
         self.stats["steps"] += 1
         if plan.pipelined:
             self.stats["overlap_steps"] += 1
         finished = []
+        spec_spans = []                    # trace: (rid, drafted, accepted)
         for req in plan.samplers:
             if req.slot is None or req.state != "running":
                 continue                   # preempted or cancelled
@@ -1060,12 +1512,31 @@ class ServingEngine:
                 req.n_cached += a
                 self.stats["spec_drafted"] += k_eff
                 self.stats["spec_accepted"] += a
+                if obs is not None:
+                    obs.spec_drafted.inc(k_eff)
+                    obs.spec_accepted.inc(a)
+                    obs.spec_rejected.inc(k_eff - a)
+                if tracing:
+                    spec_spans.append((req.rid, k_eff, a))
             else:
                 commit = [int(row[0])]
+            if obs is not None:
+                if req.token_times:
+                    obs.h_tbt.observe((now - req.token_times[-1]) * 1e3)
+                elif not req.generated:
+                    obs.h_ttft.observe((now - req.submit_t) * 1e3)
+                    if tracing:
+                        obs.trace.add_instant(
+                            req.rid, "first_token", now,
+                            args={"trace_id": req.trace_id}
+                            if req.trace_id else None)
             done = False
             for tok in commit:
                 req.generated.append(tok)
+                req.token_times.append(now)
                 req.pending = tok
+                if obs is not None:
+                    obs.tokens.inc()
                 if (len(req.generated) >= req.max_new_tokens
                         or (req.eos_id is not None and tok == req.eos_id)):
                     done = True
@@ -1074,6 +1545,14 @@ class ServingEngine:
                 req.state = "done"
                 self._release(req)
                 finished.append(req.rid)
+                if obs is not None:
+                    obs.finished.inc()
+                    if tracing:
+                        rargs = {"tokens": len(req.generated)}
+                        if req.trace_id:
+                            rargs["trace_id"] = req.trace_id
+                        obs.trace.add_instant(req.rid, "retire", now,
+                                              args=rargs)
         # slots that fed prefill rows without finishing their input just
         # advance n_cached, to the position recorded at build time
         for req, p1 in plan.prefill_mid:
@@ -1082,7 +1561,46 @@ class ServingEngine:
             req.n_cached = max(req.n_cached, p1)
             if self.prefix is not None:
                 self._insert_prefix(req)
+        if obs is not None:
+            self._observe_step(obs, plan, now, t_step0, tracing, spec_spans)
         return finished
+
+    def _observe_step(self, obs, plan, now, t_step0, tracing, spec_spans):
+        """The step's counters, gauges and histogram; the allocator's,
+        prefix cache's and tier's totals folded in as deltas; the step's
+        trace spans handed to the profiler in one batch."""
+        dead = self.n_rows - plan.n_rows_used
+        obs.steps.inc()
+        obs.h_step.observe((now - t_step0) * 1e3)
+        # increments by THIS step's amounts (engines sharing a registry
+        # aggregate, never clobber)
+        obs.decode_rows.inc(plan.n_dec_rows)
+        obs.prefill_rows.inc(plan.n_pre_rows)
+        obs.dead_rows.inc(dead)
+        obs.g_step_decode.set(plan.n_dec_rows)
+        obs.g_step_prefill.set(plan.n_pre_rows)
+        obs.g_step_dead.set(dead)
+        obs.g_running.set(sum(r is not None for r in self._slots))
+        obs.g_queued.set(len(self._queue))
+        if self.stats["spec_drafted"]:
+            obs.g_spec_accept_rate.set(self.stats["spec_accepted"]
+                                       / self.stats["spec_drafted"])
+        obs.sync_cache(self.cache)
+        if self.prefix is not None:
+            obs.sync_prefix(self.prefix)
+        if self.tier is not None:
+            obs.sync_tier(self.tier, self.stats["swap_outs"],
+                          self.stats["swap_ins"])
+        if tracing:
+            for rid in plan.decode_rids:
+                obs.trace.add_span(rid, "decode", t_step0, now)
+            for rid, k_eff, a in spec_spans:
+                obs.trace.add_span(rid, "spec_verify", t_step0, now,
+                                   args={"drafted": k_eff, "accepted": a})
+            for rid, p0, p1 in plan.prefill_spans:
+                obs.trace.add_span(rid, "prefill[%d:%d)" % (p0, p1),
+                                   t_step0, now, args={"rows": p1 - p0})
+            obs.trace.flush()
 
     def run(self):
         """Step until every submitted request is done or cancelled.
@@ -1091,3 +1609,64 @@ class ServingEngine:
             pass
         return {rid: req.output for rid, req in self.requests.items()
                 if req.state == "done"}
+
+    # --------------------------------------------------- accounting --
+    @property
+    def metrics_enabled(self):
+        return self._obs is not None
+
+    @property
+    def registry(self):
+        """The engine's ``obs.MetricsRegistry`` (None when metrics are
+        off)."""
+        return self._obs.registry if self._obs is not None else None
+
+    def reset_metrics(self):
+        """Zero this engine's telemetry in place (warm-up exclusion):
+        the registry's values, the allocator's, prefix cache's and
+        tier's cumulative ints, and the delta trackers that fold the
+        latter into the former."""
+        if self._obs is None:
+            return
+        with self._mu:
+            self._obs.registry.reset_values()
+            self.cache.reset_telemetry()
+            self._obs._cache_seen = [0, 0, 0, 0]
+            if self.prefix is not None:
+                self.prefix.lookups_total = 0
+                self.prefix.lookup_tokens_total = 0
+                self.prefix.hit_tokens_total = 0
+                self.prefix.pages_hit_total = 0
+                self.prefix.pages_inserted_total = 0
+                self.prefix.pages_evicted_total = 0
+                self.prefix.cow_total = 0
+                self.prefix.pages_spilled_total = 0
+                self.prefix.pages_restored_total = 0
+                self.prefix.warm_hits_total = 0
+                self.prefix.warm_hit_tokens_total = 0
+                self._obs._prefix_seen = [0, 0, 0, 0, 0, 0]
+            if self.tier is not None:
+                self.tier.reset_telemetry()
+                self.stats["swap_outs"] = 0
+                self.stats["swap_ins"] = 0
+                self._obs._tier_seen = [0, 0, 0, 0]
+                self._obs._swap_seen = [0, 0]
+            self._obs._warm_seen = [0]
+
+    def metrics(self):
+        """JSON-able telemetry snapshot: this engine's counters, gauges
+        and histogram summaries (count/sum/p50/p95/p99 ms);
+        ``{"enabled": False}`` when metrics are off."""
+        if self._obs is None:
+            return {"enabled": False}
+        snap = self._obs.registry.snapshot()
+        snap["enabled"] = True
+        return snap
+
+    @property
+    def hbm_held(self):
+        return self.cache.bytes_held
+
+    @property
+    def hbm_pool(self):
+        return self.cache.bytes_pool

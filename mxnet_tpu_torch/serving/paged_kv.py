@@ -17,24 +17,96 @@ positions it has written itself.
 
 ``pressure_cb`` (the reference's hook, ``paged_kv.py:238``): when
 ``alloc`` would fail, the callback is asked to surrender pages first;
-the engine's ``PrefixCache`` frees LRU refcount-0 chains there, so
-cached but unreferenced prefixes never starve a live request.
-:meth:`PagedKVCache.copy_page` is the whole-page copy of a
-copy-on-write (the reference engine's ``_make_copy``), in place.
+the engine's ``PrefixCache`` frees (or, with a host tier, spills) LRU
+refcount-0 chains there, so cached but unreferenced prefixes never
+starve a live request.  The allocator counts its calls, pages handed
+out and recycled and refused allocations in plain ints, which the
+engine's metrics read (``reset_telemetry`` zeroes them).
 
-Page export/install (disaggregated serving) and the tensor-parallel
-``mesh`` layout of the reference are not ported yet.
+Page transfer, the unit of the host-DRAM tier: :meth:`export_pages`
+gathers N pages of every layer pool into host memory and
+:meth:`install_pages` scatters such content into allocated pages, in
+place (``index_copy_`` into ``pools[l][k]``: the storage the engine's
+captured step reads is never rebound; the reference instead reassigns
+its donated pools).  The content layout is the reference's: per layer
+``{"kv": (n, ps, H, 2dh)[, "s": (n, 2, ps, H) f32]}``, here as views
+into one host buffer that is page-major (a page's layers lie
+together, so single-page spills concatenate into one install).  On
+CUDA the buffer is pinned and filled by one asynchronous copy whose
+event every host read waits on (:class:`PageContent`).
+:meth:`copy_page` is the whole-page copy of a copy-on-write (the
+reference engine's ``_make_copy``), in place.
+
+With ``deferred = True`` (the engine sets it) copies, exports and
+installs are queued in the order they are asked for and run by
+:meth:`run_transfers` on the caller's stream: the engine runs the
+queue on its own thread just before it stages a step, so the
+scheduler (possibly a planner thread) never touches the device, and
+an export of a page the same plan frees and hands out again still
+reads the old bytes.  Otherwise each runs at once.  Consecutive
+queued exports run as one (one gather a pool, one copy to the host,
+one event; each content a slice of the shared buffer): a transfer's
+cost on the host is per call, not per page, and pressure spills one
+page at a time.
+
+The tensor-parallel ``mesh`` layout of the reference is not ported yet.
 """
 from __future__ import annotations
 
+import threading
 from collections import deque
 
+import numpy as np
 import torch
 
 from .. import resolve_device
 from ..models.transformer import torch_dtype
 
-__all__ = ["PagedKVCache"]
+__all__ = ["PagedKVCache", "PageContent"]
+
+_ALIGN = 16          # byte alignment of each pool's slice of a page
+
+
+class PageContent:
+    """``n_pages`` pages of every layer pool in host memory, in the
+    reference's ``export_pages`` layout: ``content[l]`` is the dict
+    ``{"kv": (n, ps, H, 2dh)[, "s": (n, 2, ps, H)]}`` of layer l (views
+    into one page-major buffer, ``host``).  ``nbytes`` counts the pool
+    bytes (``n_pages * bytes_per_page``), as the reference's arrays'.
+
+    An export's content is filled when its transfer runs (at once, or
+    at the engine's next dispatch when the cache defers); on CUDA by an
+    asynchronous copy into pinned memory.  Indexing waits for both
+    (:meth:`wait`); the budget of a tier needs only ``nbytes``, and an
+    install reads ``host`` on the same stream, after the copy."""
+
+    __slots__ = ("cache", "n_pages", "nbytes", "ids", "host", "event")
+
+    def __init__(self, cache, n_pages, ids=None, host=None):
+        self.cache = cache
+        self.n_pages = n_pages
+        self.nbytes = n_pages * cache.bytes_per_page
+        self.ids = ids                # page ids of a pending export
+        self.host = host              # (n_pages * stride,) uint8
+        self.event = None             # CUDA event after the D2H copy
+
+    def wait(self):
+        """The per-layer dicts, once the export has run and landed."""
+        if self.host is None:
+            self.cache.run_transfers()
+        if self.event is not None:
+            self.event.synchronize()
+            self.event = None
+        return self.cache._views(self.host, self.n_pages)
+
+    def __len__(self):
+        return len(self.cache.pools)
+
+    def __getitem__(self, layer):
+        return self.wait()[layer]
+
+    def __iter__(self):
+        return iter(self.wait())
 
 
 class PagedKVCache:
@@ -68,6 +140,26 @@ class PagedKVCache:
         self._free = deque(range(1, num_pages))    # page 0 is scratch
         self._in_use = 0
         self.pressure_cb = None
+        # allocator telemetry: plain ints the engine's metrics read
+        self.alloc_calls = 0
+        self.alloc_pages_total = 0
+        self.freed_pages_total = 0
+        self.alloc_failures = 0
+        # one page's slice of each pool in a PageContent buffer:
+        # (layer, key, byte offset, bytes, dtype, page shape)
+        self._layout = []
+        off = 0
+        for layer, pool in enumerate(self.pools):
+            for key, t in pool.items():
+                nb = t[0].numel() * t.element_size()
+                self._layout.append((layer, key, off, nb, t.dtype,
+                                     tuple(t.shape[1:])))
+                off += -(-nb // _ALIGN) * _ALIGN
+        self._stride = off
+        self.deferred = False
+        self._queue = []                 # deferred transfers, in order
+        self._queue_lock = threading.Lock()
+        self._run_lock = threading.Lock()
 
     @property
     def free_pages(self):
@@ -82,13 +174,24 @@ class PagedKVCache:
         cannot satisfy the request (never a partial allocation)."""
         if n < 0:
             raise ValueError("alloc: n must be >= 0")
+        self.alloc_calls += 1
         if n > len(self._free) and self.pressure_cb is not None:
             self.pressure_cb(n - len(self._free))
         if n > len(self._free):
+            self.alloc_failures += 1
             return None
         out = [self._free.popleft() for _ in range(n)]
         self._in_use += n
+        self.alloc_pages_total += n
         return out
+
+    def reset_telemetry(self):
+        """Zero the allocator counters (the free list and in-use count
+        are untouched)."""
+        self.alloc_calls = 0
+        self.alloc_pages_total = 0
+        self.freed_pages_total = 0
+        self.alloc_failures = 0
 
     def free(self, pages):
         """Recycle pages (no zero-fill — see the module docstring)."""
@@ -97,11 +200,191 @@ class PagedKVCache:
                 raise ValueError("free: bad page id %r" % (p,))
         self._free.extend(pages)
         self._in_use -= len(pages)
+        self.freed_pages_total += len(pages)
+
+    # ------------------------------------------------ page transfer --
+    def _submit(self, op):
+        """Run ``op`` (a callable, or the :class:`PageContent` of an
+        export) now, or queue it when deferred."""
+        if not self.deferred:
+            self._run([op])
+            return
+        with self._queue_lock:
+            self._queue.append(op)
+
+    def run_transfers(self):
+        """Run the queued copies, exports and installs in the order
+        they were asked for, on the current stream (the engine calls
+        this on its thread before staging a step)."""
+        with self._run_lock:             # one runner at a time, in order
+            with self._queue_lock:
+                ops, self._queue = self._queue, []
+            self._run(ops)
+
+    def _run(self, ops):
+        i = 0
+        while i < len(ops):
+            if isinstance(ops[i], PageContent):
+                j = i + 1
+                while j < len(ops) and isinstance(ops[j], PageContent):
+                    j += 1
+                self._export(ops[i:j])
+                i = j
+            else:
+                ops[i]()
+                i += 1
 
     def copy_page(self, src, dst):
         """Copy page ``src`` into page ``dst`` in every layer's pools,
-        in place on the current stream: the storage the engine's
-        captured step reads is never rebound."""
-        for pool in self.pools:
-            for t in pool.values():
-                t[dst].copy_(t[src])
+        in place: the storage the engine's captured step reads is never
+        rebound."""
+        def op():
+            for pool in self.pools:
+                for t in pool.values():
+                    t[dst].copy_(t[src])
+        self._submit(op)
+
+    def _views(self, flat, n):
+        """Per-layer dicts of ``(n,) + page shape`` views of a
+        page-major buffer of ``n`` pages (host or device)."""
+        rows = flat.view(n, self._stride)
+        out = [{} for _ in self.pools]
+        for layer, key, off, nb, dtype, shape in self._layout:
+            out[layer][key] = rows[:, off:off + nb].view(dtype) \
+                .view((n,) + shape)
+        return out
+
+    def _index(self, page_ids):
+        idx = torch.tensor(list(page_ids), dtype=torch.long)
+        if self.device.type == "cuda":
+            idx = idx.pin_memory().to(self.device, non_blocking=True)
+        return idx
+
+    def export_pages(self, page_ids):
+        """The content of ``page_ids`` across every layer pool, as a
+        :class:`PageContent` (the reference's layout, in ``page_ids``
+        order).  One gather a pool into a device buffer and, on CUDA,
+        one asynchronous copy into pinned host memory."""
+        page_ids = [int(p) for p in page_ids]
+        content = PageContent(self, len(page_ids), ids=page_ids)
+        if not page_ids:
+            content.host = torch.zeros(0, dtype=torch.uint8)
+            return content
+        self._submit(content)
+        return content
+
+    def _export(self, contents):
+        """Run the exports of ``contents`` as one: gather their pages
+        into one device buffer, copy it to the host, and give each
+        content its page-major slice."""
+        ids = [p for c in contents for p in c.ids]
+        n = len(ids)
+        stage = torch.empty(n * self._stride, dtype=torch.uint8,
+                            device=self.device)
+        idx = self._index(ids)
+        views = self._views(stage, n)
+        for layer, pool in enumerate(self.pools):
+            for key, t in pool.items():
+                torch.index_select(t, 0, idx, out=views[layer][key])
+        event = None
+        if self.device.type == "cuda":
+            host = torch.empty(stage.numel(), dtype=torch.uint8,
+                               pin_memory=True)
+            host.copy_(stage, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host = stage
+        off = 0
+        for c in contents:
+            size = c.n_pages * self._stride
+            c.host, c.event = host[off:off + size], event
+            off += size
+
+    def content_from(self, layers):
+        """A :class:`PageContent` holding ``layers``, content in the
+        reference's layout (per layer ``{"kv", ("s")}`` numpy arrays or
+        tensors of n pages), checked against this pool's page shapes
+        and dtypes."""
+        if len(layers) != len(self.pools):
+            raise ValueError(
+                "install_pages: %d layers of content for a %d-layer pool"
+                % (len(layers), len(self.pools)))
+        n = None
+        for layer, pool in zip(layers, self.pools):
+            for key, ref in pool.items():
+                a = layer[key]
+                dt = a.dtype if isinstance(a, torch.Tensor) else \
+                    torch.from_numpy(np.zeros(0, a.dtype)).dtype
+                n = a.shape[0] if n is None else n
+                want = (n,) + tuple(ref.shape[1:])
+                if tuple(a.shape) != want or dt != ref.dtype:
+                    raise ValueError(
+                        "install_pages: content %s %r/%s does not match "
+                        "pool page shape %r/%s" % (key, tuple(a.shape),
+                                                    dt, want, ref.dtype))
+        host = torch.empty(n * self._stride, dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+        views = self._views(host, n)
+        for layer, lay in enumerate(layers):
+            for key, a in lay.items():
+                views[layer][key].copy_(
+                    a if isinstance(a, torch.Tensor) else
+                    torch.from_numpy(np.array(a)))
+        return PageContent(self, n, host=host)
+
+    def install_pages(self, page_ids, content):
+        """Scatter ``content`` into this pool's ``page_ids`` (already
+        allocated by the caller), in place.  ``content`` is a
+        :class:`PageContent`, a list of them (installed as one, in
+        order: the pages of a chain spilled one by one), or the
+        reference's layout (checked by :meth:`content_from`).  One
+        copy to the device a part and one ``index_copy_`` a pool."""
+        page_ids = [int(p) for p in page_ids]
+        if isinstance(content, PageContent):
+            parts = [content]
+        elif len(content) and isinstance(content[0], PageContent):
+            parts = list(content)
+        else:
+            parts = [self.content_from(content)]
+        n = len(page_ids)
+        if sum(p.n_pages for p in parts) != n:
+            raise ValueError("install_pages: %d pages of content for %d "
+                             "page ids" % (sum(p.n_pages for p in parts), n))
+        if n == 0:
+            return
+
+        def op():
+            if self.device.type == "cuda":
+                stage = torch.empty(n * self._stride, dtype=torch.uint8,
+                                    device=self.device)
+                off = 0
+                for p in parts:
+                    stage[off:off + p.host.numel()].copy_(p.host,
+                                                          non_blocking=True)
+                    off += p.host.numel()
+            else:
+                stage = torch.cat([p.host for p in parts])
+            idx = self._index(page_ids)
+            views = self._views(stage, n)
+            for layer, pool in enumerate(self.pools):
+                for key, t in pool.items():
+                    t.index_copy_(0, idx, views[layer][key])
+        self._submit(op)
+
+    # ---------------------------------------------------- accounting --
+    @property
+    def bytes_per_page(self):
+        """Device bytes one page costs across all layers."""
+        return sum(nb for _, _, _, nb, _, _ in self._layout)
+
+    @property
+    def bytes_held(self):
+        """Device bytes held by allocated (non-scratch, non-free)
+        pages."""
+        return self._in_use * self.bytes_per_page
+
+    @property
+    def bytes_pool(self):
+        """Device bytes of the whole preallocated pool."""
+        return self.num_pages * self.bytes_per_page

@@ -153,7 +153,15 @@ def test_forced_preempt_resumes_exact():
                                  dict(mesh=object()), dict(metrics=True),
                                  dict(kernel="pallas")])
 def test_unported_options_raise(opt):
+    """The options not ported yet raise; ``tier_bytes`` and ``metrics``
+    are ported (tests/test_torch_serving_tier.py and
+    tests/test_torch_serving_metrics.py) and must be honoured."""
     _, tcfg, tree = _setup(0)
+    if "tier_bytes" in opt or "metrics" in opt:
+        eng = _engine(tree, tcfg, num_slots=1, page_size=4, **opt)
+        assert eng.tier is not None if "tier_bytes" in opt \
+            else eng.metrics_enabled
+        return
     with pytest.raises(NotImplementedError):
         _engine(tree, tcfg, num_slots=1, page_size=4, **opt)
 
