@@ -102,6 +102,27 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    ``net.hybridize()`` (forward and backward as CUDA graphs, the
    Trainer's update per tensor as before), images/s beside the eager
    loop's;
+7a. drives the symbolic API (the ``module`` phase): the model zoo's
+   ResNet-50 v1 (Xavier from a seed) exported by ``HybridBlock.export``,
+   loaded by ``mx.sym.load``, wrapped in ``SoftmaxOutput`` and bound by
+   ``mx.mod.Module(context=mx.gpu(0))`` at bs 64 x 3 x 224 x 224, f32,
+   SGD lr 0.1 momentum 0.9 wd 1e-4: 3 steps with the executor replaying
+   its CUDA graphs against 3 with ``_eager`` bit for bit (outputs,
+   parameters, running statistics, momentum; deterministic cuDNN); then,
+   with every launch counter from 0 (all stay 0: no hand-written kernel
+   is on this path), 20 steps of each, and of a captured module at wd 0
+   (the Gluon step's settings), in turns beside the hybridized Gluon
+   step, and a profiled window each; ``Module.fit`` over an
+   ``NDArrayIter`` of 4 batches with ``Speedometer`` and
+   ``do_checkpoint``, then ``Module.load`` and ``score`` (equal to the
+   live module's); ``SymbolBlock.imports`` of the export at bs 64
+   against the Gluon net's eval output (f32, plain and hybridized) and
+   ``amp.convert_model(..., "bfloat16")`` against f32, with ms per batch
+   of both; examples/nmt_bucketing.py's ``BucketingModule`` (buckets
+   8/16/24, vocab 32, 60 batches of 32) captured, ``_eager`` and on the
+   CPU (parameters bit for bit, accuracy within 0.02 of the CPU's); a
+   ResNet-18 Module on the card and on the CPU from one ``.params``
+   file, losses compared;
 7b. drives bench.py's workload (the ``bench`` phase; the BERT and GPT
    steps' graphs freed first): ResNet-50 v1 with the space-to-depth
    stem, ``amp=True``, bs 128, through ``DataParallelTrainer.run_steps``
@@ -298,6 +319,30 @@ BENCH_STEPS, BENCH_CHECK, BENCH_PROFILE = 20, 3, 5
 # tests/test_torch_data_parallel.py: step 1 within 1e-2 and the later
 # steps within 2e-2 of the CPU's loss
 BENCH_SMALL = {"f32": (8, 1e-3), "amp": (8, 1e-4)}
+
+# the module phase: the model zoo's ResNet-50 v1 exported from Gluon,
+# loaded with mx.sym.load, wrapped in SoftmaxOutput and trained through
+# mx.mod.Module at the Gluon ResNet cell's settings (bs 64 x 3 x 224 x
+# 224, f32, SGD lr 0.1 momentum 0.9) with wd 1e-4 (and, timed beside it,
+# wd 0, as the Gluon step runs); MODULE_CHECK steps captured vs eager
+# bit for bit, MODULE_STEPS timed steps of each in windows of
+# MODULE_WINDOW in turns, MODULE_FIT batches through fit
+MODULE_WD, MODULE_CHECK, MODULE_STEPS, MODULE_WINDOW = 1e-4, 3, 20, 10
+MODULE_FIT, SERVE_CALLS = 4, 10
+# SymbolBlock serving of the export, TF32 off: the f32 graph against the
+# Gluon net's eval output, max |diff| <= SERVE_F32_TOL x (1 + max |gluon|)
+# (the same ops and weights; only cuDNN's choice of algorithm, and so the
+# f32 summation order, can differ); amp.convert_model's bf16 graph
+# against the f32 one, ||bf16 - f32|| / ||f32|| <= SERVE_BF16_TOL (bf16
+# rounds every conv input to 8 bits of mantissa, 2^-9 relative, over 53
+# convolutions)
+SERVE_F32_TOL, SERVE_BF16_TOL = 1e-4, 5e-2
+# examples/nmt_bucketing.py (the Sockeye configuration at the example's
+# size): buckets 8/16/24, vocab 32, embedding 16, 60 batches of 32 from
+# its seeded BucketIter, SGD lr 0.5; the card's accuracy within
+# NMT_ACC_TOL of the same run on the CPU
+NMT_BUCKETS, NMT_VOCAB, NMT_EMB = (8, 16, 24), 32, 16
+NMT_BATCHES, NMT_B, NMT_LR, NMT_ACC_TOL = 60, 32, 0.5, 0.02
 AMP_LOSS_TOL = (1e-2, 2e-2)
 
 
@@ -1886,6 +1931,457 @@ def check_small_resnet(mx, dev, failures):
            "ok" if ok else "FAIL"))
     if not ok:
         failures.append("small ResNet-18 card vs CPU")
+
+
+# ---------------------------------------------------------------- module --
+def export_resnet(mx, tmp, name, ctx, x, seed, **kw):
+    """The model zoo's ``name`` with Xavier weights from
+    ``np.random.seed(seed)`` on ``ctx``, one predict-mode forward on
+    ``x`` (deferred shapes), exported to ``tmp``: (net, prefix)."""
+    np.random.seed(seed)
+    net = getattr(mx.gluon.model_zoo.vision, name)(**kw)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net(x)
+    prefix = os.path.join(tmp, name)
+    net.export(prefix)
+    return net, prefix
+
+
+def softmax_module(mx, head, args, aux, ctx, shape, lr, mom, wd, eager):
+    """``mx.mod.Module`` over ``head`` bound for training at ``shape``,
+    parameters from ``args``/``aux``, SGD; ``eager`` runs its executor
+    op by op."""
+    mod = mx.mod.Module(head, context=ctx)
+    mod.bind(data_shapes=[("data", shape)],
+             label_shapes=[("softmax_label", (shape[0],))])
+    mod.init_params(arg_params=args, aux_params=aux)
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": lr, "momentum": mom, "wd": wd})
+    mod._exec._eager = eager
+    return mod
+
+
+def module_step(mod, batch):
+    mod.forward(batch, is_train=True)
+    mod.backward()
+    mod.update()
+
+
+def module_state(mod):
+    """Copies of the outputs, the parameters, the aux states and the
+    momentum traces."""
+    exe = mod._exec
+    return ([o._data.clone() for o in mod.get_outputs()]
+            + [exe.arg_dict[n]._data.clone() for n in mod._param_names]
+            + [exe.aux_dict[n]._data.clone() for n in mod._aux_names]
+            + [s._data.clone() for s in mod._opt_states.values()
+               if s is not None])
+
+
+def softmax_loss(mod, y):
+    """The mean cross-entropy of the module's softmax outputs at ``y``
+    (host, float64)."""
+    p = mod.get_outputs()[0].asnumpy().astype(np.float64)
+    return float(-np.log(p[np.arange(len(y)), y.astype(np.int64)]).mean())
+
+
+def module_path(mx, failures, gluon):
+    """The symbolic API on the card as a reference-era user drives it:
+    ResNet-50 v1 exported from Gluon, loaded with ``mx.sym.load`` and
+    trained through ``mx.mod.Module`` (captured vs eager bit for bit;
+    MODULE_STEPS steps of each, timed in turns beside the hybridized
+    Gluon step ``gluon``, with every launch counter from 0; a profiled
+    window each); ``fit`` with ``Speedometer`` and ``do_checkpoint``,
+    then ``Module.load`` and ``score``; ``SymbolBlock.imports`` of the
+    export against the Gluon net, plain, hybridized and through
+    ``amp.convert_model`` in bf16; the NMT ``BucketingModule``.
+    Returns the numbers."""
+    from mxnet_tpu_torch._graphs import kept_launches
+    card = card_line()
+    ctx = mx.gpu(0)
+    torch.backends.cudnn.allow_tf32 = True       # as the Gluon cell
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_module_")
+    nums = {"card": card}
+    try:
+        rng = np.random.RandomState(11)
+        xs = rng.randn(RESNET_B, 3, RESNET_HW, RESNET_HW).astype(np.float32)
+        ys = rng.randint(0, RESNET_CLASSES, RESNET_B).astype(np.float32)
+        x, y = mx.nd.array(xs, ctx=ctx), mx.nd.array(ys, ctx=ctx)
+        net, prefix = export_resnet(mx, tmp, "resnet50_v1", ctx, x[:1], 0,
+                                    classes=RESNET_CLASSES)
+        sym = mx.sym.load(prefix + "-symbol.json")
+        ops = [n.op.name for n in sym._nodes() if not n.is_var]
+        head = mx.sym.SoftmaxOutput(sym, name="softmax")
+        args, aux = mx.model.load_params(prefix + "-0000.params")
+        log("module: ResNet-50 v1 exported and loaded: %d nodes, %d ops "
+            "(%s), %d arguments, %d aux states"
+            % (len(sym._nodes()), len(ops), json.dumps(
+                {k: ops.count(k) for k in sorted(set(ops))}),
+               len(head.list_arguments()), len(head.list_auxiliary_states())))
+        batch = mx.io.DataBatch(data=[x], label=[y])
+        shape = (RESNET_B, 3, RESNET_HW, RESNET_HW)
+
+        def make(eager, wd=MODULE_WD):
+            return softmax_module(mx, head, args, aux, ctx, shape, RESNET_LR,
+                                  RESNET_MOM, wd, eager)
+
+        flag = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        runs = []
+        try:
+            for eager in (True, False):
+                mod = make(eager)
+                for _ in range(MODULE_CHECK):
+                    module_step(mod, batch)
+                runs.append(module_state(mod))
+                del mod
+                gc.collect()
+        finally:
+            torch.backends.cudnn.deterministic = flag
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        log("check Module ResNet-50 %d steps captured vs eager "
+            "(deterministic cuDNN): %d tensors (outputs, parameters, running "
+            "statistics, momentum traces) bit for bit: %s  %s"
+            % (MODULE_CHECK, len(runs[0]), same, "ok" if same else "FAIL"))
+        if not same:
+            failures.append("Module ResNet-50 captured vs eager")
+        del runs
+
+        # the main path: MODULE_STEPS steps of each, in turns, every launch
+        # counter from 0 (no hand-written kernel is on this path); and the
+        # captured step without weight decay, the Gluon step's optimizer
+        # settings (two fewer launches a tensor in the per-tensor update)
+        torch.cuda.reset_peak_memory_stats()
+        mods = {"eager": make(True), "captured": make(False),
+                "captured wd 0": make(False, 0.0)}
+        times = {m: [] for m in mods}
+        losses = {m: [] for m in mods}
+        with kept_launches() as (counters, _):
+            for h, a in counters:
+                setattr(h, a, 0)
+            for m, mod in mods.items():
+                module_step(mod, batch)          # the captured one captures
+                losses[m].append(softmax_loss(mod, ys))
+            for m in ("eager", "captured", "captured wd 0", "captured wd 0",
+                      "captured", "eager"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(MODULE_WINDOW):
+                    module_step(mods[m], batch)
+                torch.cuda.synchronize()
+                times[m].append((time.perf_counter() - t0) / MODULE_WINDOW)
+                losses[m].append(softmax_loss(mods[m], ys))
+            launches = {"%s.%s" % (getattr(h, "__name__", type(h).__name__),
+                                   a): getattr(h, a) for h, a in counters}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log("Module path launches of the port's kernels over %d steps: %s "
+            "(no hand-written kernel is on this path)"
+            % (3 * (MODULE_STEPS + 1), json.dumps(launches)))
+        for m in mods:
+            ls = losses[m]
+            if not all(np.isfinite(ls)) or not ls[-1] < ls[0]:
+                raise Failed("Module ResNet-50 %s: losses %s" % (m, ls))
+            per = times[m]
+            nums[m] = {"ms_per_step": [p * 1e3 for p in per],
+                       "images_per_s": [RESNET_B / p for p in per],
+                       "losses": ls}
+            log("Module ResNet-50 v1 %s (bs %d, f32, cudnn.allow_tf32=%s): "
+                "%s ms/step, %s images/s (host clock over %d-step windows, "
+                "synchronised, in turns eager, captured, captured wd 0, "
+                "captured wd 0, captured, eager), losses %s; the hybridized "
+                "Gluon Trainer step (wd 0) %.3f ms, %.1f images/s in this "
+                "call; %s"
+                % (m, RESNET_B, torch.backends.cudnn.allow_tf32,
+                   " ".join("%.3f" % v for v in nums[m]["ms_per_step"]),
+                   " ".join("%.1f" % v for v in nums[m]["images_per_s"]),
+                   MODULE_WINDOW, " ".join("%.4f" % v for v in ls),
+                   gluon["hybridized_ms_per_step"],
+                   gluon["hybridized_images_per_s"], card))
+        nums["gluon_hybridized_ms_per_step"] = gluon["hybridized_ms_per_step"]
+        nums["peak_gib"] = peak
+        nums["launches"] = launches
+        log("Module ResNet-50 peak memory %.2f GiB (three modules, the "
+            "captured ones' graphs)" % peak)
+        for m, mod in mods.items():
+            nums["profile_" + m] = profile_window(
+                lambda: module_step(mod, batch), RESNET_PROFILE,
+                "Module ResNet-50 train steps, %s" % m)
+        del mods, mod
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        nums["fit"] = module_fit(mx, head, args, aux, ctx, tmp, failures)
+        nums["serve"] = serve_export(mx, net, sym, prefix, args, aux, x, ctx,
+                                     failures)
+        del net
+        gc.collect()
+        torch.cuda.empty_cache()
+        nums["nmt"] = nmt_path(mx, failures)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.backends.cudnn.allow_tf32 = False
+    return nums
+
+
+def module_fit(mx, head, args, aux, ctx, tmp, failures):
+    """``Module.fit`` over an ``NDArrayIter`` of MODULE_FIT synthetic
+    batches (one epoch, ``Speedometer`` every 2 batches, ``do_checkpoint``),
+    then ``Module.load`` of the checkpoint and ``score``: its accuracy
+    must equal the live module's."""
+    rng = np.random.RandomState(7)
+    n = MODULE_FIT * RESNET_B
+    X = rng.randn(n, 3, RESNET_HW, RESNET_HW).astype(np.float32)
+    Y = rng.randint(0, RESNET_CLASSES, n).astype(np.float32)
+    it = mx.io.NDArrayIter(X, Y, batch_size=RESNET_B)
+    ckpt = os.path.join(tmp, "fit")
+    speed = mx.callback.Speedometer(RESNET_B, frequent=2)
+    mod = mx.mod.Module(head, context=ctx)
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, arg_params=args, aux_params=aux,
+            optimizer="sgd", optimizer_params={
+                "learning_rate": RESNET_LR, "momentum": RESNET_MOM,
+                "wd": MODULE_WD},
+            batch_end_callback=speed,
+            epoch_end_callback=mx.callback.do_checkpoint(ckpt))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    live = mod.score(it, "acc")
+    loaded = mx.mod.Module.load(ckpt, 1, context=ctx)
+    loaded.bind(it.provide_data, it.provide_label, for_training=False)
+    loaded.init_params()
+    got = loaded.score(it, "acc")
+    ok = got == live and os.path.exists(ckpt + "-0001.params")
+    log("check Module.fit (%d batches of %d, one epoch: %.3f s with the "
+        "capture, Speedometer %.1f samples/s) -> do_checkpoint -> "
+        "Module.load -> score: %s loaded vs %s live  %s"
+        % (MODULE_FIT, RESNET_B, fit_s, speed.last_speed or float("nan"),
+           got, live, "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("Module fit/checkpoint/load/score")
+    return {"fit_s": fit_s, "speedometer_samples_per_s": speed.last_speed,
+            "score_live": live, "score_loaded": got}
+
+
+def serve_export(mx, net, sym, prefix, args, aux, x, ctx, failures):
+    """``SymbolBlock.imports`` of the export at bs 64 in inference,
+    plain and hybridized, against the Gluon net's eval output (TF32
+    off, SERVE_F32_TOL); ``amp.convert_model(..., "bfloat16")`` of it
+    against f32 (SERVE_BF16_TOL); ms per batch of the hybridized f32 and
+    bf16 blocks in turns."""
+    torch.backends.cudnn.allow_tf32 = False
+    ref = net(x)._data
+    scale = 1.0 + float(ref.abs().max())
+    sb = mx.gluon.SymbolBlock.imports(prefix + "-symbol.json", "data",
+                                      prefix + "-0000.params", ctx=ctx)
+    nums = {}
+    outs = {"plain": sb(x)._data}
+    sb.hybridize()
+    sb(x)                                       # captures
+    outs["hybridized"] = sb(x)._data
+    for tag, out in outs.items():
+        err = float((out - ref).abs().max())
+        ok = err <= SERVE_F32_TOL * scale
+        nums["f32_" + tag + "_max_abs_err"] = err
+        log("check SymbolBlock.imports ResNet-50 (%s, bs %d, f32) vs the "
+            "Gluon net: max |diff| %.3e (tol %.0e x (1 + max|ref| = %.3f))  "
+            "%s" % (tag, RESNET_B, err, SERVE_F32_TOL, scale,
+                    "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("SymbolBlock %s vs Gluon" % tag)
+    csym, cargs, caux = mx.contrib.amp.convert_model(sym, args, aux,
+                                                     "bfloat16")
+    casts = sum(1 for n in csym._nodes()
+                if not n.is_var and n.op.name == "amp_cast")
+    sb16 = mx.gluon.SymbolBlock(csym, "data", params=dict(cargs, **caux),
+                                ctx=ctx)
+    sb16.hybridize()
+    sb16(x)
+    out16 = sb16(x)._data.float()
+    rel = float((out16 - outs["hybridized"]).norm()
+                / outs["hybridized"].norm())
+    ok = rel <= SERVE_BF16_TOL
+    nums["bf16_rel_l2_err"] = rel
+    nums["bf16_casts"] = casts
+    log("check amp.convert_model(bfloat16) ResNet-50 (%d amp_cast nodes) "
+        "vs f32: ||bf16 - f32|| / ||f32|| %.3e (tol %.0e)  %s"
+        % (casts, rel, SERVE_BF16_TOL, "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("amp.convert_model bf16 vs f32")
+    times = {"f32": [], "bf16": []}
+    blocks = {"f32": sb, "bf16": sb16}
+    for tag in ("f32", "bf16", "bf16", "f32"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_CALLS):
+            blocks[tag](x)
+        torch.cuda.synchronize()
+        times[tag].append((time.perf_counter() - t0) * 1e3 / SERVE_CALLS)
+    for tag, ts in times.items():
+        nums[tag + "_ms_per_batch"] = ts
+    log("SymbolBlock ResNet-50 inference bs %d, hybridized, TF32 off: f32 "
+        "%s ms/batch, bf16 (convert_model) %s ms/batch (host clock over %d "
+        "calls, synchronised, in turns f32, bf16, bf16, f32); %s"
+        % (RESNET_B, " ".join("%.3f" % t for t in times["f32"]),
+           " ".join("%.3f" % t for t in times["bf16"]), SERVE_CALLS,
+           card_line()))
+    return nums
+
+
+def nmt_sym_gen(mx):
+    """examples/nmt_bucketing.py's ``sym_gen`` over the port's ``mx``:
+    Embedding -> per-position FullyConnected -> per-position
+    SoftmaxOutput (normalization "valid")."""
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        emb = mx.sym.Embedding(data, input_dim=NMT_VOCAB,
+                               output_dim=NMT_EMB, name="emb")
+        fc = mx.sym.FullyConnected(emb, num_hidden=NMT_VOCAB, flatten=False,
+                                   name="fc")
+        out = mx.sym.SoftmaxOutput(fc, preserve_shape=True,
+                                   normalization="valid", name="softmax")
+        return out, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def nmt_batches(mx, ctx, seed=0):
+    """examples/nmt_bucketing.py's ``BucketIter``: NMT_BATCHES batches,
+    each of a bucket drawn from its seeded RandomState, the label every
+    token's successor id."""
+    rng = np.random.RandomState(seed)
+    for _ in range(NMT_BATCHES):
+        L = int(rng.choice(NMT_BUCKETS))
+        data = rng.randint(0, NMT_VOCAB, (NMT_B, L))
+        label = (data + 1) % NMT_VOCAB
+        yield mx.io.DataBatch(
+            data=[mx.nd.array(data.astype(np.float32), ctx=ctx)],
+            label=[mx.nd.array(label.astype(np.float32), ctx=ctx)],
+            bucket_key=L, provide_data=[("data", (NMT_B, L))],
+            provide_label=[("softmax_label", (NMT_B, L))])
+
+
+def nmt_train(mx, ctx, eager):
+    """The example's training loop (Xavier from np.random.seed(0)):
+    (accuracy, BLEU, tokens/s, parameters, programs per bucket).  On the
+    card every bucket's module is made first and ``eager`` set on its
+    executor."""
+    np.random.seed(0)
+    bm = mx.mod.BucketingModule(nmt_sym_gen(mx),
+                                default_bucket_key=max(NMT_BUCKETS),
+                                context=ctx)
+    bm.bind(data_shapes=[("data", (NMT_B, max(NMT_BUCKETS)))],
+            label_shapes=[("softmax_label", (NMT_B,))])
+    bm.init_params(initializer=mx.init.Xavier())
+    bm.init_optimizer(optimizer="sgd",
+                      optimizer_params={"learning_rate": NMT_LR})
+    if eager is not None:
+        for L in NMT_BUCKETS:
+            bm.switch_bucket(L, [("data", (NMT_B, L))],
+                             [("softmax_label", (NMT_B, L))])
+        for m in bm._buckets.values():
+            m._exec._eager = eager
+    metric = mx.metric.Accuracy(axis=2)
+    bleu = mx.metric.BLEU(smooth=True)
+    batches = list(nmt_batches(mx, ctx))
+    if ctx.device_type == "gpu":
+        torch.cuda.synchronize()
+    marks = [time.perf_counter()]
+    for b in batches:       # the metrics read the outputs: a sync a batch
+        bm.forward(b, is_train=True)
+        bm.backward()
+        bm.update()
+        metric.update(b.label[0], bm.get_outputs()[0])
+        bleu.update(b.label[0], bm.get_outputs()[0])
+        marks.append(time.perf_counter())
+    # tokens/s over the run, and over the batches after every bucket's
+    # first (which captures its graphs)
+    keys = [b.bucket_key for b in batches]
+    warm = max(keys.index(k) for k in set(keys)) + 1
+    tokens = [b.data[0].size for b in batches]
+    rates = (sum(tokens) / (marks[-1] - marks[0]),
+             sum(tokens[warm:]) / (marks[-1] - marks[warm]))
+    params = bm._curr_module.get_params()[0]
+    programs = {k: len(m._exec._programs) for k, m in bm._buckets.items()}
+    return (metric.get()[1], bleu.get()[1], rates,
+            {k: v._data.cpu() for k, v in params.items()}, programs)
+
+
+def nmt_path(mx, failures):
+    """The NMT BucketingModule on the card, captured and op by op
+    (parameters bit for bit after the run), and on the CPU (accuracy
+    within NMT_ACC_TOL)."""
+    runs = {"captured": nmt_train(mx, mx.gpu(0), False),
+            "eager": nmt_train(mx, mx.gpu(0), True),
+            "cpu": nmt_train(mx, mx.cpu(), None)}
+    same = all(torch.equal(runs["captured"][3][k], runs["eager"][3][k])
+               for k in runs["eager"][3])
+    gap = abs(runs["captured"][0] - runs["cpu"][0])
+    ok = same and gap <= NMT_ACC_TOL and \
+        set(runs["captured"][4]) == set(NMT_BUCKETS)
+    nums = {}
+    for name, (acc, bl, tps, _, programs) in runs.items():
+        nums[name] = {"accuracy": acc, "bleu": bl, "tokens_per_s": tps[0],
+                      "steady_tokens_per_s": tps[1],
+                      "programs_per_bucket": programs}
+        log("NMT BucketingModule %s (buckets %s, vocab %d, %d batches of "
+            "%d): accuracy %.4f, BLEU %.4f, %.1f tokens/s over the run, "
+            "%.1f after every bucket's first batch (host clock, metrics "
+            "per batch), executor programs per bucket %s"
+            % (name, list(NMT_BUCKETS), NMT_VOCAB, NMT_BATCHES, NMT_B, acc,
+               bl, tps[0], tps[1], json.dumps(programs)))
+    log("check NMT BucketingModule: captured vs eager parameters bit for "
+        "bit %s, accuracy card vs CPU gap %.4f (tol %.2f)  %s"
+        % (same, gap, NMT_ACC_TOL, "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("NMT BucketingModule")
+    return nums
+
+
+def check_small_module(mx, failures):
+    """A thumbnail ResNet-18 (10 classes), exported on the CPU, trains 3
+    Module steps at 32 x 32, batch 4 (SGD lr 0.01, momentum 0.9, the
+    head's gradient the batch mean: ``normalization="batch"``, the step
+    of check_small_resnet's ``trainer.step(4)``), on the card (TF32 off)
+    and on the CPU from the same ``.params`` file; the mean losses must
+    agree within SMALL_RESNET_LOSS_TOL.  (With the head's default sum
+    over the batch the step is 4x larger and the loss falls from 2.3 to
+    0.01 in two steps; f32 rounding differences then grew to 1.4e-3 by
+    step 3 on an H100, past the limit.)"""
+    rng = np.random.RandomState(5)
+    x = rng.randn(4, 3, 32, 32).astype(np.float32)
+    y = rng.randint(0, 10, 4).astype(np.float32)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_module18_")
+    try:
+        _, prefix = export_resnet(mx, tmp, "resnet18_v1", mx.cpu(),
+                                  mx.nd.array(x, ctx=mx.cpu()), 5,
+                                  classes=10, thumbnail=True)
+        head = mx.sym.SoftmaxOutput(mx.sym.load(prefix + "-symbol.json"),
+                                    normalization="batch", name="softmax")
+        args, aux = mx.model.load_params(prefix + "-0000.params")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        mod = softmax_module(mx, head, args, aux, ctx, x.shape, 0.01, 0.9,
+                             0.0, False)
+        batch = mx.io.DataBatch(data=[mx.nd.array(x, ctx=ctx)],
+                                label=[mx.nd.array(y, ctx=ctx)])
+        out = []
+        for _ in range(3):
+            module_step(mod, batch)
+            out.append(softmax_loss(mod, y))
+        runs.append(out)
+    first, later = SMALL_RESNET_LOSS_TOL
+    gaps = [abs(a - b) for a, b in zip(*runs)]
+    ok = all(gap <= (first if i == 0 else later) * (1 + abs(b))
+             for i, (gap, b) in enumerate(zip(gaps, runs[1])))
+    log("check small ResNet-18 Module 3 steps, card vs CPU (f32, TF32 off): "
+        "%s vs %s, gaps %s (tol %.0e then %.0e, times 1+|loss|)  %s"
+        % (" ".join("%.6f" % v for v in runs[0]),
+           " ".join("%.6f" % v for v in runs[1]),
+           " ".join("%.2e" % g for g in gaps), first, later,
+           "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("small ResNet-18 Module card vs CPU")
 
 
 # ----------------------------------------------------------------- bench --
@@ -3924,6 +4420,15 @@ def main(argv):
     check_small_resnet(mx, dev, failures)
 
     phase("gluon")
+    # ---- 7a. the symbolic API: ResNet-50 through Module (every launch
+    # counter from 0 around its main path), fit/checkpoint/score, the
+    # export served by SymbolBlock, the NMT BucketingModule
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["module"] = module_path(mx, failures, resnet)
+    check_small_module(mx, failures)
+
+    phase("module")
     # ---- 7c. bench.py's workload through DataParallelTrainer; the BERT and
     # GPT steps' graphs and pools are freed first (captured again for the
     # profiles below)

@@ -16,8 +16,10 @@ as mx``: ``mx.nd``, ``mx.autograd``, ``mx.gluon``, ``mx.init`` /
 ``mx.initializer``, ``mx.optimizer``, ``mx.operator`` (CustomOp),
 ``mx.rtc`` (CUDA source compiled at run time), ``mx.runtime``,
 ``mx.library``, ``mx.contrib.amp``, ``mx.parallel``
-(``DataParallelTrainer``), ``mx.cpu()`` and ``mx.gpu(i)``; the default
-context is the card.
+(``DataParallelTrainer``), the symbolic API (``mx.sym``/``mx.symbol``,
+``mx.mod``, ``mx.io``, ``mx.metric``, ``mx.model``, ``mx.callback``,
+``mx.name``, ``mx.AttrScope``), ``mx.cpu()`` and ``mx.gpu(i)``; the
+default context is the card.
 """
 from __future__ import annotations
 
@@ -61,3 +63,10 @@ from . import autograd, initializer, optimizer, gluon  # noqa: E402
 from . import initializer as init  # noqa: E402
 from . import runtime, library, rtc  # noqa: E402
 from . import contrib, parallel  # noqa: E402
+from . import name, attribute  # noqa: E402
+from .attribute import AttrScope  # noqa: E402,F401
+from . import symbol  # noqa: E402
+from . import symbol as sym  # noqa: E402
+from . import io, metric, model, callback  # noqa: E402
+from . import module  # noqa: E402
+from . import module as mod  # noqa: E402

@@ -10,6 +10,8 @@ inputs; every other op is left alone.  The casts run inside the op's
 grad-mode block, so autograd records them and gradients come back in
 each input's own dtype.  ``init_trainer`` and ``scale_loss`` give a
 Gluon ``Trainer`` the dynamic loss scaler float16 needs.
+``convert_symbol`` and ``convert_model`` insert ``amp_cast`` nodes into
+a Symbol graph by the same lists.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import types
 import numpy as np
 import torch
 
-from ...base import MXNetError, not_ported
+from ...base import MXNetError
 from ...ops import registry as _registry
 from . import lists
 from .loss_scaler import LossScaler
@@ -143,11 +145,50 @@ def scale_loss(loss, trainer):
 
 def convert_symbol(sym, target_dtype="bfloat16", target_precision_ops=None,
                    fp32_ops=None, cast_optional_params=False):
-    raise not_ported("amp.convert_symbol (needs Symbol)",
-                     "mxnet_tpu.contrib.amp.amp.convert_symbol")
+    """``sym`` with ``amp_cast`` nodes inserted by the op lists (the
+    reference's ``convert_symbol``, upstream's low-precision pass): every
+    input of an op of ``lists.TARGET_DTYPE_OPS`` (or
+    ``target_precision_ops``) is cast to ``target_dtype``, every input of
+    one of ``lists.FP32_OPS`` (or ``fp32_ops``) to float32; the casts
+    are named ``<input>_amp_cast_<dtype or fp32>``."""
+    from ...symbol.symbol import Symbol, _Node
+    targets = set(lists.TARGET_DTYPE_OPS) | set(target_precision_ops or ())
+    fp32s = set(lists.FP32_OPS) | set(fp32_ops or ())
+    cast_op = _registry.get_op("amp_cast")
+
+    memo = {}
+
+    def cast_input(entry, dtype, tag):
+        node, oi = entry
+        cname = "%s_amp_cast_%s" % (node.name, tag)
+        cnode = _Node(cast_op, cname, [(node, oi)], (), {"dtype": dtype})
+        return (cnode, 0)
+
+    def rebuild(node):
+        if id(node) in memo:
+            return memo[id(node)]
+        if node.is_var:
+            memo[id(node)] = node
+            return node
+        new_inputs = [(rebuild(n), oi) for (n, oi) in node.inputs]
+        if node.op.name in targets:
+            new_inputs = [cast_input(e, target_dtype, target_dtype)
+                          for e in new_inputs]
+        elif node.op.name in fp32s:
+            new_inputs = [cast_input(e, "float32", "fp32")
+                          for e in new_inputs]
+        new = _Node(node.op, node.name, new_inputs, node.pos_attrs,
+                    node.attrs, node.user_attrs)
+        memo[id(node)] = new
+        return new
+
+    return Symbol([(rebuild(n), i) for (n, i) in sym._outputs])
 
 
 def convert_model(sym, arg_params, aux_params, target_dtype="bfloat16",
                   **kwargs):
-    raise not_ported("amp.convert_model (needs Symbol)",
-                     "mxnet_tpu.contrib.amp.amp.convert_model")
+    """A symbolic model for low-precision inference: the graph through
+    :func:`convert_symbol`, the parameters unchanged (float32; the
+    inserted casts convert them where they are read)."""
+    return (convert_symbol(sym, target_dtype=target_dtype, **kwargs),
+            arg_params, aux_params)

@@ -14,6 +14,11 @@ array}`` dict (``features.0.weight``, as ``_collect_params_with_prefix``
 names them in both packages) into a port ``Block``; the reference's
 ``save_parameters`` file also loads directly through the port's
 ``load_parameters``.
+
+For the symbolic API, :func:`from_mx_params` turns the reference's
+``arg_params``/``aux_params`` (its NDArrays, or arrays read from a
+``.params`` file) into the port's NDArrays, for ``Module.set_params``
+or ``Executor.copy_params_from``.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch
 from . import resolve_device
 
 __all__ = ["from_jax", "to_numpy", "tree_map", "tree_leaves",
-           "set_block_params"]
+           "set_block_params", "from_mx_params"]
 
 
 def _leaf(x, device):
@@ -103,3 +108,18 @@ def set_block_params(block, arrays, ctx=None):
             p._init_from_value(value, ctx=ctx)
         else:
             p.set_data(torch.from_numpy(np.array(value, copy=True)))
+
+
+def from_mx_params(arg_params, aux_params, ctx=None):
+    """``(arg_params, aux_params)`` of the port: each ``{name: array}``
+    dict (the reference's NDArrays, numpy arrays, or anything with
+    ``asnumpy()`` or ``__array__``) mapped onto port NDArrays on ``ctx``
+    (default: the current context), names, dtypes and values kept."""
+    from . import ndarray as nd
+
+    def one(v):
+        a = v.asnumpy() if hasattr(v, "asnumpy") else np.asarray(v)
+        return nd.array(a, ctx=ctx, dtype=a.dtype)
+
+    return ({k: one(v) for k, v in (arg_params or {}).items()},
+            {k: one(v) for k, v in (aux_params or {}).items()})

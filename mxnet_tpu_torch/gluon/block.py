@@ -8,6 +8,14 @@ the structural names of :meth:`Block._collect_params_with_prefix`
 ``hybrid_forward(F=nd, x, **params)`` after finishing deferred
 initialization, as the reference's ``forward_raw`` does.
 
+Called on a ``Symbol``, a ``HybridBlock`` runs ``hybrid_forward``
+with the ``sym`` namespace as ``F`` and each parameter as a variable,
+composing one graph; ``export`` writes it as ``-symbol.json`` with the
+parameters in a ``.params`` file (``arg:``/``aux:`` keys), the
+reference's formats.  ``SymbolBlock`` (``imports``) serves such a graph
+as a block: ``forward_raw`` walks it through ``invoke``, so the autograd
+tape and ``hybridize()`` work on it.
+
 ``hybridize()`` turns on the reference's ``_CachedOp`` layer: the block
 keeps one compiled entry per call signature (input shapes, dtypes and
 devices, training and recording flags, argument tree).  On a CUDA
@@ -35,10 +43,11 @@ from .._graphs import (GraphCache, Program, no_collection,
 from ..base import MXNetError
 from ..context import Context, cpu
 from ..ndarray.ndarray import NDArray
-from ..ops.registry import shape_resolve_scope
+from ..ops.registry import invoke, shape_resolve_scope
+from .. import symbol as sym
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 _TRACE = threading.local()
 
@@ -557,6 +566,8 @@ class HybridBlock(Block):
                 p._finish_deferred_init()
 
     def forward(self, *args):
+        if args and isinstance(args[0], sym.Symbol):
+            return self._symbolic_forward(*args)
         if self._active and not _in_trace():
             return self._call_cached(*args)
         return self.forward_raw(*args)
@@ -610,3 +621,115 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+    def _symbolic_forward(self, *args):
+        """``hybrid_forward`` with the ``sym`` namespace as ``F`` and each
+        parameter as a variable: Symbol inputs flow through the same
+        chain, so the subtree composes into one graph (reference
+        ``HybridBlock._symbolic_forward``)."""
+        params = {k: v.var() for k, v in self._reg_params.items()}
+        return self.hybrid_forward(sym, *args, **params)
+
+    def export(self, path, epoch=0, input_names=("data",)):
+        """Write ``path-symbol.json`` (the block's graph over variables
+        ``input_names``) and ``path-%04d.params`` (the parameters the
+        graph reads, ``arg:``/``aux:`` keys), the reference's formats,
+        loadable by ``SymbolBlock.imports``, ``Module`` and either
+        package.  Parameters must be initialized (run a forward
+        first)."""
+        out = self(*[sym.Variable(n) for n in input_names])
+        if isinstance(out, (list, tuple)):
+            out = sym.Group(list(out))
+        out.save("%s-symbol.json" % path)
+
+        aux_names = set(out.list_auxiliary_states())
+        graph_names = aux_names | set(out.list_arguments())
+        save_dict = {}
+        for p in self.collect_params().values():
+            if p.name not in graph_names:
+                continue            # a parameter the graph never reads
+            if p._data is None:
+                raise MXNetError(
+                    "export: parameter %r is not initialized; run a "
+                    "forward pass (or initialize()) before export so the "
+                    ".params file is complete" % p.name)
+            tag = "aux:" if p.name in aux_names else "arg:"
+            save_dict[tag + p.name] = p.data()
+        nd.save("%s-%04d.params" % (path, epoch), save_dict)
+
+
+class SymbolBlock(HybridBlock):
+    """A Symbol graph as a Gluon block (reference ``gluon.SymbolBlock``):
+    the free variables that are not inputs become Parameters (the aux
+    states with ``grad_req='null'``), seeded from ``params`` (``arg:`` /
+    ``aux:`` prefixes stripped) on ``ctx``, by default the current
+    context (the card; raises without one)."""
+
+    def __init__(self, outputs, inputs, params=None, ctx=None):
+        super().__init__(prefix="", params=None)
+        if isinstance(outputs, (list, tuple)):
+            outputs = sym.Group(list(outputs))
+        if not isinstance(outputs, sym.Symbol):
+            raise MXNetError("SymbolBlock: outputs must be Symbol(s)")
+        if not isinstance(inputs, (list, tuple)):
+            inputs = [inputs]
+        self._input_names = [i.name if isinstance(i, sym.Symbol)
+                             else str(i) for i in inputs]
+        self._sym = outputs
+        self._aux_names = set(outputs.list_auxiliary_states())
+
+        seed = {}
+        for k, v in (params or {}).items():
+            seed[k.split(":", 1)[-1]] = v
+        names = [n for n in outputs.list_arguments()
+                 if n not in self._input_names]
+        names += [n for n in outputs.list_auxiliary_states()]
+        for name in names:
+            p = self.params.get(name, grad_req="write"
+                                if name not in self._aux_names
+                                else "null")
+            if name in seed:
+                value = seed[name]
+                if p._data is None:
+                    p._init_from_value(value, ctx=ctx)
+                else:
+                    p.set_data(value)
+            self._reg_params[name] = p
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """Load an exported model (reference ``SymbolBlock.imports``)."""
+        params = nd.load(param_file) if param_file else {}
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        return SymbolBlock(sym.load(symbol_file), list(input_names),
+                           params=params, ctx=ctx)
+
+    def forward_raw(self, *args):
+        """Evaluate the graph node by node through the registry's
+        ``invoke``: every op lands on the autograd tape (a loaded
+        SymbolBlock fine-tunes), parameter values are read at each call,
+        the aux states move by the mutate contract, and ``hybridize()``
+        captures the whole walk like any other HybridBlock."""
+        env = {n: a for n, a in zip(self._input_names, args)}
+        for name, p in self._reg_params.items():
+            env[name] = p.data()
+
+        vals = {}
+        for node in self._sym._nodes():
+            if node.is_var:
+                if node.name not in env:
+                    raise MXNetError("SymbolBlock: no value for variable %r"
+                                     % node.name)
+                vals[id(node)] = [env[node.name]]
+                continue
+            ins = [vals[id(i)][oi] for (i, oi) in node.inputs]
+            out = invoke(node.op, ins, node.pos_attrs, dict(node.attrs))
+            vals[id(node)] = (list(out) if isinstance(out, (list, tuple))
+                              else [out])
+        outs = [vals[id(n)][i] for (n, i) in self._sym._outputs]
+        return outs[0] if len(outs) == 1 else outs
+
+    def _symbolic_forward(self, *args):
+        return self._sym(**{n: a for n, a in
+                            zip(self._input_names, args)})

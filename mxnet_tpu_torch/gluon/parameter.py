@@ -3,7 +3,8 @@
 Port of ``mxnet_tpu/gluon/parameter.py``: deferred initialization (the
 shape is filled in by the first forward), per-context copies,
 ``grad_req`` (``write``/``add``/``null``), ``lr_mult``/``wd_mult``, and
-``data``/``list_data``/``grad``/``list_grad``/``set_data``/``zero_grad``.
+``data``/``list_data``/``grad``/``list_grad``/``set_data``/``zero_grad``
+and ``var`` (the parameter as a Symbol variable).
 Initial values are drawn on the CPU, as in the reference, and copied to
 each context; every copy with a gradient is an autograd variable.
 """
@@ -231,6 +232,15 @@ class Parameter:
             else torch.as_tensor(data)
         for d in self._data.values():
             d._set_data(src.to(d._data.device, d._data.dtype))
+
+    def var(self):
+        """This parameter as a Symbol variable, with its shape, dtype,
+        multipliers and initializer as attributes (what
+        ``HybridBlock.export`` writes)."""
+        from .. import symbol
+        return symbol.var(self.name, shape=self.shape, dtype=self.dtype,
+                          lr_mult=self.lr_mult, wd_mult=self.wd_mult,
+                          init=self.init)
 
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self.shape,

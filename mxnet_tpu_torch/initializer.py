@@ -1,7 +1,8 @@
 """Weight initializers.
 
 Port of ``Initializer``, ``Zero``, ``One``, ``Constant``, ``Uniform``,
-``Normal`` and ``Xavier`` from ``mxnet_tpu/initializer.py``.  As in the
+``Normal``, ``Xavier`` and ``MSRAPrelu`` from
+``mxnet_tpu/initializer.py``.  As in the
 reference, values are drawn from numpy's global generator
 (``np.random``) in the same order and with the same calls, so a run
 seeded with ``np.random.seed`` draws the same numbers in both packages;
@@ -18,7 +19,7 @@ import torch
 from .base import MXNetError, Registry
 
 __all__ = ["Initializer", "InitDesc", "Uniform", "Normal", "Zero", "One",
-           "Constant", "Xavier", "register", "create"]
+           "Constant", "Xavier", "MSRAPrelu", "register", "create"]
 
 _REG = Registry("initializer")
 register = _REG.register
@@ -157,6 +158,17 @@ class Xavier(Initializer):
             self._set(arr, np.random.normal(0, scale, shape))
         else:
             raise MXNetError("Unknown random type")
+
+
+@register("msraprelu")
+class MSRAPrelu(Xavier):
+    """He initialization for PReLU: Xavier gaussian with magnitude
+    ``2 / (1 + slope**2)``."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        magnitude = 2.0 / (1 + slope ** 2)
+        super().__init__("gaussian", factor_type, magnitude)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
 
 
 def create(name, **kwargs):

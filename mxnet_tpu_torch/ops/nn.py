@@ -2,9 +2,10 @@
 
 Port of a subset of ``mxnet_tpu/ops/nn.py``: ``dot``, ``FullyConnected``,
 ``Convolution``, ``Pooling`` (max and avg, windowed or global),
-``Activation``, ``softmax``, ``log_softmax`` and ``BatchNorm``.  Where
-the reference left the math to XLA (matmul, convolution), the port
-leaves it to cuBLAS and cuDNN through torch.
+``Activation``, ``softmax``, ``log_softmax``, ``BatchNorm``, the
+``SoftmaxOutput`` head, ``Dropout`` and ``Embedding``.  Where the
+reference left the math to XLA (matmul, convolution), the port leaves it
+to cuBLAS and cuDNN through torch.
 """
 from __future__ import annotations
 
@@ -200,3 +201,99 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     shift = (beta.float() - mean * g.float() * inv).reshape(bshape) \
         .to(data.dtype)
     return data * scale + shift, new_mean, new_var
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax forward; backward ``(p - onehot) * scale``, the fused
+    loss gradient of the reference's custom VJP, which ignores the
+    incoming gradient and gives the label none."""
+
+    @staticmethod
+    def forward(ctx, data, label, axis, grad_scale, ignore_label, use_ignore,
+                normalization, smooth_alpha):
+        p = torch.softmax(data, dim=axis)
+        ctx.save_for_backward(p, label)
+        ctx.attrs = (axis, grad_scale, ignore_label, use_ignore,
+                     normalization, smooth_alpha)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        p, label = ctx.saved_tensors
+        axis, grad_scale, ignore_label, use_ignore, normalization, \
+            smooth_alpha = ctx.attrs
+        k = p.shape[axis]
+        # one-hot by comparison: a label outside [0, k) (an ignored -1)
+        # gives a zero row, as jax.nn.one_hot does
+        classes = torch.arange(k, device=p.device).reshape(
+            [k if i == axis % p.dim() else 1 for i in range(p.dim())])
+        oh = (label.long().unsqueeze(axis) == classes).to(p.dtype)
+        if smooth_alpha:
+            oh = oh * (1 - smooth_alpha) + smooth_alpha / (k - 1) * (1 - oh)
+        grad = p - oh
+        if use_ignore:
+            keep = (label != ignore_label).to(p.dtype)
+            grad = grad * keep.unsqueeze(axis)
+        scale = grad_scale
+        if normalization == "batch":
+            scale = scale / p.shape[0]
+        elif normalization == "valid":
+            # the count of non-ignored labels under use_ignore (at least
+            # 1), else every label position
+            if use_ignore:
+                valid = (label != ignore_label).sum().clamp(min=1)
+                scale = scale / valid.to(p.dtype)
+            else:
+                scale = scale / label.numel()
+        grad = grad * scale
+        return (grad.to(p.dtype),) + (None,) * 7
+
+
+@register("SoftmaxOutput", aliases=("Softmax",))
+def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                   multi_output=False, use_ignore=False,
+                   preserve_shape=False, normalization="null",
+                   out_grad=False, smooth_alpha=0.0, **kw):
+    """Softmax over the last axis (axis 1 with ``multi_output``) whose
+    gradient is the softmax cross-entropy's, ``(p - onehot(label)) *
+    grad_scale``, divided by the batch (``normalization="batch"``) or
+    by the valid label count (``"valid"``: the non-ignored labels under
+    ``use_ignore``, else ``label.size``); ignored labels get no
+    gradient and ``smooth_alpha`` smooths the one-hot (reference
+    ``softmax_output``, ``nn.py:363``)."""
+    return _SoftmaxOutput.apply(data, label, 1 if multi_output else -1,
+                                float(grad_scale), float(ignore_label),
+                                bool(use_ignore), normalization,
+                                float(smooth_alpha))
+
+
+@register("Dropout", needs_rng=True, training_aware=True)
+def dropout(gen, data, p=0.5, mode="training", axes=(), cudnn_off=False,
+            _training=False, **kw):
+    """Inverted dropout (reference ``dropout``, ``nn.py:583``): in
+    training (or ``mode="always"``) each element, or each slice along
+    the axes not in ``axes``, is kept with probability ``1 - p`` and
+    scaled by ``1 / (1 - p)``; the keep mask is drawn from ``gen``
+    (torch's default generator of the device when None).  The
+    reference's ``jax.random`` stream is not reproduced: the keep rate
+    and the scaling are."""
+    if not _training and mode != "always":
+        return data
+    if p <= 0:
+        return data
+    shape = list(data.shape)
+    if axes:
+        for i in range(len(shape)):
+            if i not in axes:
+                shape[i] = 1
+    keep = 1.0 - p
+    mask = torch.rand(shape, device=data.device, generator=gen) < keep
+    return torch.where(mask, data / keep, 0.0).to(data.dtype)
+
+
+@register("Embedding")
+def embedding(data, weight, input_dim=None, output_dim=None, dtype="float32",
+              sparse_grad=False, **kw):
+    """Rows of ``weight`` at the indices in ``data`` (a float or integer
+    tensor, truncated to integers as the reference's ``astype``)."""
+    return F.embedding(data.long(), weight)

@@ -6,6 +6,9 @@ Port of ``mxnet_tpu/ops/registry.py`` (``OpDef``, ``register``,
 ``variadic`` op).  :func:`invoke` keeps the reference's contracts:
 
 * ``training_aware`` ops get ``_training=autograd.is_training()``;
+* ``needs_rng`` ops take a ``torch.Generator`` (or None: torch's
+  default generator of the tensors' device) before their tensors;
+  ``invoke`` passes None, a symbolic executor its node's generator;
 * ops with ``mutate`` return the new values of the mutated inputs after
   their outputs, and invoke writes them back into those inputs (a
   ``mutate`` callable takes the attrs, for variadic ops);
@@ -40,7 +43,8 @@ from ..base import MXNetError, not_ported
 from ..engine import Engine
 
 __all__ = ["OpDef", "register", "get_op", "list_ops", "op_exists", "invoke",
-           "shape_resolve_scope", "in_shape_resolve", "set_cast_hook"]
+           "invoke_impl", "shape_resolve_scope", "in_shape_resolve",
+           "set_cast_hook"]
 
 _OPS: Dict[str, "OpDef"] = {}
 _RESOLVE = threading.local()
@@ -75,14 +79,17 @@ class OpDef:
     """A registered operator: ``name``, ``impl``, ``num_outputs`` (-1:
     attr-dependent), ``mutate`` (indices of mutated inputs, or a
     callable of the attrs), ``variadic`` (the impl takes one list of
-    tensors), ``training_aware`` and ``writes_out`` (the impl takes the
-    ``out=`` tensors as its ``out`` attr)."""
+    tensors), ``needs_rng`` (the impl takes a generator first),
+    ``training_aware`` and ``writes_out`` (the impl takes the ``out=``
+    tensors as its ``out`` attr)."""
 
     __slots__ = ("name", "impl", "num_outputs", "mutate", "variadic",
-                 "aliases", "doc", "training_aware", "writes_out")
+                 "aliases", "doc", "needs_rng", "training_aware",
+                 "writes_out")
 
     def __init__(self, name, impl, num_outputs=1, mutate=(), variadic=False,
-                 aliases=(), doc="", training_aware=False, writes_out=False):
+                 aliases=(), doc="", needs_rng=False, training_aware=False,
+                 writes_out=False):
         self.name = name
         self.impl = impl
         self.num_outputs = num_outputs
@@ -90,6 +97,7 @@ class OpDef:
         self.variadic = variadic
         self.aliases = tuple(aliases)
         self.doc = doc or (impl.__doc__ or "")
+        self.needs_rng = needs_rng
         self.training_aware = training_aware
         self.writes_out = writes_out
 
@@ -99,12 +107,13 @@ class OpDef:
 
 def register(name: Optional[str] = None, aliases: Sequence[str] = (),
              num_outputs: int = 1, mutate=(), variadic: bool = False,
-             training_aware: bool = False, writes_out: bool = False):
+             needs_rng: bool = False, training_aware: bool = False,
+             writes_out: bool = False):
     """Register a torch impl as an op; returns the impl unchanged."""
     def _dec(fn: Callable):
         opname = name or fn.__name__
         op = OpDef(opname, fn, num_outputs=num_outputs, mutate=mutate,
-                   variadic=variadic, aliases=aliases,
+                   variadic=variadic, aliases=aliases, needs_rng=needs_rng,
                    training_aware=training_aware, writes_out=writes_out)
         for n in (opname,) + tuple(aliases):
             if n in _OPS:
@@ -150,15 +159,23 @@ def _bind_pos_attrs(op, n_arrays, pos_attrs, attrs):
     return merged
 
 
+def invoke_impl(op, arrays, pos_attrs, attrs, generator=None):
+    """The op's impl on tensors after the AMP cast hook, under the
+    caller's grad mode (reference ``invoke_impl``): the one call through
+    which ``invoke`` and the symbolic executor's graph walk both run an
+    op.  A ``needs_rng`` op gets ``generator`` first."""
+    if _CAST_HOOK is not None:
+        arrays = _CAST_HOOK(op, arrays)
+    lead = (generator,) if op.needs_rng else ()
+    if op.variadic:
+        return op.impl(*lead, list(arrays), *pos_attrs, **attrs)
+    return op.impl(*lead, *arrays, *pos_attrs, **attrs)
+
+
 def _run(op, arrays, pos_attrs, attrs, recording):
-    """The op's impl under the grad mode of ``recording``, after the
-    AMP cast hook."""
+    """The op's impl under the grad mode of ``recording``."""
     with torch.set_grad_enabled(recording):
-        if _CAST_HOOK is not None:
-            arrays = _CAST_HOOK(op, arrays)
-        if op.variadic:
-            return op.impl(list(arrays), *pos_attrs, **attrs)
-        return op.impl(*arrays, *pos_attrs, **attrs)
+        return invoke_impl(op, arrays, pos_attrs, attrs)
 
 
 def invoke(op: OpDef, inputs: Sequence, pos_attrs=(), attrs=None,

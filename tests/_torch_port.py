@@ -60,6 +60,20 @@ def to_port(tree):
     return from_jax(tree, "cpu")
 
 
+class _Reference:
+    """``mxnet_tpu``, imported at its first use: test files whose
+    ``cuda`` tests run on the card (which has no JAX) with
+    ``--noconftest`` bind ``R = reference`` at the top and reach the
+    reference only inside their CPU tests."""
+
+    def __getattr__(self, name):
+        import mxnet_tpu
+        return getattr(mxnet_tpu, name)
+
+
+reference = _Reference()
+
+
 @pytest.fixture
 def cuda_device():
     """The CUDA device, or skip: decided when the test runs, never at

@@ -181,8 +181,24 @@ def test_overflow_skips_update():
 
 
 def test_convert_symbol_not_ported():
+    """``convert_symbol`` and ``convert_model`` are ported now: on a
+    small graph they insert the reference's ``amp_cast`` nodes (the
+    parity over an exported net is in tests/test_torch_symbol.py)."""
+    import json
+    import mxnet_tpu as jmx
+    from mxnet_tpu.contrib import amp as jamp
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.contrib import amp
-    with pytest.raises(NotImplementedError, match="convert_symbol"):
-        amp.convert_symbol(None)
-    with pytest.raises(NotImplementedError, match="convert_model"):
-        amp.convert_model(None, {}, {})
+    graphs = []
+    for pkg, conv in ((jmx, jamp), (mx, amp)):
+        with pkg.name.NameManager():
+            fc = pkg.sym.FullyConnected(pkg.sym.Variable("data"),
+                                        num_hidden=4, name="fc")
+            out = pkg.sym.softmax(fc, name="sm")
+        graphs.append(json.loads(conv.convert_symbol(out).tojson()))
+        sym, args, aux = conv.convert_model(out, {"a": 1}, {})
+        assert args == {"a": 1} and aux == {}
+    assert graphs[1] == graphs[0]
+    names = [n["name"] for n in graphs[1]["nodes"] if n["op"] == "amp_cast"]
+    assert names == ["data_amp_cast_bfloat16", "fc_weight_amp_cast_bfloat16",
+                     "fc_bias_amp_cast_bfloat16", "fc_amp_cast_fp32"]
