@@ -123,6 +123,27 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    CPU (parameters bit for bit, accuracy within 0.02 of the CPU's); a
    ResNet-18 Module on the card and on the CPU from one ``.params``
    file, losses compared;
+7d. drives the op library (the ``library`` phase, after ``module``),
+   every launch counter from 0 (all stay 0: no hand-written kernel is
+   on this path): every case of ``tests/_torch_port.py``'s ``OP_SPECS``
+   (each op and alias of the registry) through the port on the card and
+   on the CPU from the same inputs, forward and backward, TF32 off,
+   within ``CARD_TOL`` by family, and any registered op the sweep
+   misses fails the run; each sampler of ``RANDOM_SPECS`` on the card
+   (seeded draws repeat, unseeded differ, support, moments within 6
+   standard errors) and a hybridized block drawing ``F.random_uniform``
+   through its CUDA graph (new values each replay, repeated after a
+   re-seed); ResNet-50 v1 (bs 64 x 224^2, f32) through ``gluon.Trainer``
+   with Adam under a ``CosineScheduler``, 20 steps eager and 20
+   hybridized (finite, falling loss; the rate each step equal to a
+   scheduler stepped on the host), then the eager and hybridized Adam
+   steps and the hybridized SGD step timed in turns, a profiled window
+   each and ``trainer.step``'s host time alone; every optimizer of the
+   reference's registry (and ``multi_precision`` on float16 for sgd,
+   nag, adam and lamb) training a thumbnail ResNet-18 3 steps on the
+   card and on the CPU within FAMILY_LOSS_TOL; ``save_states`` /
+   ``load_states`` resuming bit for bit; ``SequentialModule`` with Adam
+   on the card past the reference test's accuracy;
 7b. drives bench.py's workload (the ``bench`` phase; the BERT and GPT
    steps' graphs freed first): ResNet-50 v1 with the space-to-depth
    stem, ``amp=True``, bs 128, through ``DataParallelTrainer.run_steps``
@@ -300,6 +321,45 @@ RESNET_LR, RESNET_MOM = 0.1, 0.9
 # the first step (same weights, a forward) and the later ones, about 3x
 # the largest gaps of sound H100 runs (1e-6, then 6e-5 at losses < 0.1)
 SMALL_RESNET_LOSS_TOL = (1e-5, 2e-4)
+
+# the library phase: ResNet-50 v1 at the Gluon cell's shapes (bs 64 x 3 x
+# 224 x 224, 1000 classes, f32, Xavier from np.random.seed(0)) trained by
+# gluon.Trainer with Adam (lr 1e-3, wd 1e-4) under a CosineScheduler
+# (max_update 40, warmup 5): LIB_STEPS eager steps, then LIB_STEPS
+# hybridized; then windows of LIB_WINDOW steps of each, and of the
+# hybridized SGD step (the Gluon cell's), in turns
+LIB_LR, LIB_WD, LIB_MAX_UPDATE, LIB_WARMUP = 1e-3, 1e-4, 40, 5
+LIB_STEPS, LIB_WINDOW, LIB_TURNS, LIB_PROFILE = 20, 5, 2, 5
+# the optimizer family: each optimizer of the reference's registry trains
+# the thumbnail ResNet-18 3 steps on the card and on the CPU (f32, TF32
+# off, 32 x 32, batch 4) from the same weights, at its own default rate
+# (momentum 0.9 for sgd, nag and lars) but for adagrad and signum (lr
+# 1e-3) and adadelta (epsilon 1e-7): at their defaults (lr 0.01, epsilon
+# 1e-5) the first steps move every weight by about 0.01 whatever its
+# gradient's size and this net's loss rises (H100: adagrad 1.23 then
+# 1.57), a regime where f32 rounding noise in near-zero gradients picks
+# the trajectory (gaps of 0.27 measured); multi_precision on a float16
+# copy at 16 x 16 for sgd, nag, adam and lamb (the CPU's float16
+# convolutions are slow).  Mean-loss limits, times (1 + |loss|): the first
+# step (a forward of the same weights) and the later ones.  SGD and NAG
+# take SMALL_RESNET_LOSS_TOL; the others scale each update element by its
+# own history (Adam, RMSProp, AdaGrad, AdaDelta, Adamax, Nadam, FTRL,
+# LAMB) or take its sign (Signum), so a gradient element that is f32
+# rounding noise on both devices moves its weight by up to lr on one and
+# not the other (tests/test_torch_optimizers.py measures 2986 of 11.2M
+# ResNet-18 weights apart after one Adam step, port against reference):
+# 1e-3 later; float16 rounds each activation to 2^-11, 2e-2 later
+FAMILY = ("sgd", "nag", "adam", "adagrad", "rmsprop", "rmsprop-centered",
+          "ftrl", "signum", "lamb", "lars", "adadelta", "adamax", "nadam")
+FAMILY_OPTS = {"sgd": {"momentum": 0.9}, "nag": {"momentum": 0.9},
+               "lars": {"momentum": 0.9}, "adagrad": {"learning_rate": 1e-3},
+               "signum": {"learning_rate": 1e-3},
+               "adadelta": {"epsilon": 1e-7},
+               "rmsprop-centered": {"centered": True}}
+FAMILY_MP = ("sgd", "nag", "adam", "lamb")
+FAMILY_LOSS_TOL = {"sgd": SMALL_RESNET_LOSS_TOL,
+                   "nag": SMALL_RESNET_LOSS_TOL, "other": (1e-5, 1e-3),
+                   "float16": (1e-2, 2e-2)}
 
 # bench.py's workload (bench.py:27-52): ResNet-50 v1 with the
 # space-to-depth stem, Xavier from np.random.seed(0), DataParallelTrainer
@@ -4154,6 +4214,483 @@ def same_tokens(name, got, want, failures):
         failures.append(name)
 
 
+# ---------------------------------------------------------------- library --
+def op_cases():
+    """``tests/_torch_port.py``: the op library's and the samplers' cases,
+    shared with the CPU parity tests (imports no JAX)."""
+    path = os.path.join(REPO, "tests")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import _torch_port
+    return _torch_port
+
+
+def op_sweep(mx, failures, checked):
+    """Every case of ``OP_SPECS`` through the port on the card and on the
+    CPU from the same inputs, forward and (where differentiable)
+    backward, TF32 off, within ``CARD_TOL`` of its family; each alias
+    of an op runs the op's first case under that name.  The grouped SGD
+    ops take their per-tensor loop (``MXNET_FUSED_OPTIMIZER=0``): their
+    kernel is held in the kernel checks.  Returns the count of cases
+    run and the worst error of each family."""
+    TP = op_cases()
+    worst, n, bad = {}, 0, 0
+    fused = os.environ.get("MXNET_FUSED_OPTIMIZER")
+    os.environ["MXNET_FUSED_OPTIMIZER"] = "0"
+    try:
+        for module, specs in TP.OP_SPECS.items():
+            seen = set()
+            for spec in specs:
+                names = [spec.name]
+                if spec.name not in seen:
+                    seen.add(spec.name)
+                    names += [a for a in TP.op_names_of(spec.name)
+                              if a != spec.name]
+                for name in names:
+                    try:
+                        err = TP.check_on_card(spec, name=name)
+                    except Exception as e:      # noqa: BLE001 (logged)
+                        bad += 1
+                        failures.append("op sweep %r as %s" % (spec, name))
+                        log("check op %r as %s, card vs CPU  FAIL: %s"
+                            % (spec, name, str(e).replace("\n", " ")[:300]))
+                        continue
+                    n += 1
+                    checked.add(name)
+                    worst[spec.fam] = max(worst.get(spec.fam, 0.0), err)
+    finally:
+        if fused is None:
+            os.environ.pop("MXNET_FUSED_OPTIMIZER", None)
+        else:
+            os.environ["MXNET_FUSED_OPTIMIZER"] = fused
+    log("check op sweep, card vs CPU (TF32 off): %d cases over %d op names, "
+        "%d failed; worst |card - CPU| by family (limits %s): %s  %s"
+        % (n, len(checked), bad, json.dumps(TP.CARD_TOL),
+           json.dumps({k: float("%.3e" % v) for k, v in worst.items()}),
+           "ok" if not bad else "FAIL"))
+    return {"cases": n, "names": len(checked), "failed": bad,
+            "worst_by_family": worst}
+
+
+def random_on_card(mx, failures, checked):
+    """Each sampler case (under each name it is registered by) on the
+    card: two draws after ``mx.random.seed(0)`` bit-identical, a third
+    without a re-seed different, the support and the moments
+    (``check_draw``); then a hybridized block drawing
+    ``F.random_uniform`` through its CUDA graph.  Returns the worst
+    moment error in standard errors."""
+    TP = op_cases()
+    ctx = mx.gpu(0)
+    worst, bad = 0.0, 0
+    for spec in TP.RANDOM_SPECS:
+        for name in TP.op_names_of(spec.name):
+            try:
+                mx.random.seed(0)
+                a = TP.random_draw(mx, spec, ctx, name)
+                mx.random.seed(0)
+                b = TP.random_draw(mx, spec, ctx, name)
+                c = TP.random_draw(mx, spec, ctx, name)
+                same = all(np.array_equal(u, v) for u, v in zip(a, b))
+                if not same or np.array_equal(a[0], c[0]):
+                    raise AssertionError("seeded draws equal %s, unseeded "
+                                         "draw differs %s"
+                                         % (same,
+                                            not np.array_equal(a[0], c[0])))
+                worst = max(worst, TP.check_draw(spec, a))
+                checked.add(name)
+            except Exception as e:              # noqa: BLE001 (logged)
+                bad += 1
+                failures.append("random %s on the card" % name)
+                log("check random %s on the card  FAIL: %s"
+                    % (name, str(e).replace("\n", " ")[:300]))
+    try:
+        TP.check_hybridized_draws(ctx)
+        hyb = True
+    except Exception as e:                      # noqa: BLE001 (logged)
+        hyb = False
+        failures.append("hybridized random_uniform on the card")
+        log("check hybridized F.random_uniform  FAIL: %s" % e)
+    log("check random ops on the card: %d cases, seeded draws repeat, "
+        "unseeded differ, support and moments within 6 standard errors "
+        "(worst %.2f), %d failed; a hybridized block's F.random_uniform new "
+        "at each replay and repeated after a re-seed: %s  %s"
+        % (len(TP.RANDOM_SPECS), worst, bad, hyb,
+           "ok" if not bad and hyb else "FAIL"))
+    return {"worst_moment_se": worst, "failed": bad, "hybridized": hyb}
+
+
+def lib_scheduler(mx):
+    return mx.lr_scheduler.CosineScheduler(
+        max_update=LIB_MAX_UPDATE, base_lr=LIB_LR, warmup_steps=LIB_WARMUP)
+
+
+def lib_trainer(mx, net, opt):
+    if opt == "adam":
+        return mx.gluon.Trainer(net.collect_params(), "adam", {
+            "learning_rate": LIB_LR, "wd": LIB_WD,
+            "lr_scheduler": lib_scheduler(mx)})
+    return mx.gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": RESNET_LR, "momentum": RESNET_MOM})
+
+
+def adam_path(mx, failures):
+    """The slice's full-width path: ResNet-50 v1 through ``gluon.Trainer``
+    with Adam under a cosine schedule, LIB_STEPS steps eager and
+    LIB_STEPS after ``net.hybridize()``; the scheduler's rate at each
+    step against a scheduler stepped apart on the host; then windows of
+    the eager and hybridized Adam steps and of the hybridized SGD step
+    (the Gluon cell's) in turns, a profiled window each, and the host
+    time of ``trainer.step`` alone.  Returns the numbers."""
+    card = card_line()
+    ctx = mx.gpu(0)
+    torch.backends.cudnn.allow_tf32 = True       # as the Gluon cell
+    rng = np.random.RandomState(0)
+    x = mx.nd.array(rng.randn(RESNET_B, 3, RESNET_HW, RESNET_HW)
+                    .astype(np.float32), ctx=ctx)
+    y = mx.nd.array(rng.randint(0, RESNET_CLASSES, RESNET_B)
+                    .astype(np.float32), ctx=ctx)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def make(opt, hybridize):
+        np.random.seed(0)
+        net = mx.gluon.model_zoo.vision.resnet50_v1(classes=RESNET_CLASSES)
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        if hybridize:
+            net.hybridize()
+        return net, lib_trainer(mx, net, opt)
+
+    def stepper(net, trainer, host=None):
+        def step():
+            with mx.autograd.record():
+                L = loss_fn(net(x), y)
+            L.backward()
+            if host is not None:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            trainer.step(RESNET_B)
+            if host is not None:
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                host.append(((t1 - t0) * 1e3,
+                             (time.perf_counter() - t0) * 1e3))
+            return L
+        return step
+
+    net, trainer = make("adam", False)
+    sched = lib_scheduler(mx)
+    step = stepper(net, trainer)
+    losses, lr_ok, t_run = [], True, {}
+    for phase_name in ("eager", "hybridized"):
+        if phase_name == "hybridized":
+            net.hybridize()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LIB_STEPS):
+            losses.append(float(step().asnumpy().mean()))
+            n = trainer.optimizer.num_update
+            lr_ok &= trainer.learning_rate == sched(n)
+        t_run[phase_name] = (time.perf_counter() - t0) / LIB_STEPS
+    eager_l, hyb_l = losses[:LIB_STEPS], losses[LIB_STEPS:]
+    log("library: ResNet-50 v1 Adam (lr %g, wd %g, cosine to update %d, "
+        "warmup %d) bs %d x 3 x %d x %d f32: eager losses %s; hybridized "
+        "losses %s" % (LIB_LR, LIB_WD, LIB_MAX_UPDATE, LIB_WARMUP, RESNET_B,
+                       RESNET_HW, RESNET_HW,
+                       " ".join("%.4f" % v for v in eager_l),
+                       " ".join("%.4f" % v for v in hyb_l)))
+    for tag, ls in (("eager", eager_l), ("hybridized", hyb_l)):
+        if not all(np.isfinite(ls)) or not ls[-1] < ls[0]:
+            raise Failed("ResNet-50 Adam %s: losses %s" % (tag, ls))
+    log("check cosine schedule: the Trainer's rate at each of %d steps "
+        "equals a CosineScheduler stepped on the host: %s  %s"
+        % (2 * LIB_STEPS, lr_ok, "ok" if lr_ok else "FAIL"))
+    if not lr_ok:
+        failures.append("Adam path learning rates")
+
+    # in turns: eager Adam, hybridized Adam, hybridized SGD
+    eager_net, eager_tr = make("adam", False)
+    sgd_net, sgd_tr = make("sgd", True)
+    steps = {"adam eager": stepper(eager_net, eager_tr),
+             "adam hybridized": step,
+             "sgd hybridized": stepper(sgd_net, sgd_tr)}
+    for fn in steps.values():
+        fn()                        # the SGD net captures here
+    times = {m: [] for m in steps}
+    order = ["adam eager", "adam hybridized", "sgd hybridized"]
+    for m in (order + order[::-1]) * (LIB_TURNS // 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LIB_WINDOW):
+            steps[m]()
+        torch.cuda.synchronize()
+        times[m].append((time.perf_counter() - t0) / LIB_WINDOW)
+    nums = {"card": card, "losses_eager": eager_l,
+            "losses_hybridized": hyb_l,
+            "run_ms_per_step": {k: v * 1e3 for k, v in t_run.items()}}
+    for m, per in times.items():
+        nums[m] = {"ms_per_step": [p * 1e3 for p in per],
+                   "images_per_s": [RESNET_B / p for p in per]}
+        log("library: ResNet-50 v1 %s step (bs %d, f32, cudnn.allow_tf32="
+            "True): %s ms, %s images/s (host clock over %d-step windows, "
+            "synchronised, in turns %s); %s"
+            % (m, RESNET_B, " ".join("%.3f" % v for v in
+                                     nums[m]["ms_per_step"]),
+               " ".join("%.1f" % v for v in nums[m]["images_per_s"]),
+               LIB_WINDOW, " ".join(order + order[::-1]), card))
+    for m, fn in steps.items():
+        nums[m]["profile"] = profile_window(
+            fn, LIB_PROFILE, "ResNet-50 train steps, %s" % m)
+    for m, net_, tr_ in (("adam", net, trainer), ("sgd", sgd_net, sgd_tr)):
+        host = []
+        fn = stepper(net_, tr_, host)
+        for _ in range(LIB_PROFILE):
+            fn()
+        nums[m + " trainer.step"] = {
+            "host_ms": [h for h, _ in host], "wall_ms": [w for _, w in host]}
+        log("library: %s trainer.step alone (hybridized net, %d trainable "
+            "tensors): "
+            "host %.3f ms (median of %d, the call's own time after a "
+            "synchronise), %.3f ms to the update's end; %s"
+            % (m, sum(p.grad_req != "null" for p in tr_._params),
+               float(np.median([h for h, _ in host])),
+               len(host), float(np.median([w for _, w in host])), card))
+    del net, trainer, eager_net, eager_tr, sgd_net, sgd_tr, steps, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return nums
+
+
+def family_run(mx, name, f16, ctx):
+    """3 Trainer steps of optimizer ``name`` on the thumbnail ResNet-18
+    on ``ctx`` and on the CPU from the same weights: the mean losses of
+    both."""
+    from mxnet_tpu_torch.convert import set_block_params
+    hw = 16 if f16 else 32
+    rng = np.random.RandomState(5)
+    x = rng.randn(4, 3, hw, hw).astype(np.float32)
+    y = rng.randint(0, 10, 4).astype(np.float32)
+    np.random.seed(5)
+    cpu_net = mx.gluon.model_zoo.vision.resnet18_v1(classes=10,
+                                                    thumbnail=True)
+    cpu_net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    cpu_net(mx.nd.array(x, ctx=mx.cpu()))
+    arrays = {k: v.data().asnumpy()
+              for k, v in cpu_net._collect_params_with_prefix().items()}
+    card_net = mx.gluon.model_zoo.vision.resnet18_v1(classes=10,
+                                                     thumbnail=True)
+    set_block_params(card_net, arrays, ctx=ctx)
+    opt = name.split("-")[0]
+    opts = dict(FAMILY_OPTS.get(name, {}))
+    dtype = "float32"
+    if f16:
+        dtype = "float16"
+        opts["multi_precision"] = True
+        for net in (card_net, cpu_net):
+            net.cast(dtype)
+    runs = []
+    for net, c in ((card_net, ctx), (cpu_net, mx.cpu())):
+        tr = mx.gluon.Trainer(net.collect_params(), opt, opts)
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        X = mx.nd.array(x, ctx=c, dtype=dtype)
+        Y = mx.nd.array(y, ctx=c)
+        out = []
+        for _ in range(3):
+            with mx.autograd.record():
+                L = loss_fn(net(X), Y)
+            L.backward()
+            tr.step(4)
+            out.append(float(L.asnumpy().astype(np.float64).mean()))
+        runs.append(out)
+    return runs
+
+
+def check_optimizer_family(mx, failures, names=FAMILY,
+                           multi_precision=FAMILY_MP, ctx=None):
+    """Each optimizer of the reference's registry (and the float16
+    ``multi_precision`` cases) trains the thumbnail ResNet-18 3 steps on
+    the card and on the CPU from the same weights, TF32 off; the mean
+    losses within FAMILY_LOSS_TOL.  Returns the gaps by case."""
+    ctx = ctx or mx.gpu(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gaps = {}
+    cases = [(n, False) for n in names] + [(n, True)
+                                          for n in multi_precision]
+    for name, f16 in cases:
+        card_l, cpu_l = family_run(mx, name, f16, ctx)
+        tag = name + (" float16 multi_precision" if f16 else "")
+        first, later = FAMILY_LOSS_TOL["float16" if f16 else
+                                       name if name in FAMILY_LOSS_TOL
+                                       else "other"]
+        gap = [abs(a - b) for a, b in zip(card_l, cpu_l)]
+        ok = all(np.isfinite(card_l)) and all(
+            g <= (first if i == 0 else later) * (1 + abs(b))
+            for i, (g, b) in enumerate(zip(gap, cpu_l)))
+        gaps[tag] = gap
+        log("check optimizer %s, thumbnail ResNet-18 3 steps, card vs CPU: "
+            "%s vs %s, gaps %s (tol %.0e then %.0e, times 1+|loss|)  %s"
+            % (tag, " ".join("%.6f" % v for v in card_l),
+               " ".join("%.6f" % v for v in cpu_l),
+               " ".join("%.2e" % g for g in gap), first, later,
+               "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("optimizer %s card vs CPU" % tag)
+    return gaps
+
+
+def check_resume(mx, failures):
+    """``save_states`` after 3 Adam steps of the thumbnail ResNet-18 on
+    the card, ``load_states`` into a fresh Trainer over the same
+    Parameters, 3 more steps: bit for bit the uninterrupted 6
+    (deterministic cuDNN)."""
+    from mxnet_tpu_torch.convert import set_block_params
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(6)
+    x = mx.nd.array(rng.randn(4, 3, 32, 32).astype(np.float32), ctx=ctx)
+    y = mx.nd.array(rng.randint(0, 10, 4).astype(np.float32), ctx=ctx)
+    np.random.seed(6)
+    net = mx.gluon.model_zoo.vision.resnet18_v1(classes=10, thumbnail=True)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net(x)
+    arrays = {k: v.data().asnumpy()
+              for k, v in net._collect_params_with_prefix().items()}
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def steps(tr, n):
+        for _ in range(n):
+            with mx.autograd.record():
+                L = loss_fn(net(x), y)
+            L.backward()
+            tr.step(4)
+
+    def trainer():
+        return mx.gluon.Trainer(net.collect_params(), "adam", {
+            "learning_rate": 1e-3, "wd": 1e-4,
+            "lr_scheduler": mx.lr_scheduler.CosineScheduler(
+                max_update=10, base_lr=1e-3, warmup_steps=2)})
+
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_states_")
+    try:
+        steps(trainer(), 6)
+        want = [v.data().asnumpy() for _, v in
+                sorted(net._collect_params_with_prefix().items())]
+        set_block_params(net, arrays, ctx=ctx)
+        tr = trainer()
+        steps(tr, 3)
+        f = os.path.join(tmp, "adam.states")
+        tr.save_states(f)
+        tr2 = mx.gluon.Trainer(net.collect_params(), "adam")
+        tr2.load_states(f)
+        steps(tr2, 3)
+        got = [v.data().asnumpy() for _, v in
+               sorted(net._collect_params_with_prefix().items())]
+    finally:
+        torch.backends.cudnn.deterministic = flag
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    log("check save_states after 3 Adam steps, load_states into a fresh "
+        "Trainer, 3 more: %d tensors bit for bit the uninterrupted 6 steps "
+        "(deterministic cuDNN): %s  %s"
+        % (len(got), same, "ok" if same else "FAIL"))
+    if not same:
+        failures.append("Trainer save/load resume on the card")
+    return same
+
+
+def sequential_on_card(mx, failures):
+    """The twin of tests/test_symbol_module.py's SequentialModule case on
+    ``mx.gpu(0)``: two chained Modules, Adam (lr 0.05), 10 epochs of 4
+    batches of 16; the accuracy must pass the reference test's 0.8."""
+    ctx = mx.gpu(0)
+    sym = mx.sym
+    np.random.seed(0)
+    body = sym.Activation(sym.FullyConnected(sym.Variable("data"),
+                                             num_hidden=16, name="fc_body"),
+                          act_type="relu", name="act_body")
+    head = sym.SoftmaxOutput(sym.FullyConnected(sym.Variable("data"),
+                                                num_hidden=3,
+                                                name="fc_head"),
+                             name="softmax")
+    seq = mx.mod.SequentialModule()
+    seq.add(mx.mod.Module(body, label_names=[], context=ctx))
+    seq.add(mx.mod.Module(head, label_names=["softmax_label"], context=ctx),
+            take_labels=True)
+    X = np.random.randn(64, 10).astype("float32")
+    Y = X[:, :3].argmax(1).astype("float32")
+    seq.bind(data_shapes=[("data", (16, 10))],
+             label_shapes=[("softmax_label", (16,))])
+    seq.init_params(mx.initializer.Xavier())
+    seq.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": 0.05})
+    metric = mx.metric.create("acc")
+    for _ in range(10):
+        metric.reset()
+        for i in range(0, 64, 16):
+            batch = mx.io.DataBatch(data=[mx.nd.array(X[i:i + 16], ctx=ctx)],
+                                    label=[mx.nd.array(Y[i:i + 16],
+                                                       ctx=ctx)])
+            seq.forward(batch, is_train=True)
+            seq.backward()
+            seq.update()
+            seq.update_metric(metric, batch.label)
+    acc = metric.get()[1]
+    ok = acc > 0.8 and seq.get_outputs()[0].shape == (16, 3)
+    log("check SequentialModule (two Modules, Adam) on the card: accuracy "
+        "%.4f after 10 epochs (> 0.8, the reference test's)  %s"
+        % (acc, "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("SequentialModule on the card")
+    return acc
+
+
+def library_path(mx, failures):
+    """The ``library`` phase, every registered launch counter from 0 (all
+    stay 0: no hand-written kernel is on this path): the op sweep and the
+    samplers on the card (every op name of the registry but ``Custom``
+    must be covered), the ResNet-50 Adam path, the optimizer family and
+    ``multi_precision`` card against CPU, the save/load resume and
+    ``SequentialModule``.  Returns the numbers."""
+    from mxnet_tpu_torch._graphs import kept_launches
+    from mxnet_tpu_torch.ops import registry as reg
+    nums, checked = {}, set()
+    with kept_launches() as (counters, _):
+        for h, a in counters:
+            setattr(h, a, 0)
+        t0 = time.perf_counter()
+        nums["sweep"] = op_sweep(mx, failures, checked)
+        nums["random"] = random_on_card(mx, failures, checked)
+        t_sweep = time.perf_counter() - t0
+        missed = sorted(set(reg.list_ops()) - checked - {"Custom"})
+        log("check op sweep coverage: %d of %d registered op names run on "
+            "the card (Custom aside); missed %s  %s"
+            % (len(checked), len(reg.list_ops()), missed,
+               "ok" if not missed else "FAIL"))
+        if missed:
+            failures.append("op sweep missed %s" % missed)
+        t0 = time.perf_counter()
+        nums["adam"] = adam_path(mx, failures)
+        t_adam = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nums["family"] = check_optimizer_family(mx, failures)
+        t_family = time.perf_counter() - t0
+        nums["resume"] = check_resume(mx, failures)
+        nums["sequential_accuracy"] = sequential_on_card(mx, failures)
+        launches = {"%s.%s" % (getattr(h, "__name__", type(h).__name__), a):
+                    getattr(h, a) for h, a in counters}
+    log("library path launches of the port's kernels: %s (no hand-written "
+        "kernel is on this path)" % json.dumps(launches))
+    if any(launches.values()):
+        failures.append("a hand-written kernel launched on the library "
+                        "path: %s" % json.dumps(launches))
+    log("library phase seconds: sweep and samplers %.1f, ResNet-50 Adam "
+        "%.1f, optimizer family %.1f" % (t_sweep, t_adam, t_family))
+    nums["launches"] = launches
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return nums
+
+
 def main(argv):
     parent = None
     if argv[:1] == ["--parent"] and len(argv) == 2:
@@ -4429,6 +4966,13 @@ def main(argv):
     check_small_module(mx, failures)
 
     phase("module")
+    # ---- 7d. the op library, mx.random, the optimizer family and
+    # SequentialModule, every launch counter from 0 (all stay 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["library"] = library_path(mx, failures)
+
+    phase("library")
     # ---- 7c. bench.py's workload through DataParallelTrainer; the BERT and
     # GPT steps' graphs and pools are freed first (captured again for the
     # profiles below)

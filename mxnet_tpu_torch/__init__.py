@@ -13,7 +13,8 @@ CUDA tensor it launches the hand-written kernel or raises.
 
 The MXNet surface reads as in the reference, ``import mxnet_tpu_torch
 as mx``: ``mx.nd``, ``mx.autograd``, ``mx.gluon``, ``mx.init`` /
-``mx.initializer``, ``mx.optimizer``, ``mx.operator`` (CustomOp),
+``mx.initializer``, ``mx.optimizer``, ``mx.lr_scheduler``, ``mx.random``,
+``mx.operator`` (CustomOp),
 ``mx.rtc`` (CUDA source compiled at run time), ``mx.runtime``,
 ``mx.library``, ``mx.contrib.amp``, ``mx.parallel``
 (``DataParallelTrainer``), the symbolic API (``mx.sym``/``mx.symbol``,
@@ -60,6 +61,7 @@ from . import operator  # noqa: E402  (registers Custom before nd is filled)
 from . import ndarray  # noqa: E402
 from . import ndarray as nd  # noqa: E402
 from . import autograd, initializer, optimizer, gluon  # noqa: E402
+from . import random, lr_scheduler  # noqa: E402
 from . import initializer as init  # noqa: E402
 from . import runtime, library, rtc  # noqa: E402
 from . import contrib, parallel  # noqa: E402

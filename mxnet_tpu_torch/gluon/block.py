@@ -43,7 +43,7 @@ from .._graphs import (GraphCache, Program, no_collection,
 from ..base import MXNetError
 from ..context import Context, cpu
 from ..ndarray.ndarray import NDArray
-from ..ops.registry import invoke, shape_resolve_scope
+from ..ops.registry import device_scope, invoke, shape_resolve_scope
 from .. import symbol as sym
 from .parameter import Parameter, ParameterDict
 
@@ -204,6 +204,14 @@ class Block:
         for name, child in self._children.items():
             ret.update(child._collect_params_with_prefix(prefix + name))
         return ret
+
+    def cast(self, dtype):
+        """Every parameter of the subtree in ``dtype`` (reference
+        ``Block.cast``)."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for param in self._reg_params.values():
+            param.cast(dtype)
 
     def save_parameters(self, filename, deduplicate=False):
         params = self._collect_params_with_prefix()
@@ -490,17 +498,21 @@ class _CachedOp:
     @contextlib.contextmanager
     def _kept(self):
         """The aux values (the parameters without a gradient, which a
-        forward may write) and every gradient as on entry, again on
-        exit: the warm-up runs leave no trace."""
+        forward may write), every gradient and the device's default
+        generator as on entry, again on exit: the warm-up runs leave no
+        trace, and the first replay draws what an eager first call
+        would (the graphs read the generator at each replay)."""
         aux = [t for t in self.bound if not t.requires_grad]
         grads = [g for p in self.params if p._grad is not None
                  for g in p._grad.values()]
         with torch.no_grad():
             values = [t.clone() for t in aux]
             grad_values = [g._data.clone() for g in grads]
+        rng = torch.cuda.get_rng_state(self.device)
         try:
             yield
         finally:
+            torch.cuda.set_rng_state(rng, self.device)
             with torch.no_grad():
                 for t, v in zip(aux, values):
                     t.copy_(v)
@@ -555,6 +567,10 @@ class HybridBlock(Block):
         self._cached_ops = None
         super().hybridize(active, **kwargs)
 
+    def cast(self, dtype):
+        self._cached_ops = None
+        super().cast(dtype)
+
     def _infer_param_shapes(self, *args):
         """Layers fill in deferred parameter shapes from the inputs."""
 
@@ -573,7 +589,9 @@ class HybridBlock(Block):
         return self.forward_raw(*args)
 
     def forward_raw(self, *args):
-        """``hybrid_forward`` on this call's inputs, op by op."""
+        """``hybrid_forward`` on this call's inputs, op by op; ops that
+        create tensors (``F.zeros``, ``F.random_uniform``) put them on
+        the first input's device."""
         self._deferred_init_params(*args)
         ctx = args[0].context if args and hasattr(args[0], "context") \
             else None
@@ -581,7 +599,10 @@ class HybridBlock(Block):
         for k, v in self._reg_params.items():
             d = v._data.get(ctx) if ctx is not None and v._data else None
             params[k] = d if d is not None else v.data()
-        return self.hybrid_forward(nd, *args, **params)
+        if ctx is None:
+            return self.hybrid_forward(nd, *args, **params)
+        with device_scope(args[0]._data.device):
+            return self.hybrid_forward(nd, *args, **params)
 
     def _resolve_deferred(self, *args):
         """Finish deferred initialization across the subtree with one

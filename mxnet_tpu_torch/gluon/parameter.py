@@ -164,6 +164,16 @@ class Parameter:
             self._grad[c] = g
             autograd.mark_variables([d], [g], [self._grad_req])
 
+    def cast(self, dtype):
+        """This parameter's values (and gradients) in ``dtype``."""
+        self.dtype = dtype
+        if self._data is None:
+            return
+        self._data = OrderedDict((c, d.astype(dtype))
+                                 for c, d in self._data.items())
+        if self._grad_req != "null":
+            self._init_grad()
+
     def data(self, ctx=None) -> NDArray:
         self._check_initialized(ctx)
         if ctx is None:

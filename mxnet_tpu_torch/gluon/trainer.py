@@ -3,8 +3,10 @@
 Port of ``mxnet_tpu/gluon/trainer.py``: ``step(batch_size)`` sets the
 optimizer's ``rescale_grad`` to ``scale / batch_size`` and updates each
 parameter through the optimizer's ``Updater``, one tensor at a time, as
-the reference does.  With one context there is nothing to reduce; a
-kvstore over several contexts is not ported.
+the reference does.  ``save_states``/``load_states`` write and read the
+reference's pickle (the states and the optimizer), so either package
+resumes from the other's states.  With one context there is nothing to
+reduce; a kvstore over several contexts is not ported.
 """
 from __future__ import annotations
 
@@ -73,6 +75,9 @@ class Trainer:
     def optimizer(self):
         return self._optimizer
 
+    def set_learning_rate(self, lr):
+        self._optimizer.set_learning_rate(lr)
+
     def allreduce_grads(self):
         """Nothing to reduce with one context."""
         self._contexts = self._check_contexts()
@@ -94,9 +99,23 @@ class Trainer:
             self._updater(i, param.list_grad()[0], param.list_data()[0])
 
     def save_states(self, fname):
-        raise not_ported("Trainer.save_states",
-                         "mxnet_tpu.gluon.trainer.Trainer.save_states")
+        """Write the optimizer's states and the optimizer (the
+        reference's ``dump_optimizer=True`` pickle)."""
+        if self._updater is None:
+            self._updater = opt.get_updater(self._optimizer)
+        with open(fname, "wb") as f:
+            f.write(self._updater.get_states(dump_optimizer=True))
 
     def load_states(self, fname):
-        raise not_ported("Trainer.load_states",
-                         "mxnet_tpu.gluon.trainer.Trainer.load_states")
+        """Read states written by :meth:`save_states` of either package;
+        each state lands on its parameter's context, and the loaded
+        optimizer takes over this Trainer's parameters."""
+        if self._updater is None:
+            self._updater = opt.get_updater(self._optimizer)
+        with open(fname, "rb") as f:
+            states = f.read()
+        contexts = {i: p.list_ctx()[0] for i, p in enumerate(self._params)
+                    if p._data is not None}
+        self._updater.set_states(states, contexts)
+        self._optimizer = self._updater.optimizer
+        self._optimizer.param_dict = dict(enumerate(self._params))

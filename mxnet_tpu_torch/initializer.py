@@ -1,9 +1,10 @@
 """Weight initializers.
 
-Port of ``Initializer``, ``Zero``, ``One``, ``Constant``, ``Uniform``,
-``Normal``, ``Xavier`` and ``MSRAPrelu`` from
-``mxnet_tpu/initializer.py``.  As in the
-reference, values are drawn from numpy's global generator
+Port of ``mxnet_tpu/initializer.py``: ``Initializer``, ``Zero``,
+``One``, ``Constant``, ``Uniform``, ``Normal``, ``Xavier``,
+``MSRAPrelu``, ``Orthogonal``, ``Bilinear``, ``LSTMBias`` and
+``Mixed``.  As in the reference, values are drawn from numpy's global
+generator
 (``np.random``) in the same order and with the same calls, so a run
 seeded with ``np.random.seed`` draws the same numbers in both packages;
 names ending in ``bias``/``beta``/``running_mean`` get zeros and
@@ -19,7 +20,8 @@ import torch
 from .base import MXNetError, Registry
 
 __all__ = ["Initializer", "InitDesc", "Uniform", "Normal", "Zero", "One",
-           "Constant", "Xavier", "MSRAPrelu", "register", "create"]
+           "Constant", "Xavier", "MSRAPrelu", "Orthogonal", "Bilinear",
+           "LSTMBias", "Mixed", "register", "create"]
 
 _REG = Registry("initializer")
 register = _REG.register
@@ -52,10 +54,12 @@ class Initializer:
         name = desc.lower()
         if name.endswith("weight"):
             self._init_weight(desc, arr)
-        elif name.endswith("bias") or name.endswith("beta"):
-            self._init_zero(desc, arr)
+        elif name.endswith("bias"):
+            self._init_bias(desc, arr)
         elif name.endswith("gamma"):
-            self._init_one(desc, arr)
+            self._init_gamma(desc, arr)
+        elif name.endswith("beta"):
+            self._init_beta(desc, arr)
         elif name.endswith("running_mean") or name.endswith("moving_mean"):
             self._init_zero(desc, arr)
         elif name.endswith("running_var") or name.endswith("moving_var"):
@@ -76,6 +80,15 @@ class Initializer:
 
     def _init_one(self, desc, arr):
         self._set(arr, np.ones(arr.shape))
+
+    def _init_bias(self, desc, arr):
+        self._init_zero(desc, arr)
+
+    def _init_gamma(self, desc, arr):
+        self._init_one(desc, arr)
+
+    def _init_beta(self, desc, arr):
+        self._init_zero(desc, arr)
 
     def _init_weight(self, desc, arr):
         raise NotImplementedError
@@ -169,6 +182,81 @@ class MSRAPrelu(Xavier):
         magnitude = 2.0 / (1 + slope ** 2)
         super().__init__("gaussian", factor_type, magnitude)
         self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register("orthogonal")
+class Orthogonal(Initializer):
+    """``scale`` times an orthonormal factor (from the SVD) of a uniform
+    or normal draw, shaped (out, prod(in dims))."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, desc, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = np.random.uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = np.random.normal(0.0, 1.0, (nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        self._set(arr, (self.scale * q).reshape(arr.shape))
+
+
+@register("bilinear")
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel (for ``Deconvolution``)."""
+
+    def _init_weight(self, desc, arr):
+        weight = np.zeros(arr.shape).reshape(-1)
+        shape = arr.shape
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(int(np.prod(shape))):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            weight[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        self._set(arr, weight.reshape(shape))
+
+
+@register("lstmbias")
+class LSTMBias(Initializer):
+    """Forget-gate bias ``forget_bias``, the other gates 0 (gate order
+    i, f, c, o)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        b = np.zeros(arr.shape)
+        num_hidden = arr.shape[0] // 4
+        b[num_hidden:2 * num_hidden] = self.forget_bias
+        self._set(arr, b)
+
+    def _init_bias(self, desc, arr):
+        self._init_weight(desc, arr)
+
+
+class Mixed:
+    """The first initializer whose pattern (a regular expression) matches
+    the parameter's name."""
+
+    def __init__(self, patterns, initializers):
+        import re
+        if len(patterns) != len(initializers):
+            raise MXNetError("patterns and initializers mismatch")
+        self.map = list(zip([re.compile(p) for p in patterns], initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(str(name)):
+                init(name, arr)
+                return
+        raise MXNetError("Parameter %s did not match any pattern" % name)
 
 
 def create(name, **kwargs):

@@ -1,8 +1,9 @@
 """NDArray: MXNet's mutable array over one ``torch.Tensor``.
 
 Port of ``mxnet_tpu/ndarray/ndarray.py`` (creation, host copies,
-context moves, arithmetic through the op registry, indexing and slice
-assignment, ``attach_grad`` /
+context moves, the Python operators and comparisons through the op
+registry, in-place ``+=``/``-=``/``*=``/``/=``, the reference's method
+mirrors of ops, indexing and slice assignment, ``attach_grad`` /
 ``grad`` / ``backward``, and ``save`` / ``load`` in the ``MXTP0001``
 container).  The reference swaps an immutable buffer on every mutation;
 here a mutation writes into the tensor in place (:meth:`NDArray._set_data`
@@ -21,7 +22,8 @@ import torch
 from ..base import MXNetError, numeric_types
 from ..context import Context, cpu, current_context
 
-__all__ = ["NDArray", "array", "zeros", "ones", "save", "load", "waitall"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
+           "concat", "stack", "from_numpy", "save", "load", "waitall"]
 
 # set by profiler.py while memory profiling runs: called with every
 # tensor an NDArray takes (the reference's chunk-buffer hook)
@@ -111,6 +113,14 @@ class NDArray:
     def grad(self):
         return self._grad
 
+    @property
+    def stype(self) -> str:
+        return "default"
+
+    @property
+    def T(self) -> "NDArray":
+        return self.transpose()
+
     # -- sync and host copies ----------------------------------------------
     def wait_to_read(self):
         """Wait until the value is computed (reference
@@ -132,6 +142,27 @@ class NDArray:
             raise MXNetError("The current array is not a scalar")
         return self.asnumpy().reshape(())[()]
 
+    def item(self):
+        return self.asscalar()
+
+    def tolist(self):
+        return self.asnumpy().tolist()
+
+    def __float__(self):
+        return float(self.asscalar())
+
+    def __int__(self):
+        return int(self.asscalar())
+
+    def __len__(self):
+        if self.ndim == 0:
+            raise TypeError("len() of unsized object")
+        return self.shape[0]
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
     def __bool__(self):
         if self.size == 0:
             return False
@@ -148,6 +179,8 @@ class NDArray:
     def as_in_context(self, ctx: Context) -> "NDArray":
         return self if ctx == self.context else self.copyto(ctx)
 
+    as_in_ctx = as_in_context
+
     def copyto(self, other):
         if isinstance(other, Context):
             return NDArray(self._data.detach().to(other.torch_device,
@@ -159,6 +192,27 @@ class NDArray:
 
     def copy(self) -> "NDArray":
         return NDArray(self._data.detach().clone())
+
+    def astype(self, dtype, copy: bool = True) -> "NDArray":
+        """A copy in ``dtype`` (this array when ``copy=False`` and the
+        dtype already matches)."""
+        if not copy and _torch_dtype(dtype) == self._data.dtype:
+            return self
+        return NDArray(self._data.detach().to(_torch_dtype(dtype),
+                                              copy=True))
+
+    def detach(self) -> "NDArray":
+        return NDArray(self._data.detach())
+
+    def tostype(self, stype):
+        if stype != "default":
+            from ..base import not_ported
+            raise not_ported("storage type %r" % stype,
+                             "mxnet_tpu.ndarray.sparse")
+        return self.copy()
+
+    def todense(self):
+        return self.copy()
 
     # -- autograd ----------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
@@ -182,6 +236,10 @@ class NDArray:
                           attrs={"scalar": float(other)})
         return NotImplemented
 
+    def _unop(self, op_name):
+        from ..ops.registry import get_op, invoke
+        return invoke(get_op(op_name), [self])
+
     def __add__(self, other):
         return self._binop(other, "broadcast_add", "_plus_scalar")
 
@@ -204,9 +262,85 @@ class NDArray:
     def __rtruediv__(self, other):
         return self._binop(other, "broadcast_div", "_rdiv_scalar")
 
-    def __neg__(self):
+    def __floordiv__(self, other):
+        return self._binop(other, "_broadcast_floordiv", "_floordiv_scalar")
+
+    def __mod__(self, other):
+        return self._binop(other, "broadcast_mod", "_mod_scalar")
+
+    def __rmod__(self, other):
+        return self._binop(other, "broadcast_mod", "_rmod_scalar")
+
+    def __pow__(self, other):
+        return self._binop(other, "broadcast_power", "_power_scalar")
+
+    def __rpow__(self, other):
+        return self._binop(other, "broadcast_power", "_rpower_scalar")
+
+    def __matmul__(self, other):
         from ..ops.registry import get_op, invoke
-        return invoke(get_op("negative"), [self])
+        return invoke(get_op("_npi_matmul"), [self, other])
+
+    def __neg__(self):
+        return self._unop("negative")
+
+    def __abs__(self):
+        return self._unop("abs")
+
+    # comparisons give an array of 0/1 in this array's dtype; an array
+    # hashes by identity, as in the reference
+    def __eq__(self, other):
+        if other is None:
+            return False
+        return self._binop(other, "broadcast_equal", "_equal_scalar")
+
+    def __ne__(self, other):
+        if other is None:
+            return True
+        return self._binop(other, "broadcast_not_equal",
+                           "_not_equal_scalar")
+
+    def __gt__(self, other):
+        return self._binop(other, "broadcast_greater", "_greater_scalar")
+
+    def __ge__(self, other):
+        return self._binop(other, "broadcast_greater_equal",
+                           "_greater_equal_scalar")
+
+    def __lt__(self, other):
+        return self._binop(other, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, other):
+        return self._binop(other, "broadcast_lesser_equal",
+                           "_lesser_equal_scalar")
+
+    def __hash__(self):
+        return id(self)
+
+    def _inplace(self, other, op_name, scalar_op):
+        """``self op= other``: the result written into this array, refused
+        on a variable while recording."""
+        from .. import autograd
+        if autograd.is_recording() and self._data.requires_grad:
+            raise MXNetError("Inplace update on a recorded array is not "
+                             "allowed under autograd.record()")
+        res = self._binop(other, op_name, scalar_op)
+        if res is NotImplemented:
+            return res
+        self._set_data(res._data)
+        return self
+
+    def __iadd__(self, other):
+        return self._inplace(other, "broadcast_add", "_plus_scalar")
+
+    def __isub__(self, other):
+        return self._inplace(other, "broadcast_sub", "_minus_scalar")
+
+    def __imul__(self, other):
+        return self._inplace(other, "broadcast_mul", "_mul_scalar")
+
+    def __itruediv__(self, other):
+        return self._inplace(other, "broadcast_div", "_div_scalar")
 
     # -- indexing ------------------------------------------------------------
     def __getitem__(self, key):
@@ -235,11 +369,43 @@ class NDArray:
         with torch.no_grad():
             self._data[k] = v
 
+    def _op(self, op_name, **attrs):
+        from ..ops.registry import get_op, invoke
+        return invoke(get_op(op_name), [self], attrs=attrs)
+
     def reshape(self, *shape, **kwargs):
         if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
             shape = tuple(shape[0])
-        from ..ops.registry import get_op, invoke
-        return invoke(get_op("reshape"), [self], attrs={"shape": shape})
+        return self._op("reshape", shape=shape)
+
+    def reshape_like(self, other):
+        return self.reshape(other.shape)
+
+    def expand_dims(self, axis):
+        return self._op("expand_dims", axis=axis)
+
+    def squeeze(self, axis=None):
+        return self._op("squeeze", axis=axis)
+
+    def transpose(self, *axes):
+        if len(axes) == 1 and isinstance(axes[0], (list, tuple)):
+            axes = tuple(axes[0])
+        return self._op("transpose", axes=axes if axes else None)
+
+    def flatten(self):
+        return self._op("Flatten")
+
+    def flip(self, axis):
+        return self._op("flip", axis=axis)
+
+    def tile(self, reps):
+        return self._op("tile", reps=reps)
+
+    def broadcast_to(self, shape):
+        return self._op("broadcast_to", shape=shape)
+
+    def broadcast_like(self, other):
+        return self.broadcast_to(other.shape)
 
 
 def _index_arrays(key):
@@ -267,9 +433,16 @@ def _rebuild_index(key, tensors):
     return one(key)
 
 
-# NDArray methods that mirror registered ops (reference _METHOD_OPS); the
-# ones the port has are installed by ndarray/__init__.py
-_METHOD_OPS = ("sum", "mean", "pick", "softmax", "log_softmax")
+# NDArray methods that mirror registered ops (reference _METHOD_OPS),
+# installed by ndarray/__init__.py
+_METHOD_OPS = (
+    "sum", "mean", "max", "min", "prod", "argmax", "argmin", "abs", "exp",
+    "log", "sqrt", "square", "clip", "round", "floor", "ceil", "sign",
+    "relu", "sigmoid", "tanh", "softmax", "log_softmax", "norm", "sort",
+    "argsort", "topk", "one_hot", "take", "pick", "dot", "split",
+    "slice_axis", "slice_like", "swapaxes", "repeat", "pad", "nansum",
+    "nanprod", "cumsum", "diag", "zeros_like", "ones_like",
+)
 
 
 def _install_methods():
@@ -327,6 +500,44 @@ def zeros(shape, ctx=None, dtype="float32", **kwargs) -> NDArray:
 def ones(shape, ctx=None, dtype="float32", **kwargs) -> NDArray:
     return NDArray(torch.ones(_shape(shape), dtype=_torch_dtype(
         dtype or "float32"), device=_device(ctx)))
+
+
+def full(shape, val, ctx=None, dtype="float32") -> NDArray:
+    return NDArray(torch.full(_shape(shape), val, dtype=_torch_dtype(
+        dtype or "float32"), device=_device(ctx)))
+
+
+def empty(shape, ctx=None, dtype="float32") -> NDArray:
+    """Zeros, as in the reference."""
+    return zeros(shape, ctx=ctx, dtype=dtype)
+
+
+def from_numpy(np_array, zero_copy=False) -> NDArray:
+    """A copy of ``np_array`` on the current context."""
+    return array(np_array)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None,
+           dtype="float32") -> NDArray:
+    """numpy's ``arange`` in ``dtype``, each value ``repeat`` times."""
+    from ..ops.registry import get_op, invoke
+    return invoke(get_op("_arange"), [], attrs={
+        "start": start, "stop": stop, "step": step, "repeat": repeat,
+        "dtype": dtype}, ctx=ctx)
+
+
+def concat(*arrays, dim=1) -> NDArray:
+    from ..ops.registry import get_op, invoke
+    if len(arrays) == 1 and isinstance(arrays[0], (list, tuple)):
+        arrays = arrays[0]
+    return invoke(get_op("Concat"), list(arrays), attrs={"dim": dim})
+
+
+def stack(*arrays, axis=0) -> NDArray:
+    from ..ops.registry import get_op, invoke
+    if len(arrays) == 1 and isinstance(arrays[0], (list, tuple)):
+        arrays = arrays[0]
+    return invoke(get_op("stack"), list(arrays), attrs={"axis": axis})
 
 
 # ---------------------------------------------------------------------------

@@ -2,12 +2,12 @@
 
 Port of ``mxnet_tpu/ndarray/register.py``: a stub takes NDArrays first
 (a list of them is spread, as the reference's variadic calls pass
-``*[w, g, m] * n``), then positional attributes, keyword attributes and
-``out=``.
+``*[w, g, m] * n``), then positional attributes, keyword attributes,
+``out=`` and ``ctx=`` (where an op that creates its tensors puts
+them).
 """
 from __future__ import annotations
 
-from ..base import not_ported
 from ..ops import registry as _registry
 from .ndarray import NDArray
 
@@ -16,9 +16,7 @@ def _make_stub(op):
     def stub(*args, **kwargs):
         out = kwargs.pop("out", None)
         kwargs.pop("name", None)
-        if kwargs.pop("ctx", None) is not None:
-            raise not_ported("ctx= on an op call (creation ops)",
-                             "mxnet_tpu.ops.registry.invoke ctx=")
+        ctx = kwargs.pop("ctx", None)
         flat = []
         for a in args:
             if isinstance(a, (list, tuple)) and a and \
@@ -33,7 +31,7 @@ def _make_stub(op):
             else:
                 pos_attrs.append(a)
         return _registry.invoke(op, arrays, tuple(pos_attrs), kwargs,
-                                out=out)
+                                out=out, ctx=ctx)
 
     stub.__name__ = op.name
     stub.__doc__ = op.doc

@@ -1,4 +1,5 @@
 """The operator library (port of ``mxnet_tpu/ops``): importing this
 package registers every ported op."""
 from . import registry  # noqa: F401
-from . import elemwise, reduce, shape_ops, nn, optimizer_ops  # noqa: F401
+from . import elemwise, creation_ops, reduce, shape_ops, nn  # noqa: F401
+from . import random_ops, linalg, optimizer_ops, contrib_misc  # noqa: F401

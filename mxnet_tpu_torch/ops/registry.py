@@ -6,6 +6,13 @@ Port of ``mxnet_tpu/ops/registry.py`` (``OpDef``, ``register``,
 ``variadic`` op).  :func:`invoke` keeps the reference's contracts:
 
 * ``training_aware`` ops get ``_training=autograd.is_training()``;
+* ``no_grad`` ops (a bool, or a callable of the attrs, as ``topk``'s
+  ``ret_typ``) run with torch's grad mode off, so their outputs come
+  back detached and never enter autograd (integer and index outputs);
+* ``ctx=`` runs the op inside :func:`device_scope` of that context's
+  device: an op that creates its tensors (``_zeros``, ``_arange``, the
+  ``_random_*`` samplers) puts them on :func:`creation_device`, the
+  innermost scope's device, else the current context's;
 * ``needs_rng`` ops take a ``torch.Generator`` (or None: torch's
   default generator of the tensors' device) before their tensors;
   ``invoke`` passes None, a symbolic executor its node's generator;
@@ -44,7 +51,7 @@ from ..engine import Engine
 
 __all__ = ["OpDef", "register", "get_op", "list_ops", "op_exists", "invoke",
            "invoke_impl", "shape_resolve_scope", "in_shape_resolve",
-           "set_cast_hook"]
+           "set_cast_hook", "device_scope", "creation_device"]
 
 _OPS: Dict[str, "OpDef"] = {}
 _RESOLVE = threading.local()
@@ -75,25 +82,50 @@ def shape_resolve_scope():
         _RESOLVE.active -= 1
 
 
+@contextlib.contextmanager
+def device_scope(device):
+    """Ops that create tensors put them on ``device`` inside this scope
+    (the reference's ``jax.default_device`` around ``invoke(ctx=)``)."""
+    stack = _RESOLVE.__dict__.setdefault("devices", [])
+    stack.append(torch.device(device))
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def creation_device() -> torch.device:
+    """The device a creation op's tensors go to: the innermost
+    :func:`device_scope`, else the current context's (the card unless a
+    ``with mx.cpu():`` scope is open)."""
+    stack = getattr(_RESOLVE, "devices", None)
+    if stack:
+        return stack[-1]
+    from ..context import current_context
+    return current_context().torch_device
+
+
 class OpDef:
     """A registered operator: ``name``, ``impl``, ``num_outputs`` (-1:
     attr-dependent), ``mutate`` (indices of mutated inputs, or a
-    callable of the attrs), ``variadic`` (the impl takes one list of
-    tensors), ``needs_rng`` (the impl takes a generator first),
+    callable of the attrs), ``no_grad`` (outputs not differentiable: a
+    bool or a callable of the attrs), ``variadic`` (the impl takes one
+    list of tensors), ``needs_rng`` (the impl takes a generator first),
     ``training_aware`` and ``writes_out`` (the impl takes the ``out=``
     tensors as its ``out`` attr)."""
 
-    __slots__ = ("name", "impl", "num_outputs", "mutate", "variadic",
-                 "aliases", "doc", "needs_rng", "training_aware",
+    __slots__ = ("name", "impl", "num_outputs", "mutate", "no_grad",
+                 "variadic", "aliases", "doc", "needs_rng", "training_aware",
                  "writes_out")
 
-    def __init__(self, name, impl, num_outputs=1, mutate=(), variadic=False,
-                 aliases=(), doc="", needs_rng=False, training_aware=False,
-                 writes_out=False):
+    def __init__(self, name, impl, num_outputs=1, mutate=(), no_grad=False,
+                 variadic=False, aliases=(), doc="", needs_rng=False,
+                 training_aware=False, writes_out=False):
         self.name = name
         self.impl = impl
         self.num_outputs = num_outputs
         self.mutate = mutate if callable(mutate) else tuple(mutate)
+        self.no_grad = no_grad
         self.variadic = variadic
         self.aliases = tuple(aliases)
         self.doc = doc or (impl.__doc__ or "")
@@ -106,15 +138,16 @@ class OpDef:
 
 
 def register(name: Optional[str] = None, aliases: Sequence[str] = (),
-             num_outputs: int = 1, mutate=(), variadic: bool = False,
-             needs_rng: bool = False, training_aware: bool = False,
-             writes_out: bool = False):
+             num_outputs: int = 1, mutate=(), no_grad=False,
+             variadic: bool = False, needs_rng: bool = False,
+             training_aware: bool = False, writes_out: bool = False):
     """Register a torch impl as an op; returns the impl unchanged."""
     def _dec(fn: Callable):
         opname = name or fn.__name__
         op = OpDef(opname, fn, num_outputs=num_outputs, mutate=mutate,
-                   variadic=variadic, aliases=aliases, needs_rng=needs_rng,
-                   training_aware=training_aware, writes_out=writes_out)
+                   no_grad=no_grad, variadic=variadic, aliases=aliases,
+                   needs_rng=needs_rng, training_aware=training_aware,
+                   writes_out=writes_out)
         for n in (opname,) + tuple(aliases):
             if n in _OPS:
                 raise MXNetError("Duplicate op registration: %s" % n)
@@ -179,9 +212,10 @@ def _run(op, arrays, pos_attrs, attrs, recording):
 
 
 def invoke(op: OpDef, inputs: Sequence, pos_attrs=(), attrs=None,
-           out=None):
-    """Run ``op`` on NDArrays ``inputs``; returns an NDArray or a tuple
-    of them (reference ``Imperative::Invoke``)."""
+           out=None, ctx=None):
+    """Run ``op`` on NDArrays ``inputs`` (its created tensors on ``ctx``
+    when given); returns an NDArray or a tuple of them (reference
+    ``Imperative::Invoke``)."""
     from .. import autograd
     from ..ndarray.ndarray import NDArray
 
@@ -189,7 +223,10 @@ def invoke(op: OpDef, inputs: Sequence, pos_attrs=(), attrs=None,
     if op.training_aware and "_training" not in attrs:
         attrs = dict(attrs, _training=autograd.is_training())
     arrays = [i._data if isinstance(i, NDArray) else i for i in inputs]
-    recording = autograd.is_recording()
+    no_grad = op.no_grad
+    if callable(no_grad):
+        no_grad = no_grad(_bind_pos_attrs(op, len(arrays), pos_attrs, attrs))
+    recording = autograd.is_recording() and not no_grad
     if recording and out is not None:
         raise MXNetError("Inplace/out= operations are not supported when "
                          "autograd recording is on (reference semantics).")
@@ -198,12 +235,15 @@ def invoke(op: OpDef, inputs: Sequence, pos_attrs=(), attrs=None,
     if op.writes_out and outs is not None:
         attrs = dict(attrs, out=[o._data for o in outs])
     eng = Engine.get()
-    if eng._op_hooks or eng.synchronous:
-        # the profiler's hook or NaiveEngine: through the engine's push
-        results = eng.push(lambda: _run(op, arrays, pos_attrs, attrs,
-                                        recording), op.name)
-    else:
-        results = _run(op, arrays, pos_attrs, attrs, recording)
+    scope = contextlib.nullcontext() if ctx is None else \
+        device_scope(ctx.torch_device)
+    with scope:
+        if eng._op_hooks or eng.synchronous:
+            # the profiler's hook or NaiveEngine: through the engine's push
+            results = eng.push(lambda: _run(op, arrays, pos_attrs, attrs,
+                                            recording), op.name)
+        else:
+            results = _run(op, arrays, pos_attrs, attrs, recording)
 
     multi = isinstance(results, (tuple, list))
     rlist = list(results) if multi else [results]

@@ -1,0 +1,49 @@
+"""The reductions, sorting and top-k of the port's op library
+(``mxnet_tpu_torch/ops/reduce.py``) against the reference's.
+
+Each case of ``tests/_torch_port.py``'s ``OP_SPECS[...]`` for
+``reduce`` (inputs without ties where order matters) goes through the reference (``mxnet_tpu.nd``) and the port
+(``mxnet_tpu_torch.nd`` on ``mx.cpu()``) from the same numpy inputs:
+outputs, their dtypes (the reference's JAX runs without x64, so a 64-bit
+port result is held against its 32-bit one), the inputs after the call
+(mutated states) and the gradients of the float inputs through each
+package's autograd with the same head gradient, within the case's
+family limit (``_torch_port.TOL``; gradients
+``GRAD_FACTOR`` times it).  Every differentiable case's gradient is
+also held against float64 central differences of the port's plain op
+(``torch.autograd.gradcheck``), and every alias the reference registers
+runs the op's first case under that name in both packages.
+
+The ``cuda`` cases (skipped without a card) run each case through the
+port on the card and on the CPU (TF32 off) within ``CARD_TOL``.
+"""
+import pytest
+
+import _torch_port as T
+from _torch_port import cuda_device  # noqa: F401
+
+SPECS = T.OP_SPECS["reduce"]
+FD = [s for s in SPECS if T.fd_case(s)]
+ALIASES = T.alias_cases(SPECS)
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=repr)
+def test_against_reference(spec):
+    T.check_against_reference(spec)
+
+
+@pytest.mark.parametrize("spec", FD, ids=repr)
+def test_gradient_against_finite_differences(spec):
+    T.check_finite_differences(spec)
+
+
+@pytest.mark.parametrize("spec,alias", ALIASES,
+                         ids=[a for _, a in ALIASES])
+def test_alias_against_reference(spec, alias):
+    T.check_against_reference(spec, name=alias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", SPECS, ids=repr)
+def test_card_against_cpu(spec, cuda_device):
+    T.check_on_card(spec)
