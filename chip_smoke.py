@@ -144,6 +144,25 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    card and on the CPU within FAMILY_LOSS_TOL; ``save_states`` /
    ``load_states`` resuming bit for bit; ``SequentialModule`` with Adam
    on the card past the reference test's accuracy;
+7e. drives recurrent networks (the ``rnn`` phase, after ``library``),
+   every launch counter from 0 (all stay 0: no hand-written kernel is
+   on this path): the fused ``RNN`` op for each mode, 1 and 2 layers,
+   uni- and bidirectional, outputs and gradients on the card against
+   the CPU within RNN_TOL; the cells unrolled against the fused layer
+   whose flat vector packs their weights; ``foreach``, ``while_loop``
+   and ``cond`` in a hybridized block replayed bit for bit against the
+   block op by op; ``mx.sym.RNN`` through a bound executor, card against
+   CPU; MXNet's word language model at full width (WLM_*: 2-layer LSTM
+   650, vocabulary 33,278, tied, dropout 0.5, bs 32 x bptt 35, SGD lr
+   20, ``clip_global_norm``) built from the public API, 20 steps op by
+   op then 20 hybridized (finite loss, the median of the last 5 below
+   the first), 3 captured
+   steps bit for bit against op by op at dropout 0, then the eager and
+   hybridized steps timed in turns with tokens/s, a profiled window each
+   (busy, idle, kernels a step) and the peak memory; and the port's
+   2 x 650 LSTM layer forward + backward, op by op and hybridized,
+   beside cuDNN's (``torch._VF.lstm`` on the same weights as views, a
+   call the port never makes), outputs within YARD_TOL, in turns;
 7b. drives bench.py's workload (the ``bench`` phase; the BERT and GPT
    steps' graphs freed first): ResNet-50 v1 with the space-to-depth
    stem, ``amp=True``, bs 128, through ``DataParallelTrainer.run_steps``
@@ -360,6 +379,27 @@ FAMILY_MP = ("sgd", "nag", "adam", "lamb")
 FAMILY_LOSS_TOL = {"sgd": SMALL_RESNET_LOSS_TOL,
                    "nag": SMALL_RESNET_LOSS_TOL, "other": (1e-5, 1e-3),
                    "float16": (1e-2, 2e-2)}
+
+# the rnn phase.  The word language model: apache/mxnet
+# example/gluon/word_language_model (model.py, train.py) with its README's
+# WikiText-2 command --tied --nhid 650 --emsize 650 --dropout 0.5 and the
+# script's defaults for the rest: a 2-layer LSTM, WikiText-2's vocabulary,
+# batch 32 x bptt 35 (TNC), SGD lr 20, gradients clipped by
+# clip_global_norm at 0.25 x bptt x batch, f32 (TF32 off); depth not cut.
+# The tokens are a seeded Zipf stream over the vocabulary (no dataset is
+# fetched).  The weights are Uniform(0.1): the fused layer's flat
+# parameter vector takes no Xavier (ndim 1), in the reference too.
+WLM_VOCAB, WLM_WIDTH, WLM_LAYERS, WLM_DROPOUT = 33278, 650, 2, 0.5
+WLM_BPTT, WLM_B, WLM_LR, WLM_CLIP = 35, 32, 20.0, 0.25
+WLM_STEPS, WLM_CHECK, WLM_WINDOW, WLM_TURNS, WLM_PROFILE = 20, 3, 10, 2, 5
+# the small card-vs-CPU checks (T, N, input width, hidden): outputs and
+# gradients within RNN_TOL x (1 + |CPU|) (cuBLAS's f32 sums in another
+# order over 5 steps), the cells against the fused layer too
+RNN_SMALL, RNN_TOL = (5, 3, 4, 6), 1e-5
+# the port's LSTM layer against cuDNN's (torch._VF.lstm, never called by
+# the port) at the word LM's shape, on the same weights: outputs within
+# YARD_TOL (35 steps of f32 summed in two orders; |h| < 1)
+YARD_TOL = 1e-4
 
 # bench.py's workload (bench.py:27-52): ResNet-50 v1 with the
 # space-to-depth stem, Xavier from np.random.seed(0), DataParallelTrainer
@@ -4691,6 +4731,482 @@ def library_path(mx, failures):
     return nums
 
 
+def close(name, pairs, failures, tol):
+    """One check over [(got, ref)] tensors: shapes equal, ``got`` finite
+    and within ``tol`` x (1 + |ref|) of ``ref`` (``tol`` 0: bit for bit).
+    Logs the largest error and error / limit; returns the largest
+    error."""
+    err, ratio, ok = 0.0, 0.0, True
+    for g, r in pairs:
+        g, r = g.detach().double().cpu(), r.detach().double().cpu()
+        ok &= tuple(g.shape) == tuple(r.shape) and bool(
+            torch.isfinite(g).all())
+        if not ok:
+            break
+        d = (g - r).abs()
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+        if tol > 0 and d.numel():
+            ratio = max(ratio, float((d / (tol * (1 + r.abs()))).max()))
+    ok &= ratio <= 1.0 if tol > 0 else err == 0.0
+    log("check %-56s max_abs_err %.3e  %s  err/limit %.3f  %s"
+        % (name, err, "tol %.0e*(1+|ref|)" % tol if tol else "bit for bit",
+           ratio, "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append(name)
+    return err
+
+
+def rnn_op_on_card(mx, failures):
+    """The fused op for each mode, 1 and 2 layers, uni- and
+    bidirectional, from initial states: outputs and the gradients of the
+    data, the flat parameters and the states, card against CPU.
+    Returns the largest error."""
+    from mxnet_tpu_torch.ops.rnn_op import rnn_param_size
+    Tn, N, I, H = RNN_SMALL
+    rng = np.random.RandomState(0)
+
+    def run(ctx, arrays, attrs, heads):
+        xs = [mx.nd.array(a, ctx=ctx) for a in arrays]
+        for x in xs:
+            x.attach_grad()
+        with mx.autograd.record():
+            outs = mx.nd.RNN(*xs, **attrs)
+        mx.autograd.backward(list(outs),
+                             [mx.nd.array(h, ctx=ctx) for h in heads])
+        return [o._data for o in outs] + [x.grad._data for x in xs]
+
+    worst = 0.0
+    for mode in ("lstm", "gru", "rnn_tanh", "rnn_relu"):
+        for L, bi in itertools.product((1, 2), (False, True)):
+            D, n_st = 2 if bi else 1, 2 if mode == "lstm" else 1
+            arrays = [rng.randn(Tn, N, I),
+                      rng.uniform(-0.6, 0.6,
+                                  rnn_param_size(mode, L, I, H, bi))]
+            arrays += [rng.randn(L * D, N, H) for _ in range(n_st)]
+            heads = [rng.randn(Tn, N, H * D)] + [rng.randn(L * D, N, H)
+                                                 for _ in range(n_st)]
+            arrays = [a.astype(np.float32) for a in arrays]
+            heads = [h.astype(np.float32) for h in heads]
+            attrs = dict(state_size=H, num_layers=L, mode=mode,
+                         bidirectional=bi, state_outputs=True)
+            worst = max(worst, close(
+                "RNN %s L%d %s, outputs and grads, card vs CPU"
+                % (mode, L, "bi" if bi else "uni"),
+                zip(run(mx.gpu(0), arrays, attrs, heads),
+                    run(mx.cpu(), arrays, attrs, heads)), failures,
+                RNN_TOL))
+    return worst
+
+
+def cells_vs_fused_on_card(mx, failures):
+    """Each mode's cells unrolled on the card (two stacked, and one
+    bidirectional pair) against the fused layer whose flat vector packs
+    their weights and biases: outputs and states.  Returns the largest
+    error."""
+    Tn, N, I, H = RNN_SMALL
+    ctx, rnn = mx.gpu(0), mx.gluon.rnn
+    x = mx.nd.array(np.random.RandomState(1).randn(Tn, N, I)
+                    .astype(np.float32), ctx=ctx)
+
+    def cell(mode, width):
+        if mode == "lstm":
+            return rnn.LSTMCell(H, input_size=width)
+        if mode == "gru":
+            return rnn.GRUCell(H, input_size=width)
+        return rnn.RNNCell(H, activation=mode[4:], input_size=width)
+
+    worst = 0.0
+    for mode, bi in itertools.product(("lstm", "gru", "rnn_tanh"),
+                                      (False, True)):
+        if bi:
+            cells = [cell(mode, I), cell(mode, I)]
+            net = rnn.BidirectionalCell(*cells)
+        else:
+            cells = [cell(mode, I), cell(mode, H)]
+            net = rnn.SequentialRNNCell()
+            for c in cells:
+                net.add(c)
+        net.initialize(mx.init.Uniform(0.5), ctx=ctx)
+        # the fused packing: every weight (W then R) by layer and
+        # direction, then every bias (bW then bR)
+        flat = [getattr(c, k).data()._data.reshape(-1)
+                for names in (("i2h_weight", "h2h_weight"),
+                              ("i2h_bias", "h2h_bias"))
+                for c in cells for k in names]
+        cls = {"lstm": rnn.LSTM, "gru": rnn.GRU}.get(mode, rnn.RNN)
+        extra = {} if mode in ("lstm", "gru") else {"activation": "tanh"}
+        fused = cls(H, 1 if bi else 2, bidirectional=bi, input_size=I,
+                    **extra)
+        fused.initialize(ctx=ctx)
+        fused.parameters.set_data(torch.cat(flat))
+        want, want_st = net.unroll(Tn, x, layout="TNC")
+        got, got_st = fused(x, fused.begin_state(N, ctx=ctx))
+        per = 2 if mode == "lstm" else 1
+        pairs = [(got._data, want._data)] + [
+            (s._data, torch.stack([want_st[j * per + k]._data
+                                   for j in range(2)]))
+            for k, s in enumerate(got_st)]
+        worst = max(worst, close("cells vs fused %s %s (card)" % (
+            mode, "bidirectional" if bi else "2 stacked"), pairs, failures,
+            RNN_TOL))
+    return worst
+
+
+def control_flow_on_card(mx, failures):
+    """foreach, while_loop and cond inside one hybridized block: its
+    forward and backward CUDA graphs replayed on three inputs, bit for
+    bit against the same block op by op, and within RNN_TOL of the
+    CPU."""
+    contrib = mx.nd.contrib
+
+    class Loops(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            outs, h = contrib.foreach(
+                lambda xt, s: (F.tanh(xt + s), F.tanh(xt + s)), x,
+                F.zeros_like(x[0]))
+            w_outs, (v, s) = contrib.while_loop(
+                lambda v, s: s.sum() < 4.0,
+                lambda v, s: (v * 2, (v * 1.1, s + F.abs(v))), [h, h * 0],
+                max_iterations=6)
+            c = contrib.cond(x.sum() > 0, lambda a: a * 3,
+                             lambda a: a - 1, [v])
+            return outs, w_outs, s, c
+
+    def run(net, ctx):
+        res = []
+        for seed in range(3):
+            x = mx.nd.array(np.random.RandomState(seed).randn(4, 3)
+                            .astype(np.float32) * (1 if seed % 2 else -1),
+                            ctx=ctx)
+            x.attach_grad()
+            with mx.autograd.record():
+                outs = net(x)
+                loss = sum((o * o).sum() for o in outs)
+            loss.backward()
+            res += [o._data.clone() for o in outs] + [x.grad._data.clone()]
+        return res
+
+    hyb = Loops()
+    hyb.hybridize()
+    eager, replay = run(Loops(), mx.gpu(0)), run(hyb, mx.gpu(0))
+    cpu = run(Loops(), mx.cpu())
+    close("foreach/while_loop/cond hybridized: replay vs eager (card)",
+          zip(replay, eager), failures, 0)
+    return close("foreach/while_loop/cond on the card vs CPU",
+                 zip(eager, cpu), failures, RNN_TOL)
+
+
+def sym_rnn_on_card(mx, failures):
+    """``mx.sym.RNN`` (2-layer bidirectional LSTM) bound by the
+    executor on the card (its CUDA graphs) and on the CPU: the output
+    and every argument's gradient."""
+    from mxnet_tpu_torch.ops.rnn_op import rnn_param_size
+    Tn, N, I, H = RNN_SMALL
+    rng = np.random.RandomState(2)
+    sym = mx.sym
+    y = sym.RNN(sym.Variable("data"), sym.Variable("rnn_params"),
+                sym.Variable("state"), sym.Variable("state_cell"),
+                state_size=H, num_layers=2, mode="lstm", bidirectional=True,
+                state_outputs=True, name="rnn0")[0]
+    values = {"data": rng.rand(Tn, N, I),
+              "rnn_params": (rng.rand(rnn_param_size("lstm", 2, I, H, True))
+                             - 0.5) * 0.4,
+              "state": 0.1 * rng.randn(4, N, H),
+              "state_cell": 0.1 * rng.randn(4, N, H)}
+    head = rng.randn(Tn, N, 2 * H).astype(np.float32)
+    res = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        args = {k: mx.nd.array(v.astype(np.float32), ctx=ctx)
+                for k, v in values.items()}
+        ex = y.bind(ctx, args, grad_req="write")
+        out = ex.forward(is_train=True)[0]._data.clone()
+        ex.backward(mx.nd.array(head, ctx=ctx))
+        res.append([out] + [ex.grad_dict[k]._data.clone()
+                            for k in sorted(values)])
+    return close("mx.sym.RNN executor, output and grads, card vs CPU",
+                 zip(*res), failures, RNN_TOL)
+
+
+def word_lm_model(mx, dropout):
+    """The word language model as the example's model.py builds it
+    (``--tied``): embedding, dropout, LSTM, dropout, a decoder sharing
+    the embedding's weight."""
+    nn, rnn = mx.gluon.nn, mx.gluon.rnn
+
+    class RNNModel(mx.gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.drop = nn.Dropout(dropout)
+                self.encoder = nn.Embedding(WLM_VOCAB, WLM_WIDTH)
+                self.rnn = rnn.LSTM(WLM_WIDTH, WLM_LAYERS, dropout=dropout,
+                                    input_size=WLM_WIDTH)
+                self.decoder = nn.Dense(WLM_VOCAB, flatten=False,
+                                        in_units=WLM_WIDTH,
+                                        params=self.encoder.params)
+
+        def hybrid_forward(self, F, inputs, hidden):
+            emb = self.drop(self.encoder(inputs))
+            output, hidden = self.rnn(emb, hidden)
+            return self.decoder(self.drop(output)), hidden
+
+    return RNNModel()
+
+
+def wlm_tokens(segments, seed=0):
+    """``segments`` x bptt + 1 rows of WLM_B token streams (the example's
+    batchify layout), each id drawn with probability 1 / rank."""
+    p = 1.0 / np.arange(1, WLM_VOCAB + 1)
+    rng = np.random.RandomState(seed)
+    return rng.choice(WLM_VOCAB, size=(segments * WLM_BPTT + 1, WLM_B),
+                      p=p / p.sum()).astype(np.float32)
+
+
+def wlm_run(mx, data, dropout, seed):
+    """A model on the card from ``np.random.seed(seed)`` and the
+    example's training step over ``data`` (segment after segment):
+    (net, step, its record {"norms": [...]}).  ``step()`` returns the
+    per-token losses."""
+    ctx = mx.gpu(0)
+    np.random.seed(seed)
+    net = word_lm_model(mx, dropout)
+    net.initialize(mx.init.Uniform(0.1), ctx=ctx)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": WLM_LR})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    params = list(net.collect_params().values())
+    n_seg = (data.shape[0] - 1) // WLM_BPTT
+    rec = {"hidden": net.rnn.begin_state(WLM_B, ctx=ctx), "i": 0,
+           "norms": []}
+
+    def step():
+        i = rec["i"] % n_seg
+        rec["i"] += 1
+        x = data[i * WLM_BPTT:(i + 1) * WLM_BPTT]
+        y = data[i * WLM_BPTT + 1:(i + 1) * WLM_BPTT + 1]
+        hidden = [h.detach() for h in rec["hidden"]]
+        with mx.autograd.record():
+            out, hidden = net(x, hidden)
+            L = loss_fn(out.reshape((-1, WLM_VOCAB)), y.reshape((-1,)))
+        L.backward()
+        rec["norms"].append(mx.gluon.utils.clip_global_norm(
+            [p.grad() for p in params], WLM_CLIP * WLM_BPTT * WLM_B))
+        trainer.step(WLM_BPTT * WLM_B)
+        rec["hidden"] = hidden
+        return L
+
+    return net, step, rec
+
+
+def word_lm_path(mx, failures):
+    """The word LM at full width: WLM_STEPS steps op by op, then
+    WLM_STEPS after ``net.hybridize()`` (the forward and backward as
+    CUDA graphs through ``_CachedOp``, one signature), a finite loss
+    that falls; WLM_CHECK steps captured against op by op at dropout 0,
+    bit for bit; then windows of an eager and the hybridized model in
+    turns and a profiled window each.  Returns the numbers."""
+    card = card_line()
+    ctx = mx.gpu(0)
+    data = mx.nd.array(wlm_tokens(2 * WLM_STEPS), ctx=ctx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # earlier phases' live tensors
+    net, step, rec = wlm_run(mx, data, WLM_DROPOUT, 0)
+    n_params = sum(int(np.prod(p.shape))
+                   for p in net.collect_params().values())
+    losses, t_run = [], {}
+    for name in ("eager", "hybridized"):
+        if name == "hybridized":
+            net.hybridize()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WLM_STEPS):
+            losses.append(float(step().mean().asscalar()))
+        t_run[name] = (time.perf_counter() - t0) / WLM_STEPS
+    peak = torch.cuda.max_memory_allocated() - held
+    # lr 20 on a random stream spikes a step now and then: the end is
+    # the median of the last 5 steps
+    ok = all(np.isfinite(losses)) and np.median(losses[-5:]) < losses[0]
+    log("check word LM (%d-layer LSTM %d, vocab %d, tied, dropout %.1f, "
+        "%d parameters) bs %d x bptt %d, SGD lr %g, clip %g: losses at "
+        "steps 1, %d, %d: %.4f %.4f %.4f (finite; the median of the last "
+        "5, %.4f, below step 1's)  %s"
+        % (WLM_LAYERS, WLM_WIDTH, WLM_VOCAB, WLM_DROPOUT, n_params, WLM_B,
+           WLM_BPTT, WLM_LR,
+           WLM_CLIP * WLM_BPTT * WLM_B, WLM_STEPS, 2 * WLM_STEPS,
+           losses[0], losses[WLM_STEPS - 1], losses[-1],
+           np.median(losses[-5:]), "ok" if ok else "FAIL"))
+    log("info: word LM losses, eager %s; hybridized %s; clip norms %s"
+        % (" ".join("%.4f" % v for v in losses[:WLM_STEPS]),
+           " ".join("%.4f" % v for v in losses[WLM_STEPS:]),
+           " ".join("%.1f" % v for v in rec["norms"])))
+    if not ok:
+        failures.append("word LM loss")
+
+    runs = []
+    for hybrid in (False, True):
+        n2, s2, r2 = wlm_run(mx, data, 0.0, 1)
+        if hybrid:
+            n2.hybridize()
+        ls = [s2()._data.clone() for _ in range(WLM_CHECK)]
+        runs.append(ls + [p.data()._data.clone()
+                          for p in n2.collect_params().values()])
+        runs[-1].append(torch.tensor(r2["norms"], dtype=torch.float64))
+        del n2, s2, r2
+    close("word LM %d steps at dropout 0: captured vs eager (losses, "
+          "norms, parameters)" % WLM_CHECK, zip(runs[1], runs[0]),
+          failures, 0)
+    del runs
+
+    _, eager_step, _ = wlm_run(mx, data, WLM_DROPOUT, 2)
+    steps = {"eager": eager_step, "hybridized": step}
+    eager_step()
+    order = ["eager", "hybridized"]
+    times = {m: [] for m in order}
+    for m in (order + order[::-1]) * (WLM_TURNS // 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WLM_WINDOW):
+            steps[m]()
+        torch.cuda.synchronize()
+        times[m].append((time.perf_counter() - t0) / WLM_WINDOW)
+    tokens = WLM_BPTT * WLM_B
+    nums = {"card": card, "parameters": n_params,
+            "losses": [losses[0], losses[WLM_STEPS - 1], losses[-1]],
+            "run_ms_per_step": {k: v * 1e3 for k, v in t_run.items()},
+            "peak_memory_gib": peak / 2**30}
+    for m in order:
+        nums[m] = {"ms_per_step": [t * 1e3 for t in times[m]],
+                   "tokens_per_s": [tokens / t for t in times[m]],
+                   "profile": profile_window(
+                       steps[m], WLM_PROFILE, "word LM train steps, %s" % m)}
+        log("rnn: word LM %s step (bs %d x bptt %d, f32): %s ms, %s "
+            "tokens/s (host clock over %d-step windows, synchronised, in "
+            "turns %s); %s"
+            % (m, WLM_B, WLM_BPTT,
+               " ".join("%.3f" % v for v in nums[m]["ms_per_step"]),
+               " ".join("%.1f" % v for v in nums[m]["tokens_per_s"]),
+               WLM_WINDOW, " ".join((order + order[::-1])
+                                    * (WLM_TURNS // 2)), card))
+    log("rnn: word LM peak memory %.3f GiB over the %.3f GiB held before "
+        "its 40 steps; run ms/step eager %.3f, hybridized %.3f (steps "
+        "21-40, the capture included)"
+        % (peak / 2**30, held / 2**30, t_run["eager"] * 1e3,
+           t_run["hybridized"] * 1e3))
+    del net, step, eager_step, steps
+    return nums
+
+
+def lstm_yardstick(mx, failures):
+    """The port's 2-layer LSTM layer at the word LM's shape (T 35, N 32,
+    650), forward and backward, op by op and hybridized, beside cuDNN's
+    fused LSTM (``torch._VF.lstm``, a library call the port never makes)
+    on the same weights unpacked as views of the flat vector: outputs
+    within YARD_TOL, the three timed in turns.  Returns the numbers."""
+    import warnings
+    from mxnet_tpu_torch.ops.rnn_op import _unpack_params
+    ctx, Tn, N, W = mx.gpu(0), WLM_BPTT, WLM_B, WLM_WIDTH
+    rng = np.random.RandomState(3)
+    x = mx.nd.array(rng.randn(Tn, N, W).astype(np.float32), ctx=ctx)
+    x.attach_grad()
+    h0 = [mx.nd.array(0.1 * rng.randn(WLM_LAYERS, N, W).astype(np.float32),
+                      ctx=ctx) for _ in range(2)]
+    head = mx.nd.array(rng.randn(Tn, N, W).astype(np.float32), ctx=ctx)
+    layers = {}
+    for hybrid in (False, True):
+        np.random.seed(3)
+        layer = mx.gluon.rnn.LSTM(W, WLM_LAYERS, input_size=W)
+        layer.initialize(mx.init.Uniform(0.1), ctx=ctx)
+        if hybrid:
+            layer.hybridize()
+        layers[hybrid] = layer
+
+    def port(layer):
+        def run():
+            with mx.autograd.record():
+                out, _ = layer(x, h0)
+            out.backward(head)
+            return out._data
+        return run
+
+    flat = layers[False].parameters.data()._data
+    weights, biases = _unpack_params(flat, "lstm", WLM_LAYERS, W, W, 1)
+    views = [t for (wr, b) in zip(weights, biases) for t in wr[0] + b[0]]
+    xt = x._data.detach().requires_grad_()
+    hx = tuple(h._data for h in h0)
+
+    def cudnn():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # the views are not one chunk
+            out = torch._VF.lstm(xt, hx, views, True, WLM_LAYERS, 0.0, True,
+                                 False, False)[0]
+        out.backward(head._data)
+        return out
+
+    runs = {"port eager": port(layers[False]),
+            "port hybridized": port(layers[True]), "cudnn": cudnn}
+    outs = {k: fn().detach().clone() for k, fn in runs.items()}
+    err = close("LSTM 2x650 T35 N32: port vs cuDNN (torch._VF.lstm)",
+                [(outs["port eager"], outs["cudnn"])], failures, YARD_TOL)
+    close("LSTM 2x650: hybridized vs eager", [(outs["port hybridized"],
+                                               outs["port eager"])],
+          failures, 0)
+    order = list(runs)
+    times = {k: [] for k in order}
+    for k in order + order[::-1]:
+        for _ in range(2):
+            runs[k]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WLM_WINDOW):
+            runs[k]()
+        torch.cuda.synchronize()
+        times[k].append((time.perf_counter() - t0) * 1e3 / WLM_WINDOW)
+    log("rnn: LSTM 2 x 650 (T %d, N %d, f32) forward + backward ms: %s "
+        "(host clock over %d calls, synchronised, in turns); %s"
+        % (Tn, N, json.dumps({k: [round(v, 3) for v in t]
+                              for k, t in times.items()}), WLM_WINDOW,
+           card_line()))
+    del layers, runs
+    return {"max_abs_err": err, "ms": times}
+
+
+def rnn_path(mx, failures):
+    """The ``rnn`` phase, every registered launch counter from 0 (all
+    stay 0: no hand-written kernel is on this path): the small checks,
+    the word LM and the LSTM yardstick.  Returns the numbers."""
+    from mxnet_tpu_torch._graphs import kept_launches
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nums = {}
+    with kept_launches() as (counters, _):
+        for h, a in counters:
+            setattr(h, a, 0)
+        t0 = time.perf_counter()
+        nums["small"] = {"rnn_op": rnn_op_on_card(mx, failures),
+                         "cells": cells_vs_fused_on_card(mx, failures),
+                         "control_flow": control_flow_on_card(mx, failures),
+                         "sym": sym_rnn_on_card(mx, failures)}
+        t_small = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nums["word_lm"] = word_lm_path(mx, failures)
+        t_wlm = time.perf_counter() - t0
+        nums["yardstick"] = lstm_yardstick(mx, failures)
+        launches = {"%s.%s" % (getattr(h, "__name__", type(h).__name__), a):
+                    getattr(h, a) for h, a in counters}
+    log("rnn path launches of the port's kernels: %s (no hand-written "
+        "kernel is on this path)" % json.dumps(launches))
+    if any(launches.values()):
+        failures.append("a hand-written kernel launched on the rnn path: %s"
+                        % json.dumps(launches))
+    log("rnn phase seconds: small checks %.1f, word LM %.1f"
+        % (t_small, t_wlm))
+    nums["launches"] = launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return nums
+
+
 def main(argv):
     parent = None
     if argv[:1] == ["--parent"] and len(argv) == 2:
@@ -4973,6 +5489,14 @@ def main(argv):
     report["library"] = library_path(mx, failures)
 
     phase("library")
+    # ---- 7e. recurrent networks: the RNN op, gluon.rnn and the control
+    # flow on the card against the CPU, MXNet's word language model at
+    # full width, the LSTM beside cuDNN's; every launch counter from 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["rnn"] = rnn_path(mx, failures)
+
+    phase("rnn")
     # ---- 7c. bench.py's workload through DataParallelTrainer; the BERT and
     # GPT steps' graphs and pools are freed first (captured again for the
     # profiles below)

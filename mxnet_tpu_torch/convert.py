@@ -89,17 +89,28 @@ def to_numpy(tree):
 def set_block_params(block, arrays, ctx=None):
     """Write ``arrays`` ({structural name: array}) into the parameters of
     the port ``Block`` ``block``, BatchNorm running statistics included.
-    Raises ``ValueError`` on a name missing from either side or on a
-    shape mismatch; a parameter not yet initialized (deferred) is created
-    from its value on ``ctx`` (default: the current context)."""
+    A Parameter shared by two blocks (a decoder tied to an embedding)
+    has a name in each, and both must hold the same array.  Raises
+    ``ValueError`` on a name missing from either side, on a shape
+    mismatch or on two different arrays for one shared Parameter; a
+    parameter not yet initialized (deferred) is created from its value
+    on ``ctx`` (default: the current context)."""
     params = block._collect_params_with_prefix()
     missing = sorted(set(params) - set(arrays))
     extra = sorted(set(arrays) - set(params))
     if missing or extra:
         raise ValueError("set_block_params: missing %s, extra %s"
                          % (missing[:8], extra[:8]))
+    first = {}
     for name, p in params.items():
         value = np.asarray(arrays[name])
+        seen = first.setdefault(id(p), (name, value))
+        if seen[0] != name:
+            if not np.array_equal(seen[1], value):
+                raise ValueError("set_block_params: %s and %s name one "
+                                 "shared Parameter but hold different "
+                                 "arrays" % (seen[0], name))
+            continue
         known = p.shape is not None and all(d > 0 for d in p.shape)
         if known and tuple(p.shape) != value.shape:
             raise ValueError("set_block_params: %s has shape %s, the value "

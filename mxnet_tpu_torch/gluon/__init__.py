@@ -1,8 +1,9 @@
 """Gluon, the imperative NN API (port of ``mxnet_tpu/gluon``): blocks,
-parameters, ``SymbolBlock``, layers, losses, the Trainer and the ResNet
-model zoo."""
+parameters, ``SymbolBlock``, layers, recurrent layers and cells, losses,
+utilities, the Trainer and the ResNet model zoo."""
 from .parameter import Parameter, ParameterDict, \
     DeferredInitializationError  # noqa: F401
 from .block import Block, HybridBlock, SymbolBlock  # noqa: F401
 from .trainer import Trainer  # noqa: F401
-from . import nn, loss, model_zoo  # noqa: F401
+from . import nn, rnn, loss, utils, model_zoo  # noqa: F401
+from .utils import split_and_load, split_data  # noqa: F401

@@ -542,8 +542,9 @@ class _CachedOp:
         elif self.device.type != "cuda":
             outs = self._body(*self.bound, *args)
         else:
-            for s, a in zip(self.static, args):
-                s.copy_(a)
+            with torch.no_grad():       # a static input may require grad
+                for s, a in zip(self.static, args):
+                    s.copy_(a)
             outs = [o.clone() for o in self.program()]
         tree, seq = self.out_tree
         result = _unflatten_nds(tree, [NDArray(o) for o in outs])

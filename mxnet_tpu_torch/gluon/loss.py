@@ -1,14 +1,22 @@
-"""Gluon losses: ``Loss``, ``L2Loss`` and ``SoftmaxCrossEntropyLoss``.
+"""Gluon losses.
 
-Port of those classes of ``mxnet_tpu/gluon/loss.py``: the per-sample
-loss, averaged over every axis but ``batch_axis``, with the optional
-``weight`` and ``sample_weight``.
+Port of ``mxnet_tpu/gluon/loss.py``, loss for loss, with the
+reference's formulas: the per-sample loss (averaged over every axis but
+``batch_axis`` where the reference averages), the optional scalar
+``weight`` and the ``sample_weight`` array.
 """
 from __future__ import annotations
 
+import numpy as np
+
+from ..base import MXNetError
 from .block import HybridBlock
 
-__all__ = ["Loss", "L2Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
+__all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
+           "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
+           "KLDivLoss", "CTCLoss", "HuberLoss", "HingeLoss",
+           "SquaredHingeLoss", "LogisticLoss", "TripletLoss",
+           "PoissonNLLLoss", "CosineEmbeddingLoss", "SDMLLoss"]
 
 
 def _apply_weighting(F, loss, weight=None, sample_weight=None):
@@ -49,6 +57,60 @@ class L2Loss(Loss):
         return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
+class L1Loss(Loss):
+    """``|label - pred|`` per element."""
+
+    def __init__(self, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = label.reshape(pred.shape)
+        loss = F.abs(label - pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+def _softrelu_abs(F, pred):
+    """``log(1 + exp(-|pred|))``."""
+    return F.Activation(-F.abs(pred), act_type="softrelu")
+
+
+class SigmoidBinaryCrossEntropyLoss(Loss):
+    """Binary cross-entropy of ``sigmoid(pred)`` (or of ``pred`` itself
+    with ``from_sigmoid``) against ``label`` in [0, 1]; ``pos_weight``
+    weighs the positive term."""
+
+    def __init__(self, from_sigmoid=False, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_sigmoid = from_sigmoid
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None,
+                       pos_weight=None):
+        label = label.reshape(pred.shape)
+        if not self._from_sigmoid:
+            if pos_weight is None:
+                loss = F.relu(pred) - pred * label + _softrelu_abs(F, pred)
+            else:
+                log_weight = 1 + F.broadcast_mul(pos_weight - 1, label)
+                loss = pred - pred * label + log_weight * \
+                    (_softrelu_abs(F, pred) + F.relu(-pred))
+        else:
+            eps = 1e-12
+            if pos_weight is None:
+                loss = -(F.log(pred + eps) * label
+                         + F.log(1. - pred + eps) * (1. - label))
+            else:
+                loss = -(F.broadcast_mul(F.log(pred + eps) * label,
+                                         pos_weight)
+                         + F.log(1. - pred + eps) * (1. - label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+SigmoidBCELoss = SigmoidBinaryCrossEntropyLoss
+
+
 class SoftmaxCrossEntropyLoss(Loss):
     """``-log_softmax(pred)[label]`` per sample (sparse labels), or
     ``-sum(log_softmax(pred) * label)`` with dense ones."""
@@ -73,3 +135,202 @@ class SoftmaxCrossEntropyLoss(Loss):
 
 
 SoftmaxCELoss = SoftmaxCrossEntropyLoss
+
+
+class KLDivLoss(Loss):
+    """``label * (log(label) - pred)``, ``pred`` a log-probability
+    (``from_logits``) or made one by ``log_softmax``."""
+
+    def __init__(self, from_logits=True, axis=-1, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_logits = from_logits
+        self._axis = axis
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        if not self._from_logits:
+            pred = F.log_softmax(pred, axis=self._axis)
+        loss = label * (F.log(label + 1e-12) - pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification over the ``CTCLoss`` op,
+    the blank label last."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        assert layout in ["NTC", "TNC"]
+        assert label_layout in ["NT", "TN"]
+        self._layout = layout
+        self._label_layout = label_layout
+        super().__init__(weight, label_layout.find("N"), **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, 0, 1)
+        if self._batch_axis == 1:
+            label = F.swapaxes(label, 0, 1)
+        loss = F.CTCLoss(pred, label, pred_lengths, label_lengths,
+                         use_data_lengths=pred_lengths is not None,
+                         use_label_lengths=label_lengths is not None,
+                         blank_label="last")
+        return _apply_weighting(F, loss, self._weight, sample_weight)
+
+
+class HuberLoss(Loss):
+    """``|d| - rho/2`` where ``|d| > rho``, else ``d^2 / (2 rho)``."""
+
+    def __init__(self, rho=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._rho = rho
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = label.reshape(pred.shape)
+        loss = F.abs(label - pred)
+        loss = F.where(loss > self._rho, loss - 0.5 * self._rho,
+                       (0.5 / self._rho) * F.square(loss))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class HingeLoss(Loss):
+    """``max(0, margin - pred * label)``, labels -1 or 1."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = label.reshape(pred.shape)
+        loss = F.relu(self._margin - pred * label)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class SquaredHingeLoss(Loss):
+    """``max(0, margin - pred * label)^2``."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = label.reshape(pred.shape)
+        loss = F.square(F.relu(self._margin - pred * label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class LogisticLoss(Loss):
+    """``log(1 + exp(-pred * label))``, labels signed (-1/1) or binary
+    (0/1)."""
+
+    def __init__(self, weight=None, batch_axis=0, label_format="signed",
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._label_format = label_format
+        if self._label_format not in ["signed", "binary"]:
+            raise MXNetError("label_format can only be signed or binary")
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = label.reshape(pred.shape)
+        if self._label_format == "signed":
+            label = (label + 1.0) / 2.0
+        loss = F.relu(pred) - pred * label + _softrelu_abs(F, pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
+
+
+class TripletLoss(Loss):
+    """``max(0, |pos - pred|^2 - |neg - pred|^2 + margin)`` per
+    sample."""
+
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, positive, negative,
+                       sample_weight=None):
+        positive = positive.reshape(pred.shape)
+        negative = negative.reshape(pred.shape)
+        loss = F.sum(F.square(positive - pred) - F.square(negative - pred),
+                     axis=self._batch_axis, exclude=True)
+        loss = F.relu(loss + self._margin)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
+
+
+class PoissonNLLLoss(Loss):
+    """Poisson negative log-likelihood of ``target`` under the rate
+    ``exp(pred)`` (``from_logits``) or ``pred``, with Stirling's term
+    when ``compute_full``; the mean over every element."""
+
+    def __init__(self, weight=None, from_logits=True, batch_axis=0,
+                 compute_full=False, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_logits = from_logits
+        self._compute_full = compute_full
+
+    def hybrid_forward(self, F, pred, target, sample_weight=None,
+                       epsilon=1e-08):
+        target = target.reshape(pred.shape)
+        if self._from_logits:
+            loss = F.exp(pred) - target * pred
+        else:
+            loss = pred - target * F.log(pred + epsilon)
+        if self._compute_full:
+            stirling = target * F.log(target + 1e-12) - target + \
+                0.5 * F.log(2 * target * np.pi + 1e-12)
+            stirling = F.where(target <= 1, F.zeros_like(target), stirling)
+            loss = loss + stirling
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return F.mean(loss)
+
+
+class CosineEmbeddingLoss(Loss):
+    """``1 - cos(input1, input2)`` where ``label`` is 1, else
+    ``max(0, cos - margin)``."""
+
+    def __init__(self, weight=None, batch_axis=0, margin=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, input1, input2, label, sample_weight=None):
+        if input1.ndim > 2:
+            input1 = input1.reshape((-1, input1.shape[-1]))
+        if input2.ndim > 2:
+            input2 = input2.reshape((-1, input2.shape[-1]))
+        cos = F.sum(input1 * input2, axis=-1) / (
+            F.norm(input1, axis=-1) * F.norm(input2, axis=-1) + 1e-12)
+        label = label.reshape((-1,))
+        loss = F.where(label == 1, 1.0 - cos, F.relu(cos - self._margin))
+        return _apply_weighting(F, loss, self._weight, sample_weight)
+
+
+class SDMLLoss(Loss):
+    """Smoothed deep metric learning: the KL divergence of a smoothed
+    identity (``1 - a`` on the diagonal, ``a / (n - 1)`` off it) from
+    the softmax of minus the pairwise squared distances between two
+    batches of paired embeddings; depends on the batch size, as the
+    reference."""
+
+    def __init__(self, smoothing_parameter=0.3, weight=1., batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self.kl_loss = KLDivLoss(from_logits=True)
+        self.smoothing_parameter = smoothing_parameter
+
+    def _compute_distances(self, F, x1, x2):
+        d = F.expand_dims(x1, 1) - F.expand_dims(x2, 0)
+        return F.sum(F.square(d), axis=2)
+
+    def hybrid_forward(self, F, x1, x2):
+        n = x1.shape[0]
+        log_probs = F.log_softmax(-self._compute_distances(F, x1, x2),
+                                  axis=1)
+        gold = F._eye(N=n, M=n)
+        a = self.smoothing_parameter
+        labels = gold * (1 - a) + (1 - gold) * a / max(n - 1, 1)
+        return self.kl_loss(log_probs, labels)

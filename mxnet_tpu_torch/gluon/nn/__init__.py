@@ -1,6 +1,6 @@
-"""Gluon layers (port of ``mxnet_tpu/gluon/nn``, the layers ResNet
-uses)."""
+"""Gluon layers (port of ``mxnet_tpu/gluon/nn``): the activations, the
+basic layers and the convolution layers ResNet uses."""
 from .activations import *  # noqa: F401,F403
 from .basic_layers import *  # noqa: F401,F403
 from .conv_layers import *  # noqa: F401,F403
-from ..block import Block, HybridBlock  # noqa: F401
+from ..block import Block, HybridBlock, SymbolBlock  # noqa: F401

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError, numeric_types
-from ..context import Context, cpu, current_context
+from ..context import Context, cpu
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "concat", "stack", "from_numpy", "save", "load", "waitall"]
@@ -472,7 +472,13 @@ def waitall():
 # creation (reference mx.nd.array/zeros/ones)
 # ---------------------------------------------------------------------------
 def _device(ctx):
-    return (ctx if ctx is not None else current_context()).torch_device
+    """``ctx``'s device, else the creation device: the innermost
+    ``registry.device_scope`` (inside a ``hybrid_forward``, the first
+    input's device), else the current context's."""
+    if ctx is not None:
+        return ctx.torch_device
+    from ..ops.registry import creation_device
+    return creation_device()
 
 
 def array(source_array, ctx=None, dtype=None) -> NDArray:

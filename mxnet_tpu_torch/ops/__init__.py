@@ -3,3 +3,4 @@ package registers every ported op."""
 from . import registry  # noqa: F401
 from . import elemwise, creation_ops, reduce, shape_ops, nn  # noqa: F401
 from . import random_ops, linalg, optimizer_ops, contrib_misc  # noqa: F401
+from . import rnn_op  # noqa: F401

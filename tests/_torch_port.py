@@ -960,18 +960,47 @@ def _contrib_specs():
     ]
 
 
+RNN_SHAPE = (5, 3, 4, 6)          # T, N, input width I, hidden H
+
+
+def rnn_param_size(mode, num_layers, input_size, H, bidirectional=False):
+    """The fused op's packed parameter count (both packages')."""
+    from mxnet_tpu_torch.ops.rnn_op import rnn_param_size as size
+    return size(mode, num_layers, input_size, H, bidirectional)
+
+
+def _rnn_specs():
+    """The fused ``RNN`` (with initial states) and ``_rnn_nostate``, one
+    case for each mode; the recurrence's matmuls, tanh and sigmoid give
+    them the ``transc`` limits (measured worst over 5 steps: 0.30 of the
+    limit, 4.8e-6 absolute in a gradient)."""
+    T, N, I, H = RNN_SHAPE
+    specs = []
+    for mode, L, bi in (("lstm", 2, True), ("gru", 2, True),
+                        ("rnn_tanh", 1, False), ("rnn_relu", 2, True)):
+        D = 2 if bi else 1
+        attrs = {"state_size": H, "num_layers": L, "mode": mode,
+                 "bidirectional": bi}
+        params = _u(rnn_param_size(mode, L, I, H, bi))
+        states = [_n(L * D, N, H)] * (2 if mode == "lstm" else 1)
+        specs.append(Spec("RNN", [_n(T, N, I), params] + states,
+                          dict(attrs, state_outputs=True), fam="transc"))
+        specs.append(Spec("_rnn_nostate", [_n(T, N, I), params], attrs,
+                          fam="transc"))
+    return specs
+
+
 # the op library's specs by the reference module that registers the op
 OP_SPECS = {"elemwise": _elemwise_specs(), "reduce": _reduce_specs(),
             "shape_ops": _shape_specs(), "creation_ops": _creation_specs(),
             "nn": _nn_specs(), "linalg": _linalg_specs(),
-            "contrib_misc": _contrib_specs()}
+            "contrib_misc": _contrib_specs(), "rnn_op": _rnn_specs()}
 
 # reference modules not in this slice of the port, each with its reason
 DEFERRED_MODULES = {
     "vision": "detection/vision ops: ROADMAP.md A.3b, with "
               "examples/ssd_detection.py as their path",
     "vision_ext": "ROADMAP.md A.3b, with vision",
-    "rnn_op": "the fused RNN op goes with gluon.rnn (ROADMAP.md A.3b)",
     "quantization": "int8 quantization flow: ROADMAP.md A.10",
     "_np_ops": "the numpy-compatible _np_* ops (mx.np): ROADMAP.md A.10",
 }

@@ -76,6 +76,6 @@ def test_deferred_modules_are_not_ported_yet():
     """The deferred modules' ops raise ``NotImplementedError`` from
     ``nd`` (``ROADMAP.md`` A.3b, A.10)."""
     import mxnet_tpu_torch as P
-    for name in ("RNN", "ROIPooling", "_contrib_quantize", "_np_sum"):
+    for name in ("ROIPooling", "_contrib_quantize", "_np_sum"):
         with pytest.raises(NotImplementedError, match="not ported"):
             getattr(P.nd, name)
