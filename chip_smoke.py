@@ -163,6 +163,20 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    2 x 650 LSTM layer forward + backward, op by op and hybridized,
    beside cuDNN's (``torch._VF.lstm`` on the same weights as views, a
    call the port never makes), outputs within YARD_TOL, in turns;
+7f. drives the vision zoo (the ``zoo`` phase, after ``rnn``), every
+   launch counter from 0 (all stay 0: no hand-written kernel is on this
+   path): each case of ``tests/_torch_zoo.py``'s ``CONV_CASES`` (the
+   conv, transposed conv, pooling and padding layers) hybridized on the
+   card against the CPU from the same weights, forward and backward,
+   within ``CARD_TOL`` by family; then AlexNet, VGG-16, DenseNet-121,
+   SqueezeNet 1.0, Inception v3 and MobileNet v2 1.0 through
+   ``get_model`` at ImageNet width (ZOO: 1000 classes, 224^2, Inception
+   299^2; bs 64, f32, TF32 off, Dropout 0) under ``gluon.Trainer`` SGD:
+   ZOO_CHECK steps hybridized against op by op bit for bit (outputs,
+   parameters, running statistics, momentum; deterministic cuDNN), the
+   eager and hybridized steps timed in turns with images/s, the
+   hybridized net's loss finite and falling, and a profiled window
+   (busy, idle, kernels a step) for MobileNet v2 and Inception v3;
 7b. drives bench.py's workload (the ``bench`` phase; the BERT and GPT
    steps' graphs freed first): ResNet-50 v1 with the space-to-depth
    stem, ``amp=True``, bs 128, through ``DataParallelTrainer.run_steps``
@@ -400,6 +414,23 @@ RNN_SMALL, RNN_TOL = (5, 3, 4, 6), 1e-5
 # the port) at the word LM's shape, on the same weights: outputs within
 # YARD_TOL (35 steps of f32 summed in two orders; |h| < 1)
 YARD_TOL = 1e-4
+
+# the zoo phase: the six vision families the port gained, each through
+# get_model at ImageNet width (1000 classes, 3 x 224^2; inceptionv3 3 x
+# 299^2), Xavier from np.random.seed, at the Gluon ResNet-50 cell's
+# settings (bs 64, f32, TF32 off) under gluon.Trainer SGD lr 0.01
+# momentum 0.9 wd 1e-4 on one seeded synthetic batch, Dropout rates 0:
+# ZOO_CHECK steps hybridized against op by op bit for bit (deterministic
+# cuDNN), then, captured again with cuDNN's default algorithms and one
+# step each outside the clock, ZOO_WINDOW-step windows eager,
+# hybridized, hybridized, eager, and a profiled window of ZOO_PROFILE
+# hybridized steps for the two families whose structure is new
+# (depthwise convs, concats)
+ZOO = (("alexnet", 224), ("vgg16", 224), ("densenet121", 224),
+       ("squeezenet1.0", 224), ("inceptionv3", 299),
+       ("mobilenetv2_1.0", 224))
+ZOO_B, ZOO_LR, ZOO_CHECK, ZOO_WINDOW, ZOO_PROFILE = 64, 0.01, 3, 5, 3
+ZOO_PROFILED = ("mobilenetv2_1.0", "inceptionv3")
 
 # bench.py's workload (bench.py:27-52): ResNet-50 v1 with the
 # space-to-depth stem, Xavier from np.random.seed(0), DataParallelTrainer
@@ -5207,6 +5238,208 @@ def rnn_path(mx, failures):
     return nums
 
 
+def zoo_nets(mx, name, size, x):
+    """Two copies of ``name`` on the card with the same Xavier weights
+    (the second hybridized), Dropout rates 0, shapes resolved by a
+    predict-mode forward (which moves no running statistic)."""
+    nets = []
+    for hybrid in (False, True):
+        np.random.seed(0)
+        net = mx.gluon.model_zoo.vision.get_model(name)
+
+        def no_dropout(block):
+            if type(block).__name__ == "Dropout":
+                block._rate = 0.0
+        net.apply(no_dropout)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net(x[:1])
+        nets.append(net)
+    for a, b in zip(nets[0].collect_params().values(),
+                    nets[1].collect_params().values()):
+        b.set_data(a.data())
+    nets[1].hybridize()
+    return nets
+
+
+def zoo_step(mx, net, x, y):
+    """A ``gluon.Trainer`` SGD step of ``net`` on (x, y): returns
+    (step(), trainer); step() returns the output and the mean loss."""
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": ZOO_LR, "momentum": 0.9, "wd": 1e-4})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step():
+        with mx.autograd.record():
+            out = net(x)
+            L = loss_fn(out, y)
+        L.backward()
+        trainer.step(ZOO_B)
+        return out, L.mean()
+    return step, trainer
+
+
+def zoo_state(net, trainer):
+    """Parameters (running statistics included) and momentum traces."""
+    return ([p.data()._data.clone() for p in net.collect_params().values()]
+            + [s._data.clone() for _, s in sorted(
+                trainer._updater.states.items()) if s is not None])
+
+
+def zoo_family(mx, name, size, failures):
+    """One family: the captured-vs-eager check, timings in turns, the
+    loss over the hybridized net's steps, and a profile for ZOO_PROFILED.
+    Returns its numbers."""
+    card = card_line()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = mx.nd.NDArray(torch.randn(ZOO_B, 3, size, size, device="cuda",
+                                  generator=g))
+    y = mx.nd.NDArray(torch.randint(0, 1000, (ZOO_B,), device="cuda",
+                                    generator=g).float())
+    t0 = time.perf_counter()
+    nets = zoo_nets(mx, name, size, x)
+    n_params = sum(int(np.prod(p.shape)) for p in
+                   nets[0].collect_params().values() if p.grad_req != "null")
+    steps, runs, losses = [], [], {}
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for net, kind in zip(nets, ("eager", "hybridized")):
+            step, trainer = zoo_step(mx, net, x, y)
+            outs = []
+            losses[kind] = []
+            for _ in range(ZOO_CHECK):
+                out, L = step()
+                outs.append(out._data.clone())
+                losses[kind].append(L._data)
+            runs.append(outs + zoo_state(net, trainer))
+            steps.append(step)
+    finally:
+        torch.backends.cudnn.deterministic = flag
+    close("zoo %s: %d steps hybridized vs op by op (outputs, parameters, "
+          "running statistics, momentum)" % (name, ZOO_CHECK),
+          zip(runs[1], runs[0]), failures, 0)
+    del runs
+    t_check = time.perf_counter() - t0
+    # the graphs were captured with deterministic cuDNN: capture again
+    # with cuDNN's default choices, which the eager steps now make too;
+    # one step each outside the clock
+    nets[1].hybridize()
+    for step in steps:
+        step()
+    order = ["eager", "hybridized"]
+    times = {m: [] for m in order}
+    for m in order + order[::-1]:
+        step = steps[order.index(m)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ZOO_WINDOW):
+            losses[m].append(step()[1]._data)
+        torch.cuda.synchronize()
+        times[m].append((time.perf_counter() - t0) * 1e3 / ZOO_WINDOW)
+    seq = [float(v) for v in losses["hybridized"]]
+    ok = all(np.isfinite(seq)) and np.median(seq[-3:]) < seq[0]
+    log("check zoo %s loss over %d hybridized steps: %s (finite; the "
+        "median of the last 3 below the first)  %s"
+        % (name, len(seq), " ".join("%.4f" % v for v in seq),
+           "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("zoo %s loss" % name)
+    nums = {"card": card, "size": size, "parameters": n_params,
+            "losses": seq, "check_seconds": t_check}
+    for m in order:
+        nums[m] = {"ms_per_step": times[m],
+                   "images_per_s": [ZOO_B * 1e3 / t for t in times[m]]}
+        log("zoo: %s %s step (bs %d x 3 x %d^2, f32): %s ms, %s images/s "
+            "(host clock over %d-step windows, synchronised, in turns "
+            "%s); %s"
+            % (name, m, ZOO_B, size,
+               " ".join("%.3f" % v for v in times[m]),
+               " ".join("%.1f" % v for v in nums[m]["images_per_s"]),
+               ZOO_WINDOW, " ".join(order + order[::-1]), card))
+    if name in ZOO_PROFILED:
+        nums["hybridized"]["profile"] = profile_window(
+            steps[1], ZOO_PROFILE, "%s hybridized train steps" % name)
+    del nets, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return nums
+
+
+def conv_layers_on_card(mx, failures):
+    """Every case of ``tests/_torch_zoo.py``'s ``CONV_CASES`` (the conv,
+    transposed conv, pooling and padding layers this slice added) on the
+    card, hybridized, against the CPU from the same weights, forward and
+    backward, within ``CARD_TOL`` of its family (gradients at
+    ``GRAD_FACTOR`` times it).  Returns the largest error / limit."""
+    from mxnet_tpu_torch.convert import set_block_params
+    tp = op_cases()
+    import _torch_zoo as tz
+    worst, bad = 0.0, []
+    for name, (make, x, fam) in sorted(tz.CONV_CASES.items()):
+        np.random.seed(0)
+        cpu = make(mx)
+        cpu.initialize(mx.init.Uniform(0.5), ctx=mx.cpu())
+        cpu(mx.nd.array(x, ctx=mx.cpu()))
+        card = make(mx)
+        card.initialize(ctx=mx.gpu(0))
+        set_block_params(card, {
+            k: v.data().asnumpy()
+            for k, v in cpu._collect_params_with_prefix().items()},
+            ctx=mx.gpu(0))
+        card.hybridize()
+        want = tz.run_block(mx, cpu, x, mx.cpu())
+        got = tz.run_block(mx, card, x, mx.gpu(0))
+        rtol, atol = tp.CARD_TOL[fam]
+        for k, (a, b) in enumerate(zip(got, want)):
+            f = 1.0 if k == 0 else tp.GRAD_FACTOR
+            lim = atol * f + rtol * f * np.abs(b)
+            r = float((np.abs(a - b) / np.maximum(lim, 1e-30)).max()) \
+                if a.size else 0.0
+            if a.shape != b.shape or not np.isfinite(a).all() or r > 1.0:
+                bad.append("%s[%d]" % (name, k))
+            worst = max(worst, r)
+    log("check zoo conv/pool layers card vs CPU: %d cases (output, input "
+        "and parameter gradients), CARD_TOL by family, worst err/limit "
+        "%.3f; failing %s  %s"
+        % (len(tz.CONV_CASES), worst, bad, "FAIL" if bad else "ok"))
+    if bad:
+        failures.append("zoo conv layers on the card: %s" % bad)
+    return worst
+
+
+def zoo_path(mx, failures):
+    """The ``zoo`` phase, every registered launch counter from 0 (all
+    stay 0: no hand-written kernel is on this path): the conv/pool
+    layers on the card against the CPU, then each family of ZOO.
+    Returns the numbers."""
+    from mxnet_tpu_torch._graphs import kept_launches
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nums = {}
+    with kept_launches() as (counters, _):
+        for h, a in counters:
+            setattr(h, a, 0)
+        nums["conv_layers_err_over_limit"] = conv_layers_on_card(mx,
+                                                                 failures)
+        for name, size in ZOO:
+            t0 = time.perf_counter()
+            nums[name] = zoo_family(mx, name, size, failures)
+            nums[name]["seconds"] = time.perf_counter() - t0
+        launches = {"%s.%s" % (getattr(h, "__name__", type(h).__name__), a):
+                    getattr(h, a) for h, a in counters}
+    log("zoo path launches of the port's kernels: %s (no hand-written "
+        "kernel is on this path)" % json.dumps(launches))
+    if any(launches.values()):
+        failures.append("a hand-written kernel launched on the zoo path: "
+                        "%s" % json.dumps(launches))
+    log("zoo phase seconds (the build and captured-vs-eager check of "
+        "each in brackets): %s" % json.dumps(
+            {k: "%.1f (%.1f)" % (v["seconds"], v["check_seconds"])
+             for k, v in nums.items() if isinstance(v, dict)}))
+    nums["launches"] = launches
+    return nums
+
+
 def main(argv):
     parent = None
     if argv[:1] == ["--parent"] and len(argv) == 2:
@@ -5497,6 +5730,14 @@ def main(argv):
     report["rnn"] = rnn_path(mx, failures)
 
     phase("rnn")
+    # ---- 7f. the vision zoo: the conv/pool layers on the card against
+    # the CPU and six families at ImageNet width through gluon.Trainer;
+    # every launch counter from 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["zoo"] = zoo_path(mx, failures)
+
+    phase("zoo")
     # ---- 7c. bench.py's workload through DataParallelTrainer; the BERT and
     # GPT steps' graphs and pools are freed first (captured again for the
     # profiles below)

@@ -19,8 +19,10 @@ as mx``: ``mx.nd``, ``mx.autograd``, ``mx.gluon``, ``mx.init`` /
 ``mx.library``, ``mx.contrib.amp``, ``mx.parallel``
 (``DataParallelTrainer``), the symbolic API (``mx.sym``/``mx.symbol``,
 ``mx.mod``, ``mx.io``, ``mx.metric``, ``mx.model``, ``mx.callback``,
-``mx.name``, ``mx.AttrScope``), ``mx.cpu()`` and ``mx.gpu(i)``; the
-default context is the card.
+``mx.name``, ``mx.AttrScope``), ``mx.models`` (the transformer and GPT
+train steps), ``mx.profiler``, ``mx.obs``, ``mx.cpu()``,
+``mx.cpu_pinned()``, ``mx.gpu(i)`` and ``mx.num_gpus()``; the default
+context is the card.  ``mx.tpu()`` refuses and ``mx.num_tpus()`` is 0.
 """
 from __future__ import annotations
 
@@ -56,10 +58,12 @@ def resolve_device(device=None):
 
 from . import base  # noqa: E402
 from .base import MXNetError  # noqa: E402,F401
-from .context import Context, cpu, gpu, current_context  # noqa: E402,F401
+from .context import (Context, cpu, gpu, tpu, cpu_pinned,  # noqa: E402,F401
+                      current_context, num_gpus, num_tpus)
 from . import operator  # noqa: E402  (registers Custom before nd is filled)
 from . import ndarray  # noqa: E402
 from . import ndarray as nd  # noqa: E402
+from .ndarray import NDArray  # noqa: E402,F401
 from . import autograd, initializer, optimizer, gluon  # noqa: E402
 from . import random, lr_scheduler  # noqa: E402
 from . import initializer as init  # noqa: E402
@@ -72,3 +76,4 @@ from . import symbol as sym  # noqa: E402
 from . import io, metric, model, callback  # noqa: E402
 from . import module  # noqa: E402
 from . import module as mod  # noqa: E402
+from . import models, profiler, obs  # noqa: E402,F401

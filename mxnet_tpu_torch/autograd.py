@@ -2,7 +2,8 @@
 
 Port of ``mxnet_tpu/autograd.py`` (``record``, ``pause``,
 ``train_mode``/``predict_mode``, ``is_recording``, ``is_training``,
-``mark_variables``, ``backward``).  Where the reference keeps a tape of
+``mark_variables``, ``backward``, ``grad`` and ``Function``).  Where the
+reference keeps a tape of
 ops and replays it under ``jax.vjp``, the tape here is torch's graph:
 ``ops.registry.invoke`` runs an op with torch's grad mode on only while
 recording, a marked variable is a torch leaf that requires grad, and
@@ -10,6 +11,13 @@ recording, a marked variable is a torch leaf that requires grad, and
 variable moves the gradient torch accumulates into the variable's
 gradient buffer by its ``grad_req``: ``write`` replaces the buffer's
 value, ``add`` adds to it, ``null`` asks for no gradient.
+:func:`grad` returns the gradients through ``torch.autograd.grad``
+instead, leaving the buffers alone; with ``create_graph=True`` they are
+on torch's graph themselves, so a gradient of a gradient works wherever
+each op's backward is written in torch ops.  A node whose backward
+launches a hand-written kernel (flash attention, ``Custom``, a
+replayed CUDA graph) is differentiable once: through it a second
+derivative raises instead of coming back as zeros.
 """
 from __future__ import annotations
 
@@ -22,7 +30,7 @@ from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "mark_variables",
-           "backward"]
+           "backward", "grad", "get_symbol", "Function"]
 
 
 class _State(threading.local):
@@ -110,15 +118,12 @@ def _deliver(t, ref):
     t.grad = None
 
 
-def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
-    """Gradients of ``heads`` (NDArrays computed under :func:`record`)
-    with respect to every variable they depend on, written into the
-    variables' gradient buffers.  A missing head gradient is ones."""
+def _heads(heads, head_grads):
+    """The heads' tensors and their head gradients (ones where missing)."""
     if not isinstance(heads, (list, tuple)):
         heads = [heads]
-        if head_grads is not None and not isinstance(head_grads,
-                                                     (list, tuple)):
-            head_grads = [head_grads]
+    if head_grads is not None and not isinstance(head_grads, (list, tuple)):
+        head_grads = [head_grads]
     if head_grads is None:
         head_grads = [None] * len(heads)
     tensors, grads = [], []
@@ -131,4 +136,103 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
         tensors.append(h._data)
         grads.append(torch.ones_like(h._data) if g is None
                      else getattr(g, "_data", g))
+    return tensors, grads
+
+
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
+    """Gradients of ``heads`` (NDArrays computed under :func:`record`)
+    with respect to every variable they depend on, written into the
+    variables' gradient buffers.  A missing head gradient is ones."""
+    tensors, grads = _heads(heads, head_grads)
     torch.autograd.backward(tensors, grads, retain_graph=retain_graph)
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """The gradients of ``heads`` with respect to ``variables`` (marked
+    with ``attach_grad``), returned as NDArrays; the variables'
+    gradient buffers are left as they are.  One variable, not in a
+    list, gives one array.  ``create_graph=True`` puts the gradients on
+    the graph, so they can be differentiated again; ``retain_graph``
+    defaults to ``create_graph``."""
+    from .ndarray.ndarray import NDArray
+    single = not isinstance(variables, (list, tuple))
+    variables = [variables] if single else list(variables)
+    for v in variables:
+        if not v._data.requires_grad:
+            raise MXNetError("grad() variables must be marked "
+                             "(attach_grad/mark_variables)")
+    if retain_graph is None:
+        retain_graph = create_graph
+    tensors, grads = _heads(heads, head_grads)
+    with torch.enable_grad():
+        res = torch.autograd.grad(tensors, [v._data for v in variables],
+                                  grads, retain_graph=retain_graph,
+                                  create_graph=create_graph,
+                                  allow_unused=True)
+    out = [NDArray(torch.zeros_like(v._data.detach()) if g is None
+                   else g if create_graph else g.detach())
+           for v, g in zip(variables, res)]
+    return out[0] if single else out
+
+
+def get_symbol(x):
+    raise MXNetError("autograd.get_symbol is not supported; use "
+                     "HybridBlock.export() for graph extraction.")
+
+
+class _UserFunction(torch.autograd.Function):
+    """A :class:`Function`'s ``forward`` and ``backward`` as one node."""
+
+    @staticmethod
+    def forward(ctx, func, *tensors):
+        from .ndarray.ndarray import NDArray
+        with pause():
+            outs = func.forward(*[NDArray(t) for t in tensors])
+        ctx.func = func
+        func._single = not isinstance(outs, (tuple, list))
+        return tuple(o._data for o in ([outs] if func._single else outs))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        from .ndarray.ndarray import NDArray
+        with pause():
+            res = ctx.func.backward(*[NDArray(g) for g in grads])
+        res = res if isinstance(res, (tuple, list)) else [res]
+        return (None,) + tuple(None if r is None else r._data for r in res)
+
+
+class Function:
+    """A differentiable function written by the user (reference
+    ``autograd.Function``): subclass it with ``forward(self, *inputs)``
+    and ``backward(self, *output_grads)`` on NDArrays, keeping what the
+    backward needs with :meth:`save_for_backward`.  The forward runs
+    under :func:`pause`, as in the reference."""
+
+    def __init__(self):
+        self._saved = ()
+        self._single = True
+
+    def save_for_backward(self, *args):
+        self._saved = args
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+        if not (is_recording()
+                and any(i._data.requires_grad for i in inputs)):
+            with pause():
+                return self.forward(*inputs)
+        outs = [NDArray(t) for t in _UserFunction.apply(
+            self, *[i._data for i in inputs])]
+        return outs[0] if self._single else tuple(outs)

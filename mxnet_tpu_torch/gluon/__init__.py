@@ -1,7 +1,7 @@
 """Gluon, the imperative NN API (port of ``mxnet_tpu/gluon``): blocks,
 parameters, ``SymbolBlock``, layers, recurrent layers and cells, losses,
-utilities, the Trainer and the ResNet model zoo."""
-from .parameter import Parameter, ParameterDict, \
+utilities, the Trainer and the vision model zoo."""
+from .parameter import Parameter, Constant, ParameterDict, \
     DeferredInitializationError  # noqa: F401
 from .block import Block, HybridBlock, SymbolBlock  # noqa: F401
 from .trainer import Trainer  # noqa: F401

@@ -16,6 +16,17 @@ reference's formats.  ``SymbolBlock`` (``imports``) serves such a graph
 as a block: ``forward_raw`` walks it through ``invoke``, so the autograd
 tape and ``hybridize()`` work on it.
 
+Forward hooks and pre-hooks (``register_forward_hook``,
+``register_forward_pre_hook``) fire as often as in the reference: on
+every call of the block they are registered on, and, for the blocks
+inside a hybridized one, only when the reference traces it, which is
+twice for each new signature (its shape trace and its ``jax.jit``
+trace) and once more for the probe that finishes deferred
+initialization.  The port runs the body once for a new signature, with
+the hooks recorded, then calls the recorded hooks a second time; a
+later body run (a replay on the CPU, a warm-up, capture or new replica
+on the card) calls none.
+
 ``hybridize()`` turns on the reference's ``_CachedOp`` layer: the block
 keeps one compiled entry per call signature (input shapes, dtypes and
 devices, training and recording flags, argument tree).  On a CUDA
@@ -34,6 +45,7 @@ import threading
 import weakref
 from collections import OrderedDict
 
+import numpy as np
 import torch
 
 from .. import autograd
@@ -65,6 +77,27 @@ def _tracing():
         yield
     finally:
         _TRACE.depth -= 1
+
+
+@contextlib.contextmanager
+def _hook_scope(calls):
+    """Inside a cached entry's body: the hooks of the blocks it runs are
+    appended to ``calls`` (a list) as they fire, or muted (None)."""
+    old = getattr(_TRACE, "hooks", False)
+    _TRACE.hooks = calls
+    try:
+        yield
+    finally:
+        _TRACE.hooks = old
+
+
+def _fire(hook, *args):
+    calls = getattr(_TRACE, "hooks", False)
+    if calls is None:
+        return
+    if calls is not False:
+        calls.append((hook, args))
+    hook(*args)
 
 
 class _NameManager(threading.local):
@@ -135,6 +168,8 @@ class Block:
         self._scope = _BlockScope(self)
         self._children = OrderedDict()
         self._reg_params = {}
+        self._forward_hooks = OrderedDict()
+        self._forward_pre_hooks = OrderedDict()
 
     def _alias(self):
         return self.__class__.__name__.lower()
@@ -161,6 +196,14 @@ class Block:
         if name is None:
             name = str(len(self._children))
         self._children[name] = block
+
+    def register_forward_hook(self, hook):
+        """``hook(block, args, output)`` after each forward."""
+        self._forward_hooks[len(self._forward_hooks)] = hook
+
+    def register_forward_pre_hook(self, hook):
+        """``hook(block, args)`` before each forward."""
+        self._forward_pre_hooks[len(self._forward_pre_hooks)] = hook
 
     @property
     def prefix(self):
@@ -248,12 +291,44 @@ class Block:
                     raise MXNetError("Parameter '%s' is missing in file"
                                      % name)
 
+    def apply(self, fn):
+        """``fn(block)`` on every descendant, children first, then on
+        this block; returns this block."""
+        for child in self._children.values():
+            child.apply(fn)
+        fn(self)
+        return self
+
     def hybridize(self, active=True, **kwargs):
         for child in self._children.values():
             child.hybridize(active, **kwargs)
 
+    def summary(self, *inputs):
+        """Print one line per block of the subtree (its class, name and
+        parameter count) and the total, as the reference does."""
+        rows = []
+
+        def walk(block, depth):
+            count = sum(int(np.prod(p.shape)) if p.shape else 0
+                        for p in block._reg_params.values())
+            rows.append(("  " * depth + type(block).__name__, block.name,
+                         count))
+            for c in block._children.values():
+                walk(c, depth + 1)
+
+        walk(self, 0)
+        lines = ["%-40s %-30s %12s" % ("Layer", "Name", "Params"), "-" * 84]
+        lines += ["%-40s %-30s %12d" % row for row in rows]
+        lines += ["-" * 84, "Total params: %d" % sum(r[2] for r in rows)]
+        print("\n".join(lines))
+
     def __call__(self, *args, **kwargs):
-        return self.forward(*args, **kwargs)
+        for hook in self._forward_pre_hooks.values():
+            _fire(hook, self, args)
+        out = self.forward(*args, **kwargs)
+        for hook in self._forward_hooks.values():
+            _fire(hook, self, args, out)
+        return out
 
     def forward(self, *args):
         raise NotImplementedError
@@ -444,8 +519,9 @@ class _CachedOp:
     """
 
     def __init__(self, block, params, leaves, tree, training, recording,
-                 device, cache):
+                 device, cache, fire_hooks):
         self.block = block
+        self.fire_hooks = fire_hooks    # at the first body run only
         self.params = params
         self.tree = tree
         self.training = training
@@ -485,11 +561,16 @@ class _CachedOp:
                 p._data = OrderedDict({self._param_nd(p)[0]: NDArray(t)})
             args = _unflatten_nds(self.tree,
                                   [NDArray(t) for t in tensors[n:]])
-            with _tracing(), autograd._scope(self.recording, self.training):
+            calls = [] if self.fire_hooks else None
+            self.fire_hooks = False
+            with _tracing(), _hook_scope(calls), \
+                    autograd._scope(self.recording, self.training):
                 out = self.block.forward_raw(*args)
         finally:
             for p, data in saved:
                 p._data = data
+        for hook, hook_args in calls or ():
+            hook(*hook_args)            # the reference's second trace
         seq = isinstance(out, (list, tuple))
         leaves, tree = _flatten_nds(out if seq else [out])
         self.out_tree = (tree, seq)
@@ -562,15 +643,22 @@ class HybridBlock(Block):
         super().__init__(prefix=prefix, params=params)
         self._active = False
         self._cached_ops = None
+        self._traced = set()
 
     def hybridize(self, active=True, **kwargs):
         self._active = active
         self._cached_ops = None
+        self._traced = set()
         super().hybridize(active, **kwargs)
 
     def cast(self, dtype):
         self._cached_ops = None
+        self._traced = set()
         super().cast(dtype)
+
+    def infer_shape(self, *args):
+        """Fill in the deferred parameter shapes from the inputs."""
+        self._infer_param_shapes(*args)
 
     def _infer_param_shapes(self, *args):
         """Layers fill in deferred parameter shapes from the inputs."""
@@ -626,6 +714,9 @@ class HybridBlock(Block):
                       a._data.requires_grad) for a in leaves),
                autograd.is_training(), autograd.is_recording(),
                _tree_sig(tree))
+        # what the reference's cache is keyed by: a new one is traced
+        traced = (tuple((a.shape, str(a.dtype)) for a in leaves), sig[1],
+                  sig[3])
         if self._cached_ops is None:
             self._cached_ops = GraphCache()
         entry = self._cached_ops.get(sig)
@@ -638,7 +729,9 @@ class HybridBlock(Block):
                 torch.device("cpu")
             entry = self._cached_ops.put(sig, _CachedOp(
                 self, params, leaves, tree, autograd.is_training(),
-                autograd.is_recording(), device, self._cached_ops))
+                autograd.is_recording(), device, self._cached_ops,
+                traced not in self._traced))
+            self._traced.add(traced)
         return entry(leaves)
 
     def hybrid_forward(self, F, x, *args, **kwargs):

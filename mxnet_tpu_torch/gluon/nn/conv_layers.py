@@ -1,81 +1,184 @@
-"""Convolution and pooling layers: ``Conv2D``, ``MaxPool2D`` and
-``GlobalAvgPool2D``.
+"""Convolution, pooling and padding layers.
 
-Port of those classes of ``mxnet_tpu/gluon/nn/conv_layers.py`` (NCHW),
-with the same parameter names and deferred shapes.
+Port of ``mxnet_tpu/gluon/nn/conv_layers.py``: ``Conv1D/2D/3D`` and
+their transposes (``Deconvolution``, whose weight is ``(in,
+out / groups, *kernel)``), max and average pooling in one to three
+dimensions (``ceil_mode`` is the ``full`` convention, average pooling
+counts the padding unless ``count_include_pad=False``), the global
+poolings and ``ReflectionPad2D``, with the reference's parameter names
+and deferred shapes (the input channels come from the first input).
 """
 from __future__ import annotations
 
 from ..block import HybridBlock
 from .activations import Activation
 
-__all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D"]
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
+           "Conv2DTranspose", "Conv3DTranspose", "MaxPool1D", "MaxPool2D",
+           "MaxPool3D", "AvgPool1D", "AvgPool2D", "AvgPool3D",
+           "GlobalMaxPool1D", "GlobalMaxPool2D", "GlobalMaxPool3D",
+           "GlobalAvgPool1D", "GlobalAvgPool2D", "GlobalAvgPool3D",
+           "ReflectionPad2D"]
 
 
 def _tup(v, n):
-    return (v,) * n if isinstance(v, int) else tuple(v)
+    if isinstance(v, int):
+        return (v,) * n
+    return tuple(v)
 
 
 class _Conv(HybridBlock):
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None,
                  use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", prefix=None, params=None):
+                 bias_initializer="zeros", op_name="Convolution",
+                 adj=None, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._channels = channels
         self._in_channels = in_channels
-        self._groups = groups
+        ndim = len(kernel_size)
         self._kwargs = {
             "kernel": kernel_size, "stride": strides, "dilate": dilation,
             "pad": padding, "num_filter": channels, "num_group": groups,
             "no_bias": not use_bias, "layout": layout}
+        if adj is not None:
+            self._kwargs["adj"] = adj
+        self._op_name = op_name
+        self._groups = groups
         with self.name_scope():
-            wshape = (channels, in_channels // groups if in_channels else 0) \
-                + kernel_size
+            if op_name == "Convolution":
+                wshape = (channels, in_channels // groups
+                          if in_channels else 0) + kernel_size
+            else:  # Deconvolution: (in, out/g, *k)
+                wshape = (in_channels, channels // groups) + kernel_size
             self.weight = self.params.get(
                 "weight", shape=wshape, init=weight_initializer,
                 allow_deferred_init=True)
-            self.bias = self.params.get(
-                "bias", shape=(channels,), init=bias_initializer,
-                allow_deferred_init=True) if use_bias else None
-            self.act = Activation(activation, prefix=activation + "_") \
-                if activation is not None else None
+            if use_bias:
+                self.bias = self.params.get(
+                    "bias", shape=(channels,), init=bias_initializer,
+                    allow_deferred_init=True)
+            else:
+                self.bias = None
+            if activation is not None:
+                self.act = Activation(activation, prefix=activation + "_")
+            else:
+                self.act = None
 
     def _infer_param_shapes(self, x, *args):
+        in_ch = x.shape[1]
         if self.weight.shape is None or 0 in self.weight.shape:
-            self.weight.shape = (self._channels, x.shape[1] // self._groups) \
-                + tuple(self._kwargs["kernel"])
-        if self.bias is not None and (self.bias.shape is None
-                                      or 0 in self.bias.shape):
+            k = self._kwargs["kernel"]
+            if self._op_name == "Convolution":
+                self.weight.shape = (self._channels,
+                                     in_ch // self._groups) + tuple(k)
+            else:
+                self.weight.shape = (in_ch,
+                                     self._channels // self._groups) + \
+                    tuple(k)
+        if self.bias is not None and (self.bias.shape is None or
+                                      0 in self.bias.shape):
             self.bias.shape = (self._channels,)
 
     def hybrid_forward(self, F, x, weight=None, bias=None):
+        op = getattr(F, self._op_name)
         if bias is None:
-            out = F.Convolution(x, weight, **self._kwargs)
+            out = op(x, weight, **self._kwargs)
         else:
-            out = F.Convolution(x, weight, bias, **self._kwargs)
-        return self.act(out) if self.act is not None else out
+            out = op(x, weight, bias, **self._kwargs)
+        if self.act is not None:
+            out = self.act(out)
+        return out
 
     def __repr__(self):
-        return "%s(%s, kernel_size=%s)" % (type(self).__name__,
-                                           self._channels,
-                                           self._kwargs["kernel"])
+        return "%s(%s, kernel_size=%s)" % (
+            type(self).__name__, self._channels, self._kwargs["kernel"])
+
+
+class Conv1D(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 dilation=1, groups=1, layout="NCW", activation=None,
+                 use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        kernel_size = _tup(kernel_size, 1)
+        super().__init__(channels, kernel_size, _tup(strides, 1),
+                         _tup(padding, 1), _tup(dilation, 1), groups,
+                         layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer, **kwargs)
 
 
 class Conv2D(_Conv):
-    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
-                 dilation=(1, 1), groups=1, layout="NCHW", activation=None,
-                 use_bias=True, weight_initializer=None,
+    def __init__(self, channels, kernel_size, strides=(1, 1),
+                 padding=(0, 0), dilation=(1, 1), groups=1, layout="NCHW",
+                 activation=None, use_bias=True, weight_initializer=None,
                  bias_initializer="zeros", in_channels=0, **kwargs):
-        super().__init__(channels, _tup(kernel_size, 2), _tup(strides, 2),
-                         _tup(padding, 2), _tup(dilation, 2), groups, layout,
-                         in_channels, activation, use_bias,
+        kernel_size = _tup(kernel_size, 2)
+        super().__init__(channels, kernel_size, _tup(strides, 2),
+                         _tup(padding, 2), _tup(dilation, 2), groups,
+                         layout, in_channels, activation, use_bias,
                          weight_initializer, bias_initializer, **kwargs)
+
+
+class Conv3D(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), dilation=(1, 1, 1), groups=1,
+                 layout="NCDHW", activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, **kwargs):
+        kernel_size = _tup(kernel_size, 3)
+        super().__init__(channels, kernel_size, _tup(strides, 3),
+                         _tup(padding, 3), _tup(dilation, 3), groups,
+                         layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer, **kwargs)
+
+
+class Conv1DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, layout="NCW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        kernel_size = _tup(kernel_size, 1)
+        super().__init__(channels, kernel_size, _tup(strides, 1),
+                         _tup(padding, 1), _tup(dilation, 1), groups,
+                         layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer,
+                         op_name="Deconvolution",
+                         adj=_tup(output_padding, 1), **kwargs)
+
+
+class Conv2DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1),
+                 padding=(0, 0), output_padding=(0, 0), dilation=(1, 1),
+                 groups=1, layout="NCHW", activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, **kwargs):
+        kernel_size = _tup(kernel_size, 2)
+        super().__init__(channels, kernel_size, _tup(strides, 2),
+                         _tup(padding, 2), _tup(dilation, 2), groups,
+                         layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer,
+                         op_name="Deconvolution",
+                         adj=_tup(output_padding, 2), **kwargs)
+
+
+class Conv3DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), output_padding=(0, 0, 0),
+                 dilation=(1, 1, 1), groups=1, layout="NCDHW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        kernel_size = _tup(kernel_size, 3)
+        super().__init__(channels, kernel_size, _tup(strides, 3),
+                         _tup(padding, 3), _tup(dilation, 3), groups,
+                         layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer,
+                         op_name="Deconvolution",
+                         adj=_tup(output_padding, 3), **kwargs)
 
 
 class _Pooling(HybridBlock):
     def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
-                 pool_type, layout, **kwargs):
+                 pool_type, layout, count_include_pad=None, **kwargs):
         super().__init__(**kwargs)
         if strides is None:
             strides = pool_size
@@ -83,6 +186,8 @@ class _Pooling(HybridBlock):
             "kernel": pool_size, "stride": strides, "pad": padding,
             "global_pool": global_pool, "pool_type": pool_type,
             "pooling_convention": "full" if ceil_mode else "valid"}
+        if count_include_pad is not None:
+            self._kwargs["count_include_pad"] = count_include_pad
 
     def _alias(self):
         return "pool"
@@ -96,6 +201,15 @@ class _Pooling(HybridBlock):
             self._kwargs["stride"], self._kwargs["pad"])
 
 
+class MaxPool1D(_Pooling):
+    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW",
+                 ceil_mode=False, **kwargs):
+        super().__init__(_tup(pool_size, 1),
+                         _tup(strides, 1) if strides is not None else None,
+                         _tup(padding, 1), ceil_mode, False, "max", layout,
+                         **kwargs)
+
+
 class MaxPool2D(_Pooling):
     def __init__(self, pool_size=(2, 2), strides=None, padding=0,
                  layout="NCHW", ceil_mode=False, **kwargs):
@@ -105,7 +219,86 @@ class MaxPool2D(_Pooling):
                          **kwargs)
 
 
+class MaxPool3D(_Pooling):
+    def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
+                 layout="NCDHW", ceil_mode=False, **kwargs):
+        super().__init__(_tup(pool_size, 3),
+                         _tup(strides, 3) if strides is not None else None,
+                         _tup(padding, 3), ceil_mode, False, "max", layout,
+                         **kwargs)
+
+
+class AvgPool1D(_Pooling):
+    def __init__(self, pool_size=2, strides=None, padding=0, layout="NCW",
+                 ceil_mode=False, count_include_pad=True, **kwargs):
+        super().__init__(_tup(pool_size, 1),
+                         _tup(strides, 1) if strides is not None else None,
+                         _tup(padding, 1), ceil_mode, False, "avg", layout,
+                         count_include_pad, **kwargs)
+
+
+class AvgPool2D(_Pooling):
+    def __init__(self, pool_size=(2, 2), strides=None, padding=0,
+                 layout="NCHW", ceil_mode=False, count_include_pad=True,
+                 **kwargs):
+        super().__init__(_tup(pool_size, 2),
+                         _tup(strides, 2) if strides is not None else None,
+                         _tup(padding, 2), ceil_mode, False, "avg", layout,
+                         count_include_pad, **kwargs)
+
+
+class AvgPool3D(_Pooling):
+    def __init__(self, pool_size=(2, 2, 2), strides=None, padding=0,
+                 layout="NCDHW", ceil_mode=False, count_include_pad=True,
+                 **kwargs):
+        super().__init__(_tup(pool_size, 3),
+                         _tup(strides, 3) if strides is not None else None,
+                         _tup(padding, 3), ceil_mode, False, "avg", layout,
+                         count_include_pad, **kwargs)
+
+
+class GlobalMaxPool1D(_Pooling):
+    def __init__(self, layout="NCW", **kwargs):
+        super().__init__((1,), None, (0,), True, True, "max", layout,
+                         **kwargs)
+
+
+class GlobalMaxPool2D(_Pooling):
+    def __init__(self, layout="NCHW", **kwargs):
+        super().__init__((1, 1), None, (0, 0), True, True, "max", layout,
+                         **kwargs)
+
+
+class GlobalMaxPool3D(_Pooling):
+    def __init__(self, layout="NCDHW", **kwargs):
+        super().__init__((1, 1, 1), None, (0, 0, 0), True, True, "max",
+                         layout, **kwargs)
+
+
+class GlobalAvgPool1D(_Pooling):
+    def __init__(self, layout="NCW", **kwargs):
+        super().__init__((1,), None, (0,), True, True, "avg", layout,
+                         **kwargs)
+
+
 class GlobalAvgPool2D(_Pooling):
     def __init__(self, layout="NCHW", **kwargs):
         super().__init__((1, 1), None, (0, 0), True, True, "avg", layout,
                          **kwargs)
+
+
+class GlobalAvgPool3D(_Pooling):
+    def __init__(self, layout="NCDHW", **kwargs):
+        super().__init__((1, 1, 1), None, (0, 0, 0), True, True, "avg",
+                         layout, **kwargs)
+
+
+class ReflectionPad2D(HybridBlock):
+    def __init__(self, padding=0, **kwargs):
+        super().__init__(**kwargs)
+        if isinstance(padding, int):
+            padding = (0, 0, 0, 0, padding, padding, padding, padding)
+        self._padding = padding
+
+    def hybrid_forward(self, F, x):
+        return F.pad(x, mode="reflect", pad_width=self._padding)

@@ -4,7 +4,10 @@ Port of ``mxnet_tpu/gluon/parameter.py``: deferred initialization (the
 shape is filled in by the first forward), per-context copies,
 ``grad_req`` (``write``/``add``/``null``), ``lr_mult``/``wd_mult``, and
 ``data``/``list_data``/``grad``/``list_grad``/``set_data``/``zero_grad``
-and ``var`` (the parameter as a Symbol variable).
+and ``var`` (the parameter as a Symbol variable); ``Constant``, a
+parameter without a gradient that holds a given value; and
+``ParameterDict.save``/``load`` in the ``.params`` format, keyed by the
+parameters' full names.
 Initial values are drawn on the CPU, as in the reference, and copied to
 each context; every copy with a gradient is an autograd variable.
 """
@@ -21,7 +24,8 @@ from ..base import MXNetError
 from ..context import Context, cpu, current_context
 from ..ndarray.ndarray import NDArray
 
-__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
+__all__ = ["DeferredInitializationError", "Parameter", "Constant",
+           "ParameterDict"]
 
 
 class DeferredInitializationError(MXNetError):
@@ -257,6 +261,27 @@ class Parameter:
                                                        self.dtype)
 
 
+class Constant(Parameter):
+    """A parameter that holds ``value`` and takes no gradient (reference
+    ``gluon.Constant``)."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, NDArray):
+            value = nd.array(value, ctx=cpu())
+        self.value = value
+
+        class _Init(initializer.Initializer):
+            def _init_weight(self2, desc, arr):
+                self2._set(arr, value.asnumpy())
+
+            def _init_default(self2, desc, arr):
+                self2._init_weight(desc, arr)
+
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=str(value.dtype), init=_Init(),
+                         differentiable=False)
+
+
 class ParameterDict:
     """Name -> Parameter mapping with a prefix and sharing (reference
     ``ParameterDict``)."""
@@ -319,6 +344,19 @@ class ParameterDict:
                     param.shape = v
         return param
 
+    def get_constant(self, name, value=None) -> Constant:
+        """The constant ``prefix + name``, made from ``value`` when this
+        dict (or the one it shares) has none."""
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            if value is None:
+                raise MXNetError("No constant named '%s'. Please specify "
+                                 "value." % name)
+            param = Constant(name, value)
+            self._params[name] = param
+        return param
+
     def update(self, other):
         for k, v in other.items():
             if k in self._params and self._params[k] is not v:
@@ -341,6 +379,56 @@ class ParameterDict:
     def reset_ctx(self, ctx):
         for v in self.values():
             v.reset_ctx(ctx)
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` (``grad_req``, ``lr_mult``, ...) of every
+        parameter."""
+        for v in self.values():
+            setattr(v, name, value)
+
+    def save(self, filename, strip_prefix=""):
+        """Write every parameter's value to ``filename`` keyed by its full
+        name less ``strip_prefix`` (what ``load`` and
+        ``Block.load_parameters`` of either package read)."""
+        arg_dict = {}
+        for param in self.values():
+            if not param.name.startswith(strip_prefix):
+                raise MXNetError(
+                    "Prefix '%s' is to be striped before saving, but "
+                    "Parameter's name '%s' does not start with it"
+                    % (strip_prefix, param.name))
+            arg_dict[param.name[len(strip_prefix):]] = \
+                param.data().copyto(cpu())
+        nd.save(filename, arg_dict)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Read a file :meth:`save` wrote (names prefixed with
+        ``restore_prefix``) into these parameters, initializing on
+        ``ctx`` those that have no value yet."""
+        arg_dict = nd.load(filename)
+        if not isinstance(arg_dict, dict):
+            raise MXNetError("Cannot load from format without names")
+        arg_dict = {restore_prefix + k: v for k, v in arg_dict.items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in arg_dict:
+                    raise MXNetError(
+                        "Parameter '%s' is missing in file '%s'"
+                        % (name[len(restore_prefix):], filename))
+        for name, value in arg_dict.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise MXNetError(
+                        "Parameter '%s' loaded from file '%s' is not "
+                        "present in ParameterDict"
+                        % (name[len(restore_prefix):], filename))
+                continue
+            param = self[name]
+            if param._data is None:
+                param._init_from_value(value, ctx=ctx)
+            else:
+                param.set_data(value)
 
     def __repr__(self):
         return "%s(\n%s)" % (type(self).__name__, "".join(

@@ -89,6 +89,13 @@ class Trainer:
         self.allreduce_grads()
         self._update(ignore_stale_grad)
 
+    def update(self, batch_size, ignore_stale_grad=False):
+        """The update of :meth:`step` without its gradient reduction, for
+        gradients already reduced (``allreduce_grads``) and perhaps
+        clipped by the caller."""
+        self._optimizer.rescale_grad = self._scale / batch_size
+        self._update(ignore_stale_grad)
+
     def _update(self, ignore_stale_grad=False):
         if self._updater is None:
             self._updater = opt.get_updater(self._optimizer)

@@ -345,6 +345,7 @@ class _Flash(torch.autograd.Function):
         return out
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         q, k, v, mask, seed, out, lse = ctx.saved_tensors
         g = _aligned(g)

@@ -24,6 +24,8 @@ from .base import MXNetError
 
 __all__ = ["load", "loaded_libs"]
 
+LIB_API_VERSION = 1
+
 _loaded = {}
 
 

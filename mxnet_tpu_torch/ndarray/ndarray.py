@@ -44,10 +44,20 @@ def _torch_dtype(dtype):
 class NDArray:
     """Multi-dimensional array with MXNet's mutation semantics."""
 
-    __slots__ = ("_data", "_grad", "_grad_req", "_hook", "__weakref__")
+    __slots__ = ("_data", "_version", "_grad", "_grad_req", "_hook",
+                 "__weakref__")
 
-    def __init__(self, data: torch.Tensor):
+    def __init__(self, data, ctx: Context = None):
+        """An array over ``data``: a tensor (taken as it is), an NDArray
+        (its tensor) or anything numpy reads (copied, float64 made
+        float32 as :func:`array` does); ``ctx`` moves it there."""
+        if not isinstance(data, torch.Tensor):
+            data = data._data if isinstance(data, NDArray) \
+                else array(data, ctx=ctx)._data
+        if ctx is not None:
+            data = _place(data, ctx)
         self._data = data
+        self._version = 0
         self._grad = None
         self._grad_req = "null"
         self._hook = None
@@ -59,6 +69,7 @@ class NDArray:
         device match (a variable always), else by taking the tensor."""
         if new is self._data:
             return
+        self._version += 1
         d = self._data
         if (new.shape == d.shape and new.dtype == d.dtype
                 and new.device == d.device):
@@ -112,6 +123,11 @@ class NDArray:
     @property
     def grad(self):
         return self._grad
+
+    @property
+    def version(self) -> int:
+        """How many times this array was written to in place."""
+        return self._version
 
     @property
     def stype(self) -> str:
@@ -183,8 +199,8 @@ class NDArray:
 
     def copyto(self, other):
         if isinstance(other, Context):
-            return NDArray(self._data.detach().to(other.torch_device,
-                                                  copy=True))
+            return NDArray(_place(self._data.detach().to(
+                other.torch_device, copy=True), other))
         if isinstance(other, NDArray):
             other._set_data(self._data.detach().to(other._data.device))
             return other
@@ -368,6 +384,7 @@ class NDArray:
         v = value._data if isinstance(value, NDArray) else value
         with torch.no_grad():
             self._data[k] = v
+        self._version += 1
 
     def _op(self, op_name, **attrs):
         from ..ops.registry import get_op, invoke
@@ -481,6 +498,14 @@ def _device(ctx):
     return creation_device()
 
 
+def _place(t, ctx):
+    """``t`` on ``ctx``'s device, page-locked for ``cpu_pinned``."""
+    t = t.to(ctx.torch_device)
+    if ctx.device_type == "cpu_pinned" and not t.is_pinned():
+        t = t.pin_memory()
+    return t
+
+
 def array(source_array, ctx=None, dtype=None) -> NDArray:
     """An array on ``ctx`` (default: the current context) holding a copy
     of ``source_array``; float64 sources become float32 unless
@@ -491,7 +516,7 @@ def array(source_array, ctx=None, dtype=None) -> NDArray:
     if a.dtype == np.float64 and dtype is None:
         a = a.astype(np.float32)
     return NDArray(torch.from_numpy(np.array(a, copy=True))
-                   .to(_device(ctx)))
+                   .to(_device(ctx)), ctx)
 
 
 def _shape(shape):
@@ -500,17 +525,17 @@ def _shape(shape):
 
 def zeros(shape, ctx=None, dtype="float32", **kwargs) -> NDArray:
     return NDArray(torch.zeros(_shape(shape), dtype=_torch_dtype(
-        dtype or "float32"), device=_device(ctx)))
+        dtype or "float32"), device=_device(ctx)), ctx)
 
 
 def ones(shape, ctx=None, dtype="float32", **kwargs) -> NDArray:
     return NDArray(torch.ones(_shape(shape), dtype=_torch_dtype(
-        dtype or "float32"), device=_device(ctx)))
+        dtype or "float32"), device=_device(ctx)), ctx)
 
 
 def full(shape, val, ctx=None, dtype="float32") -> NDArray:
     return NDArray(torch.full(_shape(shape), val, dtype=_torch_dtype(
-        dtype or "float32"), device=_device(ctx)))
+        dtype or "float32"), device=_device(ctx)), ctx)
 
 
 def empty(shape, ctx=None, dtype="float32") -> NDArray:

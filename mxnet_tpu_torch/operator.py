@@ -136,6 +136,7 @@ class _CustomFunction(torch.autograd.Function):
         return outs
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, *grads):
         from . import autograd
         from .ndarray.ndarray import NDArray

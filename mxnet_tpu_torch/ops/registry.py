@@ -256,6 +256,8 @@ def invoke(op: OpDef, inputs: Sequence, pos_attrs=(), attrs=None,
         if isinstance(inputs[idx], NDArray) and not resolving:
             inputs[idx]._set_data(new)
     rlist = rlist[:n_out]
+    if ctx is not None and ctx.device_type == "cpu_pinned":
+        rlist = [r.pin_memory() for r in rlist]
 
     if outs is not None and resolving:
         return out

@@ -364,15 +364,16 @@ def sequence_reverse(data, sequence_length=None, use_sequence_length=False,
 
 def _pad_rows(n, lo, hi, mode, device):
     """numpy's source rows of ``edge`` or ``reflect`` padding of an axis
-    of size ``n`` by ``lo`` before and ``hi`` after."""
-    j = np.arange(-lo, n + hi)
+    of size ``n`` by ``lo`` before and ``hi`` after, made on ``device``
+    (a host-to-device copy would break a CUDA graph's capture)."""
+    j = torch.arange(-lo, n + hi, device=device)
     if mode == "edge":
-        rows = np.clip(j, 0, n - 1)
-    else:
-        period = 2 * (n - 1)
-        r = np.abs(j) % period if period else np.zeros_like(j)
-        rows = np.where(r >= n, period - r, r)
-    return torch.as_tensor(rows, dtype=torch.long, device=device)
+        return j.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    if not period:
+        return torch.zeros_like(j)
+    r = j.abs() % period
+    return torch.where(r >= n, period - r, r)
 
 
 @register("pad", aliases=("Pad",))

@@ -1670,3 +1670,17 @@ class ServingEngine:
     @property
     def hbm_pool(self):
         return self.cache.bytes_pool
+
+    @property
+    def hbm_held_per_device(self):
+        """``hbm_held`` on each device; the engine runs on one card."""
+        return self.cache.bytes_held_per_device
+
+    @property
+    def hbm_pool_per_device(self):
+        return self.cache.bytes_pool_per_device
+
+    @property
+    def free_slots(self):
+        """Decode slots no request occupies."""
+        return sum(r is None for r in self._slots)

@@ -62,9 +62,23 @@ import torch
 from .. import resolve_device
 from ..models.transformer import torch_dtype
 
-__all__ = ["PagedKVCache", "PageContent"]
+__all__ = ["PagedKVCache", "PageContent", "contiguous_kv_bytes"]
 
 _ALIGN = 16          # byte alignment of each pool's slice of a page
+
+
+def contiguous_kv_bytes(cfg, batch, total, kv_int8=False):
+    """Device bytes a contiguous (batch, total) KV cache would hold:
+    2 * dh elements per row, head and token of every layer, plus the
+    f32 scale pair per row and token when int8 (the baseline the paged
+    pool is compared with)."""
+    dh = cfg.d_model // cfg.n_heads
+    rows = batch * cfg.n_heads * total
+    per_row = 2 * dh * (1 if kv_int8 else torch.empty(
+        0, dtype=torch_dtype(cfg.dtype)).element_size())
+    if kv_int8:
+        per_row += 2 * 4
+    return rows * per_row * cfg.n_layers
 
 
 class PageContent:
@@ -388,3 +402,13 @@ class PagedKVCache:
     def bytes_pool(self):
         """Device bytes of the whole preallocated pool."""
         return self.num_pages * self.bytes_per_page
+
+    @property
+    def bytes_held_per_device(self):
+        """``bytes_held`` on each device: the pool lies on one card."""
+        return self.bytes_held
+
+    @property
+    def bytes_pool_per_device(self):
+        """``bytes_pool`` on each device: the pool lies on one card."""
+        return self.bytes_pool

@@ -210,12 +210,12 @@ def test_loss_matches_the_reference(name):
 
 
 def test_every_reference_name_exists():
-    """Every name of the reference's ``gluon.nn`` (but the conv layers),
-    ``gluon.loss``, ``gluon.rnn`` and ``gluon.utils`` is in the
-    port."""
+    """Every name of the reference's ``gluon.nn``, ``gluon.loss``,
+    ``gluon.rnn`` and ``gluon.utils`` is in the port."""
     import mxnet_tpu.gluon as RG
-    from mxnet_tpu.gluon.nn import activations, basic_layers
+    from mxnet_tpu.gluon.nn import activations, basic_layers, conv_layers
     for mod, port in ((activations, P.gluon.nn), (basic_layers, P.gluon.nn),
+                      (conv_layers, P.gluon.nn),
                       (RG.loss, P.gluon.loss), (RG.rnn.rnn_cell,
                                                 P.gluon.rnn),
                       (RG.rnn.rnn_layer, P.gluon.rnn),
