@@ -80,9 +80,16 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    before it and read just after: 20 steps of BERT-base masked-LM
    pretraining (bs 16 x 512, dropout 0.1, bf16, AdamW, no remat) on
    one synthetic batch, asserting finite, falling loss and 12 launches
-   of each flash kernel per step, then one step with remat against one
-   without from the same state; and 12 steps of causal GPT training at
-   the ``full`` width (bs 8 x 512); each step replays one CUDA graph;
+   of each flash kernel per step, then one step with remat (the
+   "nothing" and the "dots" policy) against one without from the same
+   state; the step op by op's peak memory, the captured step's ms and
+   its flash launches a step with no remat, "nothing" and "dots" (in
+   turns; 2 forwards a layer under both policies); ``scan_steps=4``:
+   one call against 4 single calls bit for bit, then ms a step of each
+   in turns, their graph pools and the device operations a replay; and
+   12 steps of causal GPT training at the ``full`` width (bs 8 x 512),
+   then one GPT step under "dots" against one without; each step
+   replays one CUDA graph;
    for each, 3 steps replayed against 3 run op by op from one seed,
    bit for bit, and the step time of both in turns; a small f32 BERT
    trains 3 steps on the card and on the CPU from the same weights,
@@ -124,8 +131,8 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    ResNet-18 Module on the card and on the CPU from one ``.params``
    file, losses compared;
 7d. drives the op library (the ``library`` phase, after ``module``),
-   every launch counter from 0 (all stay 0: no hand-written kernel is
-   on this path): every case of ``tests/_torch_port.py``'s ``OP_SPECS``
+   every launch counter from 0 (all but ``nms_keep``, which the vision
+   ops' cases launch, stay 0): every case of ``tests/_torch_port.py``'s ``OP_SPECS``
    (each op and alias of the registry) through the port on the card and
    on the CPU from the same inputs, forward and backward, TF32 off,
    within ``CARD_TOL`` by family, and any registered op the sweep
@@ -177,6 +184,23 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    eager and hybridized steps timed in turns with images/s, the
    hybridized net's loss finite and falling, and a profiled window
    (busy, idle, kernels a step) for MobileNet v2 and Inception v3;
+7g. drives the detection ops (the ``detection`` phase, after ``zoo``),
+   every launch counter from 0 around its main path (only ``nms_keep``
+   may launch, and must): ``examples/ssd_detection.py``'s SSD at its
+   own width through ``tests/_torch_ssd.py`` (32 x 32 images, bs 32,
+   Adam lr 2e-3), 3 steps hybridized against op by op bit for bit, then
+   the example's 40 hybridized steps and its decode (mean IoU, class
+   accuracy, ms a step beside op by op); one call each of
+   ``MultiBoxTarget`` and ``MultiBoxDetection`` at SSD300 scale (MXNet's
+   example/ssd VGG16-reduced 300: six maps, 8732 anchors; B 32, 16
+   label rows, 21 classes, hard negatives 3:1, NMS 0.45 over the top
+   400) and ``Proposal`` at Faster R-CNN's RPN scale (38 x 50 x 9
+   anchors, 6000 -> 300 at 0.7); the SSD symbol bound and replayed
+   against op by op; then, counters kept, the ops against their CPU
+   path (2 images), ``nms_keep`` against its plain version on the card
+   (N 400 and 8732, with class ids and across them, and flag for flag
+   at the SSD300 decode's own inputs, all 32 images) and the ops and
+   the kernel timed;
 7b. drives bench.py's workload (the ``bench`` phase; the BERT and GPT
    steps' graphs freed first): ResNet-50 v1 with the space-to-depth
    stem, ``amp=True``, bs 128, through ``DataParallelTrainer.run_steps``
@@ -193,7 +217,8 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
 8. times each kernel, its plain version and a library call at the
    paths' shapes (L2 flushed between launches) beside the least time
    the card could take for the same work: the flash, paged and SGD
-   kernels and SDPA by their device time (torch.profiler, 20 calls)
+   kernels, SDPA and ``nms_keep`` (at the SSD300 decode's own inputs)
+   by their device time (torch.profiler, 20 calls)
    with CUDA events around the call beside it, the others by CUDA
    events; logs the operations SDPA ran; profiles 20 engine steps, 8
    BERT steps, 6 GPT steps and 8 ResNet steps (torch.profiler), each
@@ -332,6 +357,8 @@ SMALL_LOSS_TOL = 1e-4
 # remat on vs off: the recompute runs the same kernels on the same
 # inputs, so only library algorithm choice or atomics can differ
 REMAT_LOSS_TOL, REMAT_GRAD_TOL = 1e-5, 1e-3
+REMAT_POLICIES = (None, "nothing", "dots")
+SCAN_K = 4
 
 # the dh-256 kernel checks and timings: as many (token, width) values
 # as BERT-base's attention for the timing (H=3 x dh 256 = 768)
@@ -1108,14 +1135,22 @@ def train_path(name, init_state, step, batch, dev, steps, warm, FA, PA, FO,
     return state, losses, launches, per
 
 
-def check_remat(T_, cfg, params, batch, dev, failures):
-    """One step with remat and one without from the same params and the
-    same generator seed: the same loss and gradients."""
+def remat_cfg(cfg, policy):
+    """``cfg`` with remat under ``policy`` ("nothing", "dots"), or off
+    for None."""
+    return dataclasses.replace(cfg, remat=policy is not None,
+                               remat_policy=policy or "nothing")
+
+
+def check_remat(make_train_step, cfg, params, batch, dev, failures,
+                policy="nothing", name="BERT-base"):
+    """One step with remat under ``policy`` and one without from the
+    same params and the same generator seed: the same loss and
+    gradients."""
     from mxnet_tpu_torch.convert import tree_leaves
     out = []
-    for remat in (False, True):
-        init_state, step = T_.make_train_step(
-            dataclasses.replace(cfg, remat=remat), device=dev)
+    for pol in (None, policy):
+        init_state, step = make_train_step(remat_cfg(cfg, pol), device=dev)
         state = init_state(params=params)
         gen = torch.Generator(device=dev).manual_seed(11)
         state, loss = step(state, batch, gen)
@@ -1125,11 +1160,194 @@ def check_remat(T_, cfg, params, batch, dev, failures):
     worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                 for a, b in zip(g1, g0))
     ok = abs(l1 - l0) <= REMAT_LOSS_TOL * abs(l0) and worst <= REMAT_GRAD_TOL
-    log("check remat vs no remat (BERT-base, one step): loss %.6f vs %.6f, "
+    label = "remat" if policy == "nothing" else "remat %s" % policy
+    log("check %s vs no remat (%s, one step): loss %.6f vs %.6f, "
         "largest grad diff / leaf max %.3e (tol %.0e)  %s"
-        % (l1, l0, worst, REMAT_GRAD_TOL, "ok" if ok else "FAIL"))
+        % (label, name, l1, l0, worst, REMAT_GRAD_TOL,
+           "ok" if ok else "FAIL"))
     if not ok:
-        failures.append("remat vs no remat")
+        failures.append("%s vs no remat (%s)" % (label, name))
+
+
+def held_memory():
+    """Bytes the caching allocator holds once dead objects and free
+    cached blocks are released: live tensors and the private pools of
+    the live CUDA graphs."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def remat_costs(T_, FA, PA, FO, cfg, params, batch, dev, failures, n=10,
+                warm=3):
+    """BERT-base with no remat, "nothing" and "dots": the step op by
+    op's peak memory above the state it starts from (one step after a
+    first one made the AdamW state), the captured step's ms (host clock
+    over ``n`` synchronised steps after ``warm``, in turns none,
+    nothing, dots, dots, nothing, none; medians), what the captured step
+    holds (``graph_pool_gib``: its state, gradients, AdamW moments and
+    graph pool, :func:`held_memory` before and after) and the flash
+    launches a step of the first timed turn (counters from 0 around
+    it); 2 forwards a layer under both remat policies (the recompute),
+    1 without."""
+    steps = {pol: T_.make_train_step(remat_cfg(cfg, pol), device=dev)
+             for pol in REMAT_POLICIES}
+    out = {}
+    for pol, (init_state, step) in steps.items():
+        state = init_state(params=params)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        step._eager = True
+        try:
+            step(state, batch, gen)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step(state, batch, gen)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+        finally:
+            step._eager = False
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[str(pol)] = {"eager_peak_gib": peak / 2**30, "ms": [],
+                         "graph_pool_gib": None}
+    sides = {}
+    for pol in REMAT_POLICIES + REMAT_POLICIES[::-1]:
+        init_state, step = steps[pol]
+        row = out[str(pol)]
+        if pol not in sides:
+            reserved = held_memory()
+            sides[pol] = (init_state(params=params),
+                          torch.Generator(device=dev).manual_seed(3))
+        state, gen = sides[pol]
+        for _ in range(warm):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+        if row["graph_pool_gib"] is None:
+            row["graph_pool_gib"] = (held_memory() - reserved) / 2**30
+            zero_counters(FA, PA, FO)
+        first = not row["ms"]
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+        row["ms"].append((time.perf_counter() - t0) * 1e3 / n)
+        if first:
+            row["flash_launches"] = counters(FA)
+            row["flash_per_step"] = {k: c / n for k, c in
+                                     row["flash_launches"].items()}
+    for pol in REMAT_POLICIES:
+        row = out[str(pol)]
+        row["ms_per_step"] = float(np.median(row["ms"]))
+        want = 1 if pol is None else 2
+        got = row["flash_per_step"]["flash_fwd"] / LAYERS
+        ok = got == want and all(
+            row["flash_per_step"][k] == LAYERS
+            for k in ("flash_bwd_dq", "flash_bwd_dkv"))
+        log("check BERT-base remat %s: %.3f ms/step captured (runs %s), "
+            "eager step peak %.2f GiB above the state, held after capture "
+            "(state, gradients, AdamW, graph pool) %.2f GiB, "
+            "flash launches a step %s (flash_fwd %d a layer expected)  %s"
+            % (pol, row["ms_per_step"], " ".join("%.3f" % x
+                                                 for x in row["ms"]),
+               row["eager_peak_gib"], row["graph_pool_gib"],
+               json.dumps(row["flash_per_step"]), want,
+               "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("remat %s flash launches" % pol)
+    del sides, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_scan(T_, FA, PA, FO, cfg, params, batch, dev, failures, k=SCAN_K,
+               calls=3):
+    """``scan_steps=k``: one call (one replayed graph of k steps)
+    against k single captured calls from the same params and generator
+    seed, losses, parameters and AdamW state bit for bit; then ms a
+    step of each, in turns (single, scan, scan, single; ``calls``
+    scanned calls against ``calls * k`` single ones), what each
+    captured step holds (:func:`held_memory`: state, gradients, AdamW
+    moments and graph pool), and the device operations one replay runs
+    (profiler).  Returns (numbers, flash launches of the first timed
+    scanned calls)."""
+    from mxnet_tpu_torch.convert import tree_leaves
+    makers = {"single": T_.make_train_step(cfg, device=dev),
+              "scan": T_.make_train_step(cfg, device=dev, scan_steps=k)}
+    sides, runs, pools = {}, {}, {}
+    for name, (init_state, step) in makers.items():
+        reserved = held_memory()
+        state = init_state(params=params)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        if name == "single":
+            losses = torch.stack([step(state, batch, gen)[1]
+                                  for _ in range(k)])
+        else:
+            losses = step(state, batch, gen)[1]
+        torch.cuda.synchronize()
+        pools[name] = (held_memory() - reserved) / 2**30
+        leaves = tree_leaves(state[0])
+        runs[name] = (losses, leaves, [v for p in leaves
+                                       for v in state[1].state[p].values()],
+                      gen.get_state())
+        sides[name] = (state, gen)
+    (l0, p0, s0, g0), (l1, p1, s1, g1) = runs["single"], runs["scan"]
+    same = (torch.equal(l0, l1) and torch.equal(g0, g1)
+            and all(torch.equal(a, b) for a, b in zip(p0 + s0, p1 + s1)))
+    log("check BERT-base scan_steps=%d, one call vs %d single calls "
+        "(captured): losses %s vs %s, %d parameters and %d AdamW tensors "
+        "bit for bit: %s  %s"
+        % (k, k, " ".join("%.6f" % x for x in l1.tolist()),
+           " ".join("%.6f" % x for x in l0.tolist()), len(p0), len(s0),
+           same, "ok" if same else "FAIL"))
+    if not same:
+        failures.append("scan_steps vs single calls")
+    del runs
+    times = {"single": [], "scan": []}
+    launches = None
+    for name in ("single", "scan", "scan", "single"):
+        state, gen = sides[name]
+        step = makers[name][1]
+        n = calls * k if name == "single" else calls
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        if name == "scan" and launches is None:
+            zero_counters(FA, PA, FO)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3 / (calls * k))
+        if name == "scan" and launches is None:
+            launches = counters(FA)
+    ops = {}
+    for name in ("single", "scan"):
+        state, gen = sides[name]
+        step = makers[name][1]
+        ops[name] = device_kernels(lambda: step(state, batch, gen))[0]
+    out = {name: {"ms_per_step": float(np.median(v)), "runs": v,
+                  "graph_pool_gib": pools[name],
+                  "device_ops_per_call": ops[name]}
+           for name, v in times.items()}
+    ratio = out["scan"]["ms_per_step"] / out["single"]["ms_per_step"]
+    log("info: BERT-base scan_steps=%d: %.3f ms/step scanned vs %.3f "
+        "single captured calls (ratio %.4f), held after capture (state, "
+        "gradients, AdamW, graph pool) %.2f vs %.2f GiB, "
+        "device operations a replay %s vs %s; flash launches over %d "
+        "scanned calls %s"
+        % (k, out["scan"]["ms_per_step"], out["single"]["ms_per_step"],
+           ratio, pools["scan"], pools["single"], ops["scan"],
+           ops["single"], calls, json.dumps(launches)))
+    if any(c != calls * k * LAYERS for c in launches.values()):
+        failures.append("scan_steps flash launches %s" % launches)
+    del sides, makers
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["scan_over_single"] = ratio
+    return out, launches
 
 
 def check_small_f32(T_, dev, failures):
@@ -4717,7 +4935,8 @@ def sequential_on_card(mx, failures):
 
 def library_path(mx, failures):
     """The ``library`` phase, every registered launch counter from 0 (all
-    stay 0: no hand-written kernel is on this path): the op sweep and the
+    but ``nms_keep``, which the vision ops' cases launch, stay 0): the op
+    sweep and the
     samplers on the card (every op name of the registry but ``Custom``
     must be covered), the ResNet-50 Adam path, the optimizer family and
     ``multi_precision`` card against CPU, the save/load resume and
@@ -4749,9 +4968,10 @@ def library_path(mx, failures):
         nums["sequential_accuracy"] = sequential_on_card(mx, failures)
         launches = {"%s.%s" % (getattr(h, "__name__", type(h).__name__), a):
                     getattr(h, a) for h, a in counters}
-    log("library path launches of the port's kernels: %s (no hand-written "
-        "kernel is on this path)" % json.dumps(launches))
-    if any(launches.values()):
+    log("library path launches of the port's kernels: %s (only nms_keep, "
+        "through the vision ops' cases, is on this path)"
+        % json.dumps(launches))
+    if any(v for k, v in launches.items() if k != "nms_keep.launches"):
         failures.append("a hand-written kernel launched on the library "
                         "path: %s" % json.dumps(launches))
     log("library phase seconds: sweep and samplers %.1f, ResNet-50 Adam "
@@ -5440,6 +5660,413 @@ def zoo_path(mx, failures):
     return nums
 
 
+# ------------------------------------------------------------- detection --
+# MXNet's example/ssd VGG16-reduced 300 (symbol/symbol_factory.py): six
+# feature maps, their anchor sizes, ratios and steps; 8732 anchors
+SSD300 = dict(
+    maps=(38, 19, 10, 5, 3, 1),
+    sizes=((.1, .141), (.2, .272), (.37, .447), (.54, .619), (.71, .79),
+           (.88, .961)),
+    ratios=((1, 2, .5), (1, 2, .5, 3, 1. / 3), (1, 2, .5, 3, 1. / 3),
+            (1, 2, .5, 3, 1. / 3), (1, 2, .5), (1, 2, .5)),
+    steps=(8, 16, 32, 64, 100, 300))
+DET_B, DET_M, DET_CLASSES = 32, 16, 21
+# Faster R-CNN's RPN on a 600 x 800 image: a 38 x 50 map at stride 16,
+# 9 anchors, 6000 boxes into NMS at 0.7, 300 out
+RPN = dict(H=38, W=50, stride=16, scales=(8, 16, 32), ratios=(0.5, 1, 2),
+           pre=6000, post=300, thresh=0.7)
+DET_CALLS = 20
+SSD_CHECK_STEPS = 3
+# SSD300 ops, card against CPU: the box decode's and the targets' exp and
+# log round differently in CUDA's libm (a few ulp of a unit box)
+DET_BOX_TOL = 1e-5
+RPN_BOX_TOL = 1e-3      # pixel coordinates up to 800: a few ulp
+
+
+def ssd_helpers():
+    """``tests/_torch_ssd.py``: the example's SSD driven through the
+    port's API (shared with the CPU tests; imports no JAX)."""
+    op_cases()                      # puts tests/ on sys.path
+    import _torch_ssd
+    return _torch_ssd
+
+
+def ssd300_anchors(mx, ctx):
+    parts = [mx.nd.MultiBoxPrior(mx.nd.zeros((1, 1, m, m), ctx=ctx),
+                                 sizes=sz, ratios=r,
+                                 steps=(st / 300.0, st / 300.0))
+             for m, sz, r, st in zip(SSD300["maps"], SSD300["sizes"],
+                                     SSD300["ratios"], SSD300["steps"])]
+    return mx.nd.concat(*parts, dim=1)
+
+
+def ssd300_inputs(mx, ctx, seed=0):
+    """Labels (B, M, 5) with 2..M-2 valid rows an image (the rest padded
+    with class -1), class scores (B, 21, A) and box offsets (B, 4A)."""
+    rng = np.random.RandomState(seed)
+    A = 8732
+    xy = rng.uniform(0, 0.7, (DET_B, DET_M, 2))
+    wh = rng.uniform(0.05, 0.3, (DET_B, DET_M, 2))
+    lab = np.concatenate([rng.randint(0, DET_CLASSES - 1,
+                                      (DET_B, DET_M, 1)), xy, xy + wh], 2)
+    n_valid = rng.randint(2, DET_M - 1, DET_B)
+    lab[np.arange(DET_M)[None, :] >= n_valid[:, None], 0] = -1
+    cls_pred = rng.randn(DET_B, DET_CLASSES, A) * 2
+    loc = rng.randn(DET_B, 4 * A) * 0.5
+    return (mx.nd.array(lab.astype("float32"), ctx=ctx),
+            mx.nd.array(cls_pred.astype("float32"), ctx=ctx),
+            mx.nd.array(loc.astype("float32"), ctx=ctx))
+
+
+def rpn_inputs(mx, ctx, seed=1):
+    rng = np.random.RandomState(seed)
+    A = len(RPN["scales"]) * len(RPN["ratios"])
+    cls = rng.uniform(0, 1, (1, 2 * A, RPN["H"], RPN["W"]))
+    bb = rng.randn(1, 4 * A, RPN["H"], RPN["W"]) * 0.1
+    info = np.array([[RPN["H"] * RPN["stride"], RPN["W"] * RPN["stride"],
+                      1.0]])
+    return [mx.nd.array(x.astype("float32"), ctx=ctx)
+            for x in (cls, bb, info)]
+
+
+def rpn_call(mx, cls, bb, info):
+    return mx.nd.contrib.Proposal(
+        cls, bb, info, rpn_pre_nms_top_n=RPN["pre"],
+        rpn_post_nms_top_n=RPN["post"], threshold=RPN["thresh"],
+        scales=RPN["scales"], ratios=RPN["ratios"],
+        feature_stride=RPN["stride"], output_score=True)
+
+
+def ssd_train(mx, S, net, anc, ctx, batches):
+    """The example's steps on ``batches`` (numpy): losses, then every
+    parameter and running statistic; the seconds of each step
+    (synchronised)."""
+    tr = S.trainer(mx, net)
+    losses, secs = [], []
+    for x, labels in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c, l = S.train_step(mx, net, tr, anc, mx.nd.array(x, ctx=ctx),
+                            mx.nd.array(labels, ctx=ctx))
+        losses.append((float(c.asnumpy()), float(l.asnumpy())))
+        secs.append(time.perf_counter() - t0)
+    return losses, S.params_of(net), secs
+
+
+def ssd_example_on_card(mx, failures):
+    """``examples/ssd_detection.py`` at its own width (32 x 32 images, bs
+    32, 3 classes with background, 64 anchors, Adam lr 2e-3) through
+    ``tests/_torch_ssd.py``: SSD_CHECK_STEPS steps hybridized against op
+    by op bit for bit from one set of weights (deterministic cuDNN),
+    then the example's 40 hybridized steps (ms/step over steps 6-40)
+    and its decode and score; 10 op-by-op steps timed beside them."""
+    from mxnet_tpu_torch.convert import set_block_params
+    S = ssd_helpers()
+    ctx = mx.gpu(0)
+    anc = S.anchors(mx, ctx)
+    A = anc.shape[1]
+    np.random.seed(0)
+    seed = S.ssd_head(mx, A)
+    seed.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    seed(mx.nd.array(S.make_batch(np.random.RandomState(9), 2)[0],
+                     ctx=mx.cpu()))
+    arrays = S.params_of(seed)
+
+    def fresh(hybrid):
+        net = S.ssd_head(mx, A)
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        set_block_params(net, arrays, ctx=ctx)
+        net.hybridize(hybrid)
+        return net
+
+    rng = np.random.RandomState(0)
+    check = [S.make_batch(rng, S.BATCH) for _ in range(SSD_CHECK_STEPS)]
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = [ssd_train(mx, S, fresh(h), anc, ctx, check)
+                for h in (False, True)]
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.allow_tf32) = flags
+    (l0, p0, _), (l1, p1, _) = runs
+    same = l0 == l1 and all(np.array_equal(p0[k], p1[k]) for k in p0)
+    log("check SSD (examples/ssd_detection.py) %d steps hybridized vs op "
+        "by op: losses %s vs %s, %d parameters and statistics bit for "
+        "bit: %s  %s" % (SSD_CHECK_STEPS, json.dumps(l1), json.dumps(l0),
+                         len(p0), same, "ok" if same else "FAIL"))
+    if not same:
+        failures.append("SSD hybridized vs op by op")
+    rng = np.random.RandomState(0)      # the example's own run
+    batches = [S.make_batch(rng, S.BATCH) for _ in range(S.EPOCHS)]
+    net = fresh(True)
+    losses, _, secs = ssd_train(mx, S, net, anc, ctx, batches)
+    x, labels = S.make_batch(rng, S.EVAL_BATCH)
+    dets = S.decode(mx, net, anc, mx.nd.array(x, ctx=ctx))
+    iou, acc = S.evaluate(dets, labels)
+    eager_secs = ssd_train(mx, S, fresh(False), anc, ctx, batches[:10])[2]
+    out = {"hybridized_ms_per_step": float(np.mean(secs[5:])) * 1e3,
+           "eager_ms_per_step": float(np.mean(eager_secs[2:])) * 1e3,
+           "mean_iou": iou, "class_accuracy": acc,
+           "first_loss": losses[0], "last_loss": losses[-1]}
+    finite = bool(np.isfinite(np.array(losses)).all()) and \
+        tuple(dets.shape) == (S.EVAL_BATCH, A, 6)
+    log("SSD example on the card: %d steps hybridized, losses (cls, loc) "
+        "%s -> %s; %.3f ms/step hybridized (steps 6-%d), %.3f op by op "
+        "(steps 3-10); decode of %d images: mean IoU %.3f, class "
+        "accuracy %.2f  %s"
+        % (S.EPOCHS, json.dumps(losses[0]), json.dumps(losses[-1]),
+           out["hybridized_ms_per_step"], S.EPOCHS,
+           out["eager_ms_per_step"], S.EVAL_BATCH, iou, acc,
+           "ok" if finite else "FAIL"))
+    if not finite:
+        failures.append("SSD example: loss not finite or decode shape")
+    return out
+
+
+def same_rows(name, got, want, tol, failures, exact=()):
+    """``got`` (card) against ``want`` (CPU), numpy: the columns
+    ``exact`` of the last axis (every element for "all") bit for bit,
+    the rest within ``tol``; returns the largest error."""
+    ok = got.shape == want.shape
+    err = float(np.abs(got.astype(np.float64) - want).max()) \
+        if ok and got.size else 0.0
+    cols = range(got.shape[-1]) if exact == "all" else exact
+    same = ok and all(np.array_equal(got[..., c], want[..., c])
+                      for c in cols)
+    ok = ok and same and err <= tol
+    log("check %s, card vs CPU: %s bit for bit: %s, max_abs_err %.3e (tol "
+        "%.0e)  %s" % (name, "every element" if exact == "all" else
+                       "columns %s" % list(exact), same, err, tol,
+                       "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append(name + " card vs CPU")
+    return err
+
+
+def det_ops_main(mx, ctx):
+    """One call of each detection op at SSD300 and RPN scale (the main
+    path's)."""
+    anc = ssd300_anchors(mx, ctx)
+    lab, cls_pred, loc = ssd300_inputs(mx, ctx)
+    prob = mx.nd.softmax(cls_pred, axis=1)
+    tgt = mx.nd.MultiBoxTarget(anc, lab, cls_pred, negative_mining_ratio=3)
+    det = mx.nd.MultiBoxDetection(prob, loc, anc, nms_threshold=0.45,
+                                  nms_topk=400)
+    rpn = rpn_inputs(mx, ctx)
+    rois = rpn_call(mx, *rpn)
+    torch.cuda.synchronize()
+    return {"anc": anc, "lab": lab, "cls_pred": cls_pred, "prob": prob,
+            "loc": loc, "tgt": tgt, "det": det, "rpn": rpn, "rois": rois}
+
+
+def det_ops_checks(mx, io, failures):
+    """The SSD300-scale ops and the RPN proposals on the card against
+    their CPU path on the same inputs (2 images for the SSD ops), and
+    DET_CALLS calls of each timed with CUDA events."""
+    cpu = mx.cpu()
+
+    def host(x, n=None):
+        return mx.nd.array(x.asnumpy()[:n] if n else x.asnumpy(), ctx=cpu)
+
+    anc = io["anc"]
+    n_anc = anc.shape[1]
+    ok = n_anc == 8732
+    log("check SSD300 anchors: %d (8732 expected)  %s"
+        % (n_anc, "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("SSD300 anchor count %d" % n_anc)
+    c_anc = host(anc)
+    same_rows("SSD300 MultiBoxPrior", anc.asnumpy(),
+              ssd300_anchors(mx, cpu).asnumpy(), 0.0, failures, "all")
+    c_tgt = mx.nd.MultiBoxTarget(c_anc, host(io["lab"], 2),
+                                 host(io["cls_pred"], 2),
+                                 negative_mining_ratio=3)
+    errs = {}
+    for k, (g, c) in enumerate(zip(io["tgt"], c_tgt)):
+        errs["target_%d" % k] = same_rows(
+            "SSD300 MultiBoxTarget output %d (2 images)" % k,
+            g.asnumpy()[:2], c.asnumpy(), DET_BOX_TOL, failures,
+            "all" if k else ())
+    c_det = mx.nd.MultiBoxDetection(host(io["prob"], 2), host(io["loc"], 2),
+                                    c_anc, nms_threshold=0.45, nms_topk=400)
+    det = io["det"].asnumpy()
+    errs["detection"] = same_rows(
+        "SSD300 MultiBoxDetection (2 images)", det[:2], c_det.asnumpy(),
+        DET_BOX_TOL, failures, (0,))
+    kept = (det[..., 0] >= 0).sum(axis=1)
+    log("info: SSD300 detections kept an image: min %d, mean %.1f, max %d "
+        "(of 8732 anchors, top 400 valid into NMS)"
+        % (kept.min(), kept.mean(), kept.max()))
+    c_rois = rpn_call(mx, *[host(x) for x in io["rpn"]])
+    errs["proposal"] = same_rows("RPN Proposal rois", io["rois"][0].asnumpy(),
+                                 c_rois[0].asnumpy(), RPN_BOX_TOL, failures,
+                                 (0,))
+    same_rows("RPN Proposal scores", io["rois"][1].asnumpy(),
+              c_rois[1].asnumpy(), 0.0, failures, "all")
+    times = {
+        "MultiBoxTarget": cuda_ms(lambda: mx.nd.MultiBoxTarget(
+            anc, io["lab"], io["cls_pred"], negative_mining_ratio=3),
+            iters=DET_CALLS),
+        "MultiBoxDetection": cuda_ms(lambda: mx.nd.MultiBoxDetection(
+            io["prob"], io["loc"], anc, nms_threshold=0.45,
+            nms_topk=400), iters=DET_CALLS),
+        "Proposal": cuda_ms(lambda: rpn_call(mx, *io["rpn"]),
+                            iters=DET_CALLS)}
+    log("info: detection ops at scale, ms a call (CUDA events, mean of %d): "
+        "%s (SSD300: B=%d, A=8732, M=%d, %d classes; RPN %dx%d x 9 "
+        "anchors, pre %d, post %d)"
+        % (DET_CALLS, json.dumps(times), DET_B, DET_M, DET_CLASSES,
+           RPN["H"], RPN["W"], RPN["pre"], RPN["post"]))
+    return times, errs
+
+
+def check_nms_kernel(NMS, failures):
+    """``nms_keep`` against its plain version on the card, bit for bit:
+    N = 400 (a batch of 32, ``nms_topk``'s count) and N = 8732 (2
+    images), with class ids and across classes, at 0.45 and 0.7.
+    Returns the count of differing keep flags (0 when right)."""
+    nms_case = op_cases().nms_case
+    bad = 0
+    for B, N in ((32, 400), (2, 8732)):
+        boxes, valid, ids = nms_case(B, N, N + B, device="cuda")
+        for with_ids in (True, False):
+            for thresh in (0.45, 0.7):
+                cid = ids if with_ids else None
+                got = NMS.nms_keep(boxes, valid, cid, thresh)
+                torch.cuda.synchronize()
+                want = NMS.nms_keep_reference(boxes, valid, cid, thresh)
+                diff = int((got != want).sum())
+                bad += diff
+                log("check nms_keep B=%d N=%d ids=%s thresh %.2f: %d kept "
+                    "of %d valid, %d flags differ from the plain version  "
+                    "%s" % (B, N, with_ids, thresh, int(got.sum()),
+                            int(valid.sum()), diff,
+                            "ok" if diff == 0 else "FAIL"))
+                if diff:
+                    failures.append("nms_keep B=%d N=%d ids=%s"
+                                    % (B, N, with_ids))
+    return bad
+
+
+def detection_nms_inputs(io):
+    """What ``MultiBoxDetection`` hands ``nms_keep`` on the main path
+    (``nms_threshold`` 0.45, ``nms_topk`` 400, per class), made again
+    from the phase's own inputs by the op's helpers."""
+    from mxnet_tpu_torch.ops import vision as V
+    rec = V._detection_records(io["prob"]._data, io["loc"]._data,
+                               io["anc"]._data, True, 0.01, 0,
+                               (0.1, 0.1, 0.2, 0.2))
+    _, boxes, valid, ids = V._nms_inputs(rec, 0.0, 400, 2, 1, 0, -1,
+                                         "corner")
+    return boxes.float(), valid, ids.float(), 0.45
+
+
+def time_nms(NMS, io, flush, failures):
+    """The kernel at the SSD300 detection's own inputs (B=32, N=8732,
+    the top 400 valid rows an image): its keep mask against the plain
+    version's flag for flag, device time, the plain version's time (one
+    call, CUDA events), the byte bound (boxes, flags, class ids read
+    once, the keep mask written once).  Returns the row and the count
+    of differing flags."""
+    boxes, valid, ids, thresh = detection_nms_inputs(io)
+    B, N, _ = boxes.shape
+    got = NMS.nms_keep(boxes, valid, ids, thresh)
+    NMS.nms_keep_reference(boxes, valid, ids, thresh)
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    want = NMS.nms_keep_reference(boxes, valid, ids, thresh)
+    e.record()
+    e.synchronize()
+    diff = int((got != want).sum())
+    log("check nms_keep at the SSD300 detection's inputs B=%d N=%d ids=True "
+        "thresh %.2f: %d kept of %d valid, %d flags differ from the plain "
+        "version  %s" % (B, N, thresh, int(got.sum()), int(valid.sum()),
+                         diff, "ok" if diff == 0 else "FAIL"))
+    if diff:
+        failures.append("nms_keep at the SSD300 detection's inputs")
+    ms = device_time(lambda: NMS.nms_keep(boxes, valid, ids, thresh), flush,
+                     "nms")[0]
+    nbytes = B * N * (16 + 1 + (4 if ids is not None else 0) + 1)
+    return {"ms": ms, "ms_from": "profiler: the two kernels' device time, "
+            "mean of 20 calls, L2 flushed before each",
+            "event_ms": cuda_ms(lambda: NMS.nms_keep(boxes, valid, ids,
+                                                     thresh), flush=flush),
+            "plain_ms": s.elapsed_time(e), "bound_ms": nbytes / PEAK_BYTES
+            * 1e3, "bound_by": "bytes", "library_ms": None,
+            "shape": "SSD300 MultiBoxDetection: B=%d N=%d, %d valid rows "
+                     "into NMS, class ids, thresh %.2f"
+                     % (B, N, int(valid.sum()), thresh)}, diff
+
+
+def det_symbol(mx, failures):
+    """``tests/_torch_ssd.py``'s symbol (MultiBoxPrior -> MultiBoxTarget
+    and MultiBoxDetection) bound on the card at bs 32 over a 19 x 19
+    map: the replayed executor against one run op by op
+    (``exe._eager``), every output bit for bit."""
+    S = ssd_helpers()
+    ctx = mx.gpu(0)
+    feed = S.ssd_symbol_inputs(seed=3, B=32, side=19)
+    outs = []
+    for eager in (True, False):
+        args = {k: mx.nd.array(v, ctx=ctx) for k, v in feed.items()}
+        exe = S.ssd_symbol(mx).bind(ctx, args)
+        exe._eager = eager
+        for _ in range(2):                  # the second call replays
+            res = [o.asnumpy() for o in exe.forward()]
+        outs.append(res)
+    same = all(np.array_equal(a, b) for a, b in zip(*outs))
+    log("check SSD symbol (MultiBoxPrior, MultiBoxTarget, "
+        "MultiBoxDetection; bs 32, 1083 anchors) replayed vs op by op: "
+        "%d outputs bit for bit: %s  %s"
+        % (len(outs[0]), same, "ok" if same else "FAIL"))
+    if not same:
+        failures.append("SSD symbol replayed vs op by op")
+
+
+def detection_path(mx, failures, flush):
+    """The ``detection`` phase, every registered launch counter from 0
+    around its main path (the example's SSD and decode, one call of
+    each op at SSD300 and RPN scale, the bound symbol): only
+    ``nms_keep`` may launch, and it must.  Then the checks against the
+    CPU and the plain version and the timings, counters kept.  Returns
+    (numbers, the nms row's numbers)."""
+    from mxnet_tpu_torch._graphs import kept_launches
+    from mxnet_tpu_torch.kernels import nms as NMS
+    from mxnet_tpu_torch.kernels._counters import registered
+    nums = {}
+    t0 = time.perf_counter()
+    for h, a in registered():
+        setattr(h, a, 0)
+    nums["ssd_example"] = ssd_example_on_card(mx, failures)
+    io = det_ops_main(mx, mx.gpu(0))
+    det_symbol(mx, failures)
+    launches = {"%s.%s" % (getattr(h, "__name__", type(h).__name__), a):
+                getattr(h, a) for h, a in registered()}
+    nms_launches = launches.pop("nms_keep.launches")
+    others = {k: v for k, v in launches.items() if v}
+    log("detection path launches: nms_keep %d, the other kernels %s"
+        % (nms_launches, json.dumps(others)))
+    if nms_launches <= 0 or others:
+        failures.append("detection path launches: nms_keep %d, others %s"
+                        % (nms_launches, others))
+    t_main = time.perf_counter() - t0
+    with kept_launches():
+        nums["ops_ms"], errs = det_ops_checks(mx, io, failures)
+        bad = check_nms_kernel(NMS, failures)
+        row, diff = time_nms(NMS, io, flush, failures)
+        bad += diff
+    nums["launches"] = nms_launches
+    log("detection phase seconds: main path %.1f, checks and timings %.1f"
+        % (t_main, time.perf_counter() - t0 - t_main))
+    row.update(max_abs_err=float(bad), launches=nms_launches,
+               op_errs=errs)
+    return nums, row
+
+
 def main(argv):
     parent = None
     if argv[:1] == ["--parent"] and len(argv) == 2:
@@ -5658,7 +6285,15 @@ def main(argv):
         "steps %d-%d, synchronised), peak memory %.2f GiB"
         % (bert_s * 1e3, BERT_B * BERT_T / bert_s, BERT_WARM + 1,
            BERT_STEPS, torch.cuda.max_memory_allocated() / 2**30))
-    check_remat(T_, bert_cfg, state[0], batch, dev, failures)
+    check_remat(T_.make_train_step, bert_cfg, state[0], batch, dev,
+                failures)
+    check_remat(T_.make_train_step, bert_cfg, state[0], batch, dev,
+                failures, policy="dots")
+    report["remat"] = remat_costs(T_, FA, PA, FO, bert_cfg, state[0], batch,
+                                  dev, failures)
+    report["scan"], scan_launches = check_scan(T_, FA, PA, FO, bert_cfg,
+                                               state[0], batch, dev,
+                                               failures)
     captured_vs_eager("BERT-base train", init_state, step, batch, dev, 0,
                       failures)
     report["bert"] = step_times(init_state, step, batch, dev, 10, 3, 0)
@@ -5675,9 +6310,15 @@ def main(argv):
     gmask[:2, 400:] = False
     gbatch = {"tokens": rng.randint(1, VOCAB, (GPT_B, MAX_LEN)) * gmask,
               "mask": gmask}
-    _, _, gpt_launches, gpt_s = train_path(
+    g_trained, _, gpt_launches, gpt_s = train_path(
         "GPT causal train", g_init, g_step, gbatch, dev, GPT_STEPS,
         GPT_WARM, FA, PA, FO, LAYERS, seed=1)
+    check_remat(G.make_train_step, gpt_train_cfg, g_trained[0], gbatch, dev,
+                failures, policy="dots", name="GPT causal, bs %d x %d"
+                % (GPT_B, MAX_LEN))
+    del g_trained
+    gc.collect()
+    torch.cuda.empty_cache()
     log("GPT causal train step (bs %d x %d): %.3f ms (host clock over "
         "steps %d-%d, synchronised)" % (GPT_B, MAX_LEN, gpt_s * 1e3,
                                         GPT_WARM + 1, GPT_STEPS))
@@ -5738,6 +6379,15 @@ def main(argv):
     report["zoo"] = zoo_path(mx, failures)
 
     phase("zoo")
+    # ---- 7g. the detection ops: examples/ssd_detection.py's SSD on the
+    # card, the ops at SSD300 and RPN scale, an SSD symbol replayed, the
+    # NMS kernel against its plain version; every launch counter from 0
+    # (only nms_keep launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["detection"], nms_row = detection_path(mx, failures, flush)
+
+    phase("detection")
     # ---- 7c. bench.py's workload through DataParallelTrainer; the BERT and
     # GPT steps' graphs and pools are freed first (captured again for the
     # profiles below)
@@ -5792,7 +6442,9 @@ def main(argv):
     time_prefill(FA, dev, flush, errs["flash"])
 
     by_path = {"serving": launches, "telemetry and tier": tier_launches,
-               "bert": bert_launches, "gpt": gpt_launches}
+               "bert": bert_launches, "gpt": gpt_launches,
+               "bert remat dots": report["remat"]["dots"]["flash_launches"],
+               "bert scan_steps=%d" % SCAN_K: scan_launches}
     sources = {"flash_fwd": ("flash_fwd.cu", 169),
                "flash_bwd_dq": ("flash_bwd.cu", 333),
                "flash_bwd_dkv": ("flash_bwd.cu", 354)}
@@ -5850,6 +6502,16 @@ def main(argv):
         "by_shape": conv_rows, "build": conv_build,
         "library": "F.conv2d (cuDNN), channels-last bf16; the chain adds "
                    "BN apply + ReLU before and channel sums after"})
+    kernels.append({
+        "name": "nms_keep", "route": "cuda",
+        "source": "mxnet_tpu_torch/kernels/csrc/nms.cu",
+        "replaces": "none: mxnet_tpu/ops/vision.py:108 _nms_keep is a "
+                    "lax.scan that XLA compiles, no pallas_call",
+        "device_symbols": ["nms_mask", "nms_sweep"],
+        "launches_by_path": {"detection": nms_row["launches"]},
+        "launches_note": "calls, two kernel launches each",
+        "tolerance": "bit for bit (max_abs_err: keep flags that differ)",
+        **nms_row})
     rtc_row = time_rtc(axpy, ax_x, ax_y, mx, flush)
     del ax_x, ax_y
     log("extension phases (conv and rtc paths, checks and timings): %.1f s"

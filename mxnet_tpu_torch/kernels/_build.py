@@ -34,7 +34,7 @@ _CSRC = os.path.join(_HERE, "csrc")
 _OUT = os.path.join(_HERE, "_build")
 
 SOURCES = ("flash_fwd", "flash_bwd", "paged_attention", "fused_sgd",
-           "fused_conv")
+           "fused_conv", "nms")
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

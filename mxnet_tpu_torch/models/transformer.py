@@ -13,8 +13,8 @@ Attention goes through ``kernels/flash_attention.py`` (the flash
 forward and backward kernels on the card) when ``cfg.use_flash``, and
 through the reference's dense path otherwise.  The reference's mesh
 paths (tp/dp/sp sharding, ring/Ulysses attention, the GPipe ``pp``
-stack, FSDP, ZeRO-1, bucketed overlap, scanned steps) and MoE layers
-are not ported; they raise ``NotImplementedError``.
+stack, FSDP, ZeRO-1, bucketed overlap) and MoE layers are not ported;
+they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,7 +26,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import resolve_device
 from .._graphs import GraphCache, Program, warm_up
@@ -228,23 +229,45 @@ def _encoder_layer(x, layer, mask, cfg: TransformerConfig, train,
     return _layer_norm(x + h, dn(layer["ln2"]["g"]), dn(layer["ln2"]["b"]))
 
 
+# the matmuls of the layer: what ``jax.checkpoint_policies.dots_saveable``
+# saves (every ``dot_general``), as they reach torch's dispatcher
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
 def _make_layer_fn(cfg: TransformerConfig):
     """The encoder layer, wrapped in ``torch.utils.checkpoint`` when
-    ``cfg.remat`` (the reference's ``jax.checkpoint`` with the
-    "nothing" policy: only the layer's input is kept, the rest is
-    recomputed in the backward)."""
+    ``cfg.remat``: the reference's ``jax.checkpoint`` with its policy.
+    ``"nothing"`` keeps only the layer's input and recomputes the rest
+    in the backward; ``"dots"`` (``dots_saveable``) also keeps every
+    matmul's output (``aten.mm``/``addmm``/``bmm``/``baddbmm``, through
+    a selective-checkpoint policy) and recomputes everything else.  The
+    flash forward is no dot to either policy (a ``pallas_call`` in the
+    reference, a kernel behind an ``autograd.Function`` here), so it is
+    run again in the backward under both; without flash the attention
+    einsums are dots, and their scores are kept."""
     if not cfg.remat:
         return _encoder_layer
-    if cfg.remat_policy == "dots":
-        _not_ported("remat_policy='dots'")
-    if cfg.remat_policy != "nothing":
+    if cfg.remat_policy not in ("nothing", "dots"):
         raise ValueError("remat_policy must be 'nothing' or 'dots', got %r"
                          % (cfg.remat_policy,))
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = _dots_contexts
 
     def layer_fn(x, layer, mask, cfg, train, draws=None):
         # all randomness is in `draws`, so no RNG state needs restoring
         return checkpoint(_encoder_layer, x, layer, mask, cfg, train, draws,
-                          use_reentrant=False, preserve_rng_state=False)
+                          **kw)
     return layer_fn
 
 
@@ -369,34 +392,61 @@ class _TrainStep:
     """``step(state, batch, generator) -> (state, loss)``: one AdamW
     step of ``mlm_loss`` over ``prepare(batch)`` (the batch as given
     for BERT; GPT sets its label shift), updating ``state`` IN PLACE.
+    With ``scan_steps=K`` one call runs K such steps and returns their
+    (K,) losses: each step on ``batch`` again, or with
+    ``scan_superbatch`` on slice i of every batch leaf (the reference's
+    ``lax.scan``).  Step i draws its dropout from ``generator`` after
+    step i-1's draws, so one scanned call is K single calls.
 
     On CUDA each batch signature (keys, shapes, dtypes) gets one CUDA
-    graph of the whole step, forward, backward and the AdamW update,
-    replayed for every batch of that signature, as the reference's
-    ``jax.jit`` retraces on a new shape.  The graphs bind one state
-    and, with dropout, one generator: a call with another state drops
-    the cached graphs, one with another generator captures its
-    signature again.  The batch is copied into static buffers and the
-    loss comes back as a copy of the graph's output.  Before a capture
-    one warm-up step runs and the parameters, the AdamW state and the
-    generator are put back (:func:`_restored`), so replay 1 is step 1.
-    The generator is registered with the graph, so replay k draws the
-    dropout of eager step k.  Gradients are the graph's: a leaf the
-    loss reaches gets the graph's gradient tensor (bound to ``.grad``
-    again at every call); one it does not reach keeps a zero gradient
-    made once, before the capture.
+    graph of the whole call, forward, backward and the AdamW update
+    (K of each when scanned), replayed for every batch of that
+    signature, as the reference's ``jax.jit`` retraces on a new shape.
+    The graphs bind one state and, with dropout, one generator: a call
+    with another state drops the cached graphs, one with another
+    generator captures its signature again.  The batch is copied into
+    static buffers and the loss comes back as a copy of the graph's
+    output.  Before a capture one warm-up step runs and the
+    parameters, the AdamW state and the generator are put back
+    (:func:`_restored`), so replay 1 is step 1.  The generator is
+    registered with the graph, so replay k draws the dropout of eager
+    call k.  Gradients are the graph's (the last step's when scanned):
+    a leaf the loss reaches gets the graph's gradient tensor (bound to
+    ``.grad`` again at every call); one it does not reach keeps a zero
+    gradient made once, before the capture.
 
     On the CPU nothing is captured: the same signature and
-    static-buffer code runs the eager step.  ``_eager = True`` runs the
-    eager step on CUDA too (to compare it with the captured one)."""
+    static-buffer code runs the eager steps.  ``_eager = True`` runs
+    them eagerly on CUDA too (to compare with the captured call)."""
 
-    def __init__(self, cfg, device, prepare=None):
+    def __init__(self, cfg, device, prepare=None, scan_steps=None,
+                 scan_superbatch=False):
         self.cfg = cfg
         self.device = device
         self.prepare = prepare or (lambda batch: batch)
+        self.scan_steps = scan_steps
+        self.scan_superbatch = scan_superbatch and scan_steps is not None
         self._eager = False
         self._graphs = GraphCache(device)
         self._opt = None                # the state the graphs bind
+
+    def _per_step(self, batch):
+        """The batch of each step of one call."""
+        if self.scan_steps is None:
+            return [batch]
+        if not self.scan_superbatch:
+            return [batch] * self.scan_steps
+        for k, v in batch.items():
+            if v.dim() == 0 or v.shape[0] != self.scan_steps:
+                raise ValueError(
+                    "step: scan_superbatch needs a leading axis of %d on "
+                    "every batch leaf, %r has shape %s"
+                    % (self.scan_steps, k, tuple(v.shape)))
+        return [{k: v[i] for k, v in batch.items()}
+                for i in range(self.scan_steps)]
+
+    def _result(self, losses):
+        return losses[0] if self.scan_steps is None else torch.stack(losses)
 
     def _loss_backward(self, params, batch, generator):
         loss = mlm_loss(params, self.prepare(batch), generator, self.cfg)
@@ -414,13 +464,16 @@ class _TrainStep:
         opt.step()
         return loss, unreached
 
+    def _eager_call(self, params, opt, batch, generator):
+        return self._result([self._eager_step(params, opt, b, generator)[0]
+                             for b in self._per_step(batch)])
+
     def __call__(self, state, batch, generator):
         params, opt = state
         batch = {k: torch.as_tensor(v) for k, v in batch.items()}
         if self._eager:
             batch = {k: v.to(self.device) for k, v in batch.items()}
-            return state, self._eager_step(params, opt, batch,
-                                           generator)[0]
+            return state, self._eager_call(params, opt, batch, generator)
         if self._opt is not opt:
             self._graphs.clear()
             self._opt = opt
@@ -440,16 +493,17 @@ class _TrainStep:
         return state, loss.clone()
 
     def _entry(self, params, opt, batch, generator, generator_key):
-        """A signature's static batch buffers and its step over them as
+        """A signature's static batch buffers and its call over them as
         a :class:`Program` (captured on CUDA)."""
         dev = self.device
         static = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
                   for k, v in batch.items()}
+        self._per_step(static)              # checks the leading axes
         entry = types.SimpleNamespace(generator=generator_key, batch=static,
                                       grads=None)
         if dev.type != "cuda":
-            entry.program = Program(lambda: self._eager_step(
-                params, opt, static, generator)[0], dev)
+            entry.program = Program(lambda: self._eager_call(
+                params, opt, static, generator), dev)
             return entry
         if generator_key is None and self.cfg.dropout > 0:
             raise ValueError("step: dropout > 0 needs a torch.Generator")
@@ -459,15 +513,20 @@ class _TrainStep:
         with _restored(leaves, opt, generator):
             got = []
             warm_up(lambda: got.append(self._eager_step(
-                params, opt, static, generator)[1]))
+                params, opt, self._per_step(static)[0], generator)[1]))
         unreached = {id(p) for p in got[0]}
+        reached = [p for p in leaves if id(p) not in unreached]
         for p in leaves:
             p.grad = torch.zeros_like(p) if id(p) in unreached else None
 
         def body():
-            loss = self._loss_backward(params, static, generator)
-            opt.step()
-            return loss
+            losses = []
+            for b in self._per_step(static):
+                for p in reached:           # a fresh gradient each step
+                    p.grad = None
+                losses.append(self._loss_backward(params, b, generator))
+                opt.step()
+            return self._result(losses)
 
         entry.program = Program(body, dev, self._graphs.pool(), generators=(
             [] if generator_key is None else [generator]))
@@ -494,6 +553,12 @@ def make_train_step(cfg: TransformerConfig, mesh=None, learning_rate=1e-4,
     ``generator``: the ``torch.Generator`` (on ``device``) that dropout
     draws from; see :func:`forward_with_aux`.
 
+    ``scan_steps=K`` makes ``step`` run K steps a call and return the
+    (K,) losses, on CUDA as one graph of the K steps; with
+    ``scan_superbatch=True`` every batch leaf has a leading K axis and
+    step i takes slice i, otherwise every step takes the whole batch
+    (the reference's ``lax.scan``, :class:`_TrainStep`).
+
     The reference's ``optax.adamw`` (b1 0.9, b2 0.999, eps 1e-6, no
     decay mask) becomes ``torch.optim.AdamW`` with the same constants.
     Both decay every leaf, biases and layer norms included, and both
@@ -504,11 +569,14 @@ def make_train_step(cfg: TransformerConfig, mesh=None, learning_rate=1e-4,
     reference's.  The mesh options raise ``NotImplementedError``."""
     for name, on in (("mesh", mesh is not None),
                      ("shard_optimizer", shard_optimizer),
-                     ("scan_steps", scan_steps is not None),
-                     ("scan_superbatch", scan_superbatch),
                      ("fsdp", fsdp), ("bucket_overlap", bucket_overlap)):
         if on:
             _not_ported("make_train_step(%s=...)" % name)
+    if scan_steps is not None and (isinstance(scan_steps, bool) or
+                                   int(scan_steps) != scan_steps or
+                                   scan_steps < 1):
+        raise ValueError("make_train_step: scan_steps must be a positive "
+                         "int, got %r" % (scan_steps,))
     if cfg.n_experts:
         _not_ported("MoE layers")
     dev = resolve_device(device)
@@ -526,4 +594,6 @@ def make_train_step(cfg: TransformerConfig, mesh=None, learning_rate=1e-4,
                                 capturable=dev.type == "cuda")
         return params, opt
 
-    return init_state, _TrainStep(cfg, dev)
+    return init_state, _TrainStep(
+        cfg, dev, scan_steps=None if scan_steps is None else int(scan_steps),
+        scan_superbatch=scan_superbatch)

@@ -227,6 +227,22 @@ def assert_no_leak(eng):
 # (no ties, for sorting), "i" integer indices below ``k`` (as float32),
 # "b" 0/1 floats, "c" a given array; "spd", "tril" matrices for linalg.
 
+def nms_case(B, N, seed, classes=3, device="cpu"):
+    """Score-sorted boxes in three clusters an image (so that many
+    overlap), 10% invalid rows and class ids."""
+    rng = np.random.RandomState(seed)
+    centres = rng.uniform(0.2, 0.8, (B, 3, 2))
+    c = centres[np.arange(B)[:, None], rng.randint(0, 3, (B, N))] \
+        + rng.normal(0, 0.08, (B, N, 2))
+    wh = rng.uniform(0.05, 0.3, (B, N, 2))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], 2).astype(np.float32)
+    valid = rng.rand(B, N) > 0.1
+    ids = rng.randint(0, classes, (B, N)).astype(np.float32)
+    return (torch.from_numpy(boxes).to(device),
+            torch.from_numpy(valid).to(device),
+            torch.from_numpy(ids).to(device))
+
+
 # (rtol, atol) of each family, port against reference on the CPU (f32):
 #   exact   - data movement, indexing, comparisons: nothing to round
 #   arith   - one or two roundings (+, *, /, casts): 1 ulp either way
@@ -284,6 +300,58 @@ def _i(k, *s): return ("i", s, k)
 def _b(*s): return ("b", s)
 def _c(a, dtype="float32"): return ("c", np.asarray(a, dtype=dtype))
 def _h(*s): return ("n16", s)
+def _box(*s): return ("box", s)
+def _roi(R, N, H, W): return ("roi", (R, 5), (N, H, W))
+def _rroi(R, N, H, W): return ("rroi", (R, 6), (N, H, W))
+def _det(B, N, C): return ("det", (B, N, 6), C)
+def _lab(B, M, C, pad): return ("lab", (B, M, 5), (C, pad))
+
+
+def _boxes(rng, shape, lo=0.0, hi=1.0):
+    """Corner boxes (..., 4) inside [lo, hi], each side 10-50% of it."""
+    n = int(np.prod(shape[:-1]))
+    span = hi - lo
+    wh = rng.uniform(0.1, 0.5, (n, 2)) * span
+    xy = lo + rng.uniform(0, 1, (n, 2)) * (span - wh)
+    return np.concatenate([xy, xy + wh], 1).reshape(shape)
+
+
+def _detection_input(kind, rng):
+    """The detection ops' structured inputs: rois of images, SSD label
+    rows (the last ``pad`` rows padded with class -1) and NMS rows
+    [id, score, x0, y0, x1, y1] clustered so that boxes overlap."""
+    k, shape = kind[0], kind[1]
+    if k == "box":
+        return _boxes(rng, shape).astype(np.float32)
+    if k in ("roi", "rroi"):
+        N, H, W = kind[2]
+        R = shape[0]
+        b = rng.randint(0, N, (R, 1))
+        if k == "roi":
+            return np.concatenate([b, _boxes(rng, (R, 4), 0, W - 1)],
+                                  1).astype(np.float32)
+        c = rng.uniform(0.25, 0.75, (R, 2)) * [W, H]
+        wh = rng.uniform(0.2, 0.6, (R, 2)) * [W, H]
+        ang = rng.uniform(-90, 90, (R, 1))
+        return np.concatenate([b, c, wh, ang], 1).astype(np.float32)
+    if k == "lab":
+        C, pad = kind[2]
+        B, M, _ = shape
+        lab = np.concatenate([rng.randint(0, C, (B, M, 1)),
+                              _boxes(rng, (B, M, 4))], 2)
+        lab[:, M - pad:, 0] = -1
+        return lab.astype(np.float32)
+    if k == "det":
+        B, N, _ = shape
+        C = kind[2]
+        centres = rng.uniform(0.2, 0.8, (B, 3, 2))
+        c = centres[np.arange(B)[:, None], rng.randint(0, 3, (B, N))] \
+            + rng.normal(0, 0.04, (B, N, 2))
+        wh = rng.uniform(0.15, 0.3, (B, N, 2))
+        return np.concatenate([
+            rng.randint(0, C, (B, N, 1)), rng.uniform(-0.2, 1.0, (B, N, 1)),
+            c - wh / 2, c + wh / 2], 2).astype(np.float32)
+    raise ValueError(kind)
 
 
 def make_input(kind, rng):
@@ -313,6 +381,8 @@ def make_input(kind, rng):
         a = rng.randn(*shape).astype(np.float64)
         m = a @ np.swapaxes(a, -1, -2) + shape[-1] * np.eye(shape[-1])
         return m.astype(np.float32)
+    if k in ("box", "roi", "rroi", "lab", "det"):
+        return _detection_input(kind, rng)
     if k == "tril":
         a = np.tril(rng.randn(*shape)) + 3 * np.eye(shape[-1])
         return a.astype(np.float32)
@@ -990,17 +1060,151 @@ def _rnn_specs():
     return specs
 
 
+def _vision_specs():
+    """``ops/vision.py``.  NMS keep decisions, class ids and ranks are
+    exact; the box decode and the targets' logs are ``transc`` (XLA's
+    exp/log and its contracted multiply-adds); the samplers' blends
+    ``arith``; the integral image and the correlation's channel sums
+    ``reduce``."""
+    X = "exact"
+    dets = _det(2, 12, 3)
+    return [
+        Spec("_contrib_box_iou", [_box(3, 4), _box(2, 5, 4)]),
+        Spec("_contrib_box_iou", [_box(4, 4), _box(3, 4)],
+             {"format": "center"}),
+        Spec("_contrib_box_nms", [dets], fam=X, grad=False),
+        Spec("_contrib_box_nms", [dets], {"overlap_thresh": 0.3, "topk": 5,
+                                          "id_index": 0,
+                                          "background_id": 1}, fam=X,
+             grad=False),
+        Spec("_contrib_box_nms", [dets], {"id_index": 0,
+                                          "force_suppress": True,
+                                          "valid_thresh": 0.3}, fam=X,
+             grad=False),
+        Spec("_contrib_box_nms", [_det(3, 8, 2)],
+             {"in_format": "center", "out_format": "corner",
+              "overlap_thresh": 0.2}, grad=False),
+        Spec("MultiBoxPrior", [_n(1, 3, 4, 5)],
+             {"sizes": (0.5, 0.25), "ratios": (1.0, 2.0, 0.5)}, grad=False),
+        Spec("MultiBoxPrior", [_n(2, 1, 3, 3)],
+             {"sizes": (0.55, 0.4, 0.3), "ratios": (1.0, 1.6), "clip": True,
+              "steps": (0.3, 0.3), "offsets": (0.4, 0.6)}, grad=False),
+        Spec("MultiBoxTarget", [_box(1, 20, 4), _lab(2, 4, 3, 1),
+                                _n(2, 4, 20)],
+             {"overlap_threshold": 0.3}, fam="transc"),
+        Spec("MultiBoxTarget", [_box(1, 30, 4), _lab(3, 5, 2, 2),
+                                _n(3, 3, 30)],
+             {"overlap_threshold": 0.4, "negative_mining_ratio": 2.0,
+              "negative_mining_thresh": 0.3,
+              "minimum_negative_samples": 2}, fam="transc"),
+        Spec("MultiBoxDetection", [_u(2, 4, 30), _u(2, 120), _box(1, 30, 4)],
+             {"threshold": 0.2, "nms_threshold": 0.3}, fam="transc"),
+        Spec("MultiBoxDetection", [_u(2, 4, 30), _u(2, 120), _box(1, 30, 4)],
+             {"threshold": 0.1, "nms_threshold": 0.3, "nms_topk": 6,
+              "force_suppress": True, "clip": False}, fam="transc"),
+        Spec("ROIPooling", [_n(2, 3, 8, 9), _roi(4, 2, 8, 9)],
+             {"pooled_size": (2, 3)}, fam=X),
+        Spec("ROIPooling", [_n(1, 2, 6, 6), _roi(3, 1, 12, 12)],
+             {"pooled_size": (3, 3), "spatial_scale": 0.5}, fam=X),
+        Spec("_contrib_ROIAlign", [_n(2, 3, 8, 9), _roi(4, 2, 8, 9)],
+             {"pooled_size": (2, 3), "sample_ratio": 2}),
+        Spec("_contrib_ROIAlign", [_n(1, 2, 6, 6), _roi(3, 1, 12, 12)],
+             {"pooled_size": (3, 2), "spatial_scale": 0.5, "aligned": True,
+              "sample_ratio": 3}),
+        Spec("_contrib_mrcnn_mask_target",
+             [_box(2, 3, 4), _b(2, 2, 8, 8), _i(2, 2, 3), _i(3, 2, 3)],
+             {"num_classes": 2, "mask_size": (4, 4)}),
+        Spec("BilinearSampler", [_n(2, 3, 5, 6), _u(2, 2, 4, 5)]),
+        Spec("BilinearSampler", [_n(1, 2, 4, 4), _n(1, 2, 3, 3)]),
+        Spec("GridGenerator", [_n(2, 6)], {"transform_type": "affine",
+                                           "target_shape": (3, 4)}),
+        Spec("GridGenerator", [_n(2, 2, 3, 4)], {"transform_type": "warp"}),
+        Spec("SpatialTransformer", [_n(2, 3, 5, 6), _u(2, 6)],
+             {"target_shape": (4, 5)}),
+        Spec("_contrib_BilinearResize2D", [_n(2, 3, 4, 5)],
+             {"height": 7, "width": 3}),
+        Spec("_contrib_BilinearResize2D", [_n(1, 2, 3, 4)],
+             {"scale_height": 2.0, "scale_width": 1.5, "mode": "scale"}),
+        Spec("_contrib_AdaptiveAvgPooling2D", [_n(2, 3, 7, 5)],
+             {"output_size": (3, 2)}, fam="reduce"),
+        Spec("_contrib_AdaptiveAvgPooling2D", [_n(1, 2, 4, 4)],
+             {"output_size": 1}, fam="reduce"),
+        Spec("Correlation", [_n(1, 3, 6, 6), _n(1, 3, 6, 6)], fam="reduce"),
+        Spec("Correlation", [_n(2, 2, 7, 7), _n(2, 2, 7, 7)],
+             {"kernel_size": 3, "max_displacement": 2, "stride2": 2,
+              "pad_size": 2, "is_multiply": False}, fam="reduce"),
+        Spec("SVMOutput", [_n(4, 5), _i(5, 4)], fd=False),
+        Spec("SVMOutput", [_n(4, 5), _i(5, 4)],
+             {"margin": 0.5, "regularization_coefficient": 2.0,
+              "use_linear": True}, fd=False),
+    ]
+
+
+def _vision_ext_specs():
+    """``ops/vision_ext.py``: the deformable convolutions' tap sums and
+    the proposals' decode (``reduce``/``transc``), the samplers'
+    blends (``arith``), matching exact."""
+    return [
+        Spec("_contrib_DeformableConvolution",
+             [_n(2, 4, 5, 5), _n(2, 2 * 2 * 9, 5, 5), _n(6, 2, 3, 3),
+              _n(6)],
+             {"kernel": (3, 3), "pad": (1, 1), "num_filter": 6,
+              "num_group": 2, "num_deformable_group": 2}, fam="reduce"),
+        Spec("_contrib_DeformableConvolution",
+             [_n(1, 3, 6, 6), _u(1, 2 * 4, 3, 3), _n(4, 3, 2, 2)],
+             {"kernel": (2, 2), "stride": (2, 2), "num_filter": 4,
+              "no_bias": True}, fam="reduce"),
+        Spec("_contrib_ModulatedDeformableConvolution",
+             [_n(2, 4, 5, 5), _n(2, 2 * 9, 5, 5), _u(2, 9, 5, 5),
+              _n(3, 4, 3, 3), _n(3)],
+             {"kernel": (3, 3), "pad": (1, 1), "num_filter": 3},
+             fam="reduce"),
+        Spec("_contrib_PSROIPooling", [_n(2, 8, 8, 8), _roi(3, 2, 16, 16)],
+             {"spatial_scale": 0.5, "output_dim": 2, "pooled_size": 2}),
+        Spec("_contrib_DeformablePSROIPooling",
+             [_n(2, 8, 8, 8), _roi(3, 2, 16, 16), _n(3, 4, 2, 2)],
+             {"spatial_scale": 0.5, "output_dim": 2, "group_size": 2,
+              "pooled_size": 2, "part_size": 2, "sample_per_part": 2,
+              "trans_std": 0.1}),
+        Spec("_contrib_Proposal",
+             [_u(1, 12, 4, 5), _u(1, 24, 4, 5), _c([[64.0, 80.0, 1.0]])],
+             {"rpn_pre_nms_top_n": 50, "rpn_post_nms_top_n": 10,
+              "rpn_min_size": 4, "scales": (2, 4), "ratios": (0.5, 1, 2)},
+             fam="transc"),
+        Spec("_contrib_MultiProposal",
+             [_u(2, 12, 4, 5), _u(2, 24, 4, 5),
+              _c([[64.0, 80.0, 1.0], [48.0, 60.0, 0.5]])],
+             {"rpn_pre_nms_top_n": 40, "rpn_post_nms_top_n": 12,
+              "threshold": 0.5, "rpn_min_size": 8, "scales": (2, 4),
+              "ratios": (0.5, 1, 2), "output_score": True}, fam="transc"),
+        Spec("_contrib_RROIAlign", [_n(2, 3, 8, 8), _rroi(3, 2, 8, 8)],
+             {"pooled_size": (2, 3), "sampling_ratio": 2}, fam="transc"),
+        Spec("_contrib_box_encode",
+             [_b(2, 5), _i(3, 2, 5), _box(2, 5, 4), _box(2, 3, 4)],
+             {"means": (0.0, 0.1, 0.0, -0.1), "stds": (0.1, 0.1, 0.2, 0.2)},
+             fam="transc"),
+        Spec("_contrib_box_decode", [_u(2, 5, 4), _box(1, 5, 4)],
+             {"std0": 0.1, "std1": 0.1, "std2": 0.2, "std3": 0.2},
+             fam="transc"),
+        Spec("_contrib_box_decode", [_u(2, 5, 4), _box(1, 5, 4)],
+             {"clip": 0.5, "format": "center"}, fam="transc"),
+        Spec("_contrib_bipartite_matching", [_u(2, 4, 5)],
+             {"threshold": 0.1}, fam="exact"),
+        Spec("_contrib_bipartite_matching", [_u(3, 4)],
+             {"is_ascend": True, "threshold": 0.5, "topk": 2},
+             fam="exact"),
+    ]
+
+
 # the op library's specs by the reference module that registers the op
 OP_SPECS = {"elemwise": _elemwise_specs(), "reduce": _reduce_specs(),
             "shape_ops": _shape_specs(), "creation_ops": _creation_specs(),
             "nn": _nn_specs(), "linalg": _linalg_specs(),
-            "contrib_misc": _contrib_specs(), "rnn_op": _rnn_specs()}
+            "contrib_misc": _contrib_specs(), "rnn_op": _rnn_specs(),
+            "vision": _vision_specs(), "vision_ext": _vision_ext_specs()}
 
 # reference modules not in this slice of the port, each with its reason
 DEFERRED_MODULES = {
-    "vision": "detection/vision ops: ROADMAP.md A.3b, with "
-              "examples/ssd_detection.py as their path",
-    "vision_ext": "ROADMAP.md A.3b, with vision",
     "quantization": "int8 quantization flow: ROADMAP.md A.10",
     "_np_ops": "the numpy-compatible _np_* ops (mx.np): ROADMAP.md A.10",
 }

@@ -83,6 +83,7 @@ def test_kernel_counters_cover_every_wrapper():
     from mxnet_tpu_torch.kernels import fused_conv as FC
     from mxnet_tpu_torch.kernels._counters import registered
     from mxnet_tpu_torch.kernels import fused_optimizer as FO
+    from mxnet_tpu_torch.kernels import nms as NMS
     from mxnet_tpu_torch.kernels import paged_attention as PA
     k = rtc.CudaKernel(None, "k", rtc.parse_signature("float *x"))
     got = registered()
@@ -93,6 +94,7 @@ def test_kernel_counters_cover_every_wrapper():
                          (FC.conv3x3_fused, "launches"),
                          (FO.fused_multi_sgd, "sgd_launches"),
                          (FO.fused_multi_sgd, "sgd_mom_launches"),
+                         (NMS.nms_keep, "launches"),
                          (k, "launches")]:
         assert any(h is holder and a == attr for h, a in got)
 
@@ -561,12 +563,14 @@ def test_engine_captured_equals_eager(cuda_device, dtype, kv_int8):
 
 def _train_runs(gpt, dev, eager, steps=3, shapes=(64,), remat=False):
     """``steps`` steps per batch shape from one seed: losses, then the
-    parameters, the AdamW state and the generator state after them."""
+    parameters, the AdamW state and the generator state after them.
+    ``remat``: False, True (the "nothing" policy) or "dots"."""
     from mxnet_tpu_torch.convert import tree_leaves
     from mxnet_tpu_torch.models import gpt as G
     from mxnet_tpu_torch.models import transformer as T
     kw = dict(d_model=128, n_heads=2, d_ff=256, vocab_size=256,
-              max_len=128, dropout=0.1, remat=remat)
+              max_len=128, dropout=0.1, remat=bool(remat),
+              remat_policy="dots" if remat == "dots" else "nothing")
     if gpt:
         init_state, step = G.make_train_step(G.gpt_tiny(**kw), device=dev)
     else:
@@ -595,14 +599,16 @@ def _train_runs(gpt, dev, eager, steps=3, shapes=(64,), remat=False):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("gpt,remat", [(False, False), (True, False),
-                                       (False, True)])
+                                       (False, True), (False, "dots"),
+                                       (True, "dots")])
 def test_train_steps_captured_equal_eager(cuda_device, gpt, remat):
     """3 steps with dropout 0.1 (bf16, flash kernels), then 3 at a
     second batch shape, captured against eager from one seed: losses,
     parameters, AdamW state and the generator's state bit for bit (so
     replay k drew eager step k's dropout, and the warm-ups drew
     nothing); one graph per shape; each flash kernel counted once a
-    layer a step (the remat recompute adds one forward a layer)."""
+    layer a step (the remat recompute adds one forward a layer, under
+    the "nothing" and the "dots" policy alike)."""
     from mxnet_tpu_torch.kernels import flash_attention as FA
     want = _train_runs(gpt, cuda_device, True, shapes=(64, 32),
                        remat=remat)

@@ -238,7 +238,7 @@ def test_variables_and_grad_req():
     with pytest.raises(mx.MXNetError, match="Cannot differentiate"):
         mx.nd.array([1.0], ctx=ctx).backward()
     with pytest.raises(NotImplementedError, match="not ported"):
-        mx.nd.ROIPooling
+        mx.nd._contrib_quantize
     assert not hasattr(mx.nd, "no_such_op")
 
 

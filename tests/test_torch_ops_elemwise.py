@@ -74,8 +74,8 @@ def test_every_reference_op_is_ported_and_held():
 
 def test_deferred_modules_are_not_ported_yet():
     """The deferred modules' ops raise ``NotImplementedError`` from
-    ``nd`` (``ROADMAP.md`` A.3b, A.10)."""
+    ``nd`` (``ROADMAP.md`` A.9)."""
     import mxnet_tpu_torch as P
-    for name in ("ROIPooling", "_contrib_quantize", "_np_sum"):
+    for name in ("_contrib_dequantize", "_contrib_quantize", "_np_sum"):
         with pytest.raises(NotImplementedError, match="not ported"):
             getattr(P.nd, name)

@@ -44,13 +44,6 @@ from _torch_port import cuda_device  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_VISION = ["AdaptiveAvgPooling2D", "BilinearResize2D", "BilinearSampler",
-           "Correlation", "DeformableConvolution", "DeformablePSROIPooling",
-           "GridGenerator", "ModulatedDeformableConvolution",
-           "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
-           "MultiProposal", "PSROIPooling", "Proposal", "ROIAlign",
-           "ROIPooling", "RROIAlign", "SVMOutput", "SpatialTransformer",
-           "bipartite_matching", "box_iou", "box_nms"]
 _QUANT = ["dequantize", "quantize", "quantize_v2", "quantized_act",
           "quantized_conv", "quantized_flatten", "quantized_fully_connected",
           "quantized_pooling", "requantize"]
@@ -71,7 +64,6 @@ _DIST = ["init_moe_ffn", "latest_step", "moe_ffn", "moe_param_shardings",
 # "module:name" -> the ROADMAP.md section A item that ports it
 DEFERRED = {}
 for _mod in ("mxnet_tpu.ndarray", "mxnet_tpu.symbol"):
-    DEFERRED.update({"%s:%s" % (_mod, n): "A.2" for n in _VISION})
     DEFERRED.update({"%s:%s" % (_mod, n): "A.9" for n in _QUANT})
 DEFERRED.update({"mxnet_tpu.gluon.parameter:Parameter.grad_stype": "A.3",
                  "mxnet_tpu.gluon.parameter:Constant.grad_stype": "A.3",

@@ -202,7 +202,7 @@ def test_compose_and_attrs():
 
 def test_unported_op_raises():
     with pytest.raises(NotImplementedError, match="not ported"):
-        P.sym.ROIPooling
+        P.sym._contrib_quantize
 
 
 def _exported_pair(tmp_path):

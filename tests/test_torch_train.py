@@ -248,15 +248,10 @@ def test_unported_options_raise():
     from mxnet_tpu_torch.models import transformer as T
     _, tcfg = _cfgs()
     for kw in (dict(fsdp=True), dict(shard_optimizer=True),
-               dict(bucket_overlap=True), dict(scan_steps=4),
-               dict(mesh=object())):
+               dict(bucket_overlap=True), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             T.make_train_step(tcfg, device="cpu", **kw)
     x = torch.zeros(1, 4, 2, 64)
     with pytest.raises(NotImplementedError):
         T._attention(x, x, x, None,
                      dataclasses.replace(tcfg, seq_parallel="ring"))
-    with pytest.raises(NotImplementedError):
-        T.forward(T.init_params(0, tcfg, device="cpu"),
-                  torch.zeros(1, 4, dtype=torch.long),
-                  dataclasses.replace(tcfg, remat=True, remat_policy="dots"))
