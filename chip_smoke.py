@@ -201,6 +201,28 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    (N 400 and 8732, with class ids and across them, and flag for flag
    at the SSD300 decode's own inputs, all 32 images) and the ops and
    the kernel timed;
+7h. drives Gluon data, the Estimator and the sparse storage (the
+   ``data`` phase, after ``detection``), every launch counter from 0
+   and still 0 after: a thumbnail ResNet-18 (apache/mxnet
+   example/gluon/image_classification.py for CIFAR-10, full width, f32,
+   TF32 off, hybridized, SGD lr 0.1 momentum 0.9 wd 5e-4) through
+   ``Estimator.fit`` from a ``DataLoader`` (CIFAR-10's 50,000 synthetic
+   train images, flips, ``ToTensor``, ``Normalize``, bs 128, 4 forked
+   workers, pinned batches) with a ``CheckpointHandler``: first the 4
+   workers' batches against the in-process loader's on a deterministic
+   pipeline and 3 Estimator steps hybridized against op by op, bit for
+   bit; then 150 batches (images/s, the consumer's wait on the loader,
+   the train accuracy, which must beat chance), the checkpoint reloaded
+   to the same outputs, the same step fed from batches on the card and
+   from a loader with no workers; matrix factorization (apache/mxnet
+   example/sparse/matrix_factorization at MovieLens-10M's id ranges,
+   factor 128, hidden 64, bs 1024) with ``Embedding(sparse_grad=True)``
+   and lazy Adam, hybridized, 100 steps, against dense Adam on the same
+   net (ms a step, rows touched and host reads a step), one step held
+   against the CPU and a step's untouched rows held bit for bit; the
+   sparse ops at Criteo's shape (8192 x 1,000,000, 39 entries a row):
+   ``dot(csr, w)``, ``dot(csr.T, g)`` and a lazy ``sgd_update`` against
+   scipy and numpy, each timed;
 7b. drives bench.py's workload (the ``bench`` phase; the BERT and GPT
    steps' graphs freed first): ResNet-50 v1 with the space-to-depth
    stem, ``amp=True``, bs 128, through ``DataParallelTrainer.run_steps``
@@ -261,6 +283,7 @@ import gc
 import itertools
 import json
 import os
+import random
 import shutil
 import subprocess
 import sys
@@ -790,6 +813,10 @@ def bound(nbytes, flops, dtype):
 # CPU side records an event of the same name (a record_function span,
 # such as the optimizer step's, that the profiler mirrors on the device).
 DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+# the device's idle time on each side of a profiled window's steps, and
+# the name of the host span around them (profile_window)
+PROFILE_MARGIN_S = 0.05
+PROFILE_SPAN = "chip_smoke.profiled_steps"
 
 
 def device_work(prof):
@@ -813,6 +840,26 @@ def device_work(prof):
             [ev for ev, k in zip(evs, keep) if not k], how)
 
 
+def log_window_edges(work, kernels):
+    """Information on a window that disagrees: where its first and last
+    device events lie, and where the checked kernels' first and last do,
+    in ms from the window's first device event (a loss at one edge shows
+    as a checked kernel near it)."""
+    if not work:
+        log("info: the window holds no device event")
+        return
+    t0 = min(ev.time_range.start for ev in work)
+    t1 = max(ev.time_range.end for ev in work)
+    log("info: the window's device events span %.3f ms" % ((t1 - t0) / 1e3))
+    for label, _, symbols in kernels:
+        hit = [ev for ev in work if any(sym in ev.name for sym in symbols)]
+        if hit:
+            log("info:   %s: first starts at %.3f ms, last ends %.3f ms "
+                "before the window's last device event"
+                % (label, (min(ev.time_range.start for ev in hit) - t0) / 1e3,
+                   (t1 - max(ev.time_range.end for ev in hit)) / 1e3))
+
+
 def profile_window(step, n, what, top=8, kernels=()):
     """Information: one torch.profiler window of ``n`` calls of
     ``step`` — host time per step, device busy time per step (kernels,
@@ -828,27 +875,71 @@ def profile_window(step, n, what, top=8, kernels=()):
     to what ran on the device.  The profiler there now and then loses
     events or a whole window, so a window that disagrees is logged and
     taken again, and the run fails after three that disagree (a replay
-    that ran other kernels disagrees every time)."""
-    from torch.profiler import ProfilerActivity, profile
+    that ran other kernels disagrees every time).
+
+    The profiler there also loses, now and then, the first device
+    events of its session (seen on the card in the kernel timings: the
+    first step's layer-1 ``paged_split`` missing, its ``paged_combine``
+    the window's first device event).  So a checked window opens with one
+    call of ``step`` that is neither timed nor held to the counters
+    (its counts are logged); then the device idles PROFILE_MARGIN_S, the
+    ``n`` calls run inside a ``record_function`` span, and the device
+    idles PROFILE_MARGIN_S again.  Only device events inside that span,
+    widened by half the margin each side, count, are timed and are held
+    to the counters."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    margin_us = PROFILE_MARGIN_S * 1e6 / 2
     for attempt in range(1, 4 if kernels else 2):
         torch.cuda.synchronize()
-        before = [counter() for _, counter, _ in kernels]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
+            if kernels:
+                w0 = [counter() for _, counter, _ in kernels]
                 step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+                torch.cuda.synchronize()
+                warm = [counter() - c for (_, counter, _), c
+                        in zip(kernels, w0)]
+                time.sleep(PROFILE_MARGIN_S)
+            before = [counter() for _, counter, _ in kernels]
+            with record_function(PROFILE_SPAN):
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    step()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / n
+            after = [counter() for _, counter, _ in kernels]
+            time.sleep(PROFILE_MARGIN_S)
         work, other, how = device_work(prof)
+        span = [ev for ev in prof.events() if ev.name == PROFILE_SPAN
+                and ev.device_type == DeviceType.CPU]
+        if len(span) != 1:
+            raise Failed("profile of %s: %d spans named %s recorded, 1 "
+                         "expected" % (what, len(span), PROFILE_SPAN))
+        lo = span[0].time_range.start - margin_us
+        hi = span[0].time_range.end + margin_us
+
+        def inside(ev):
+            return lo <= ev.time_range.start and ev.time_range.end <= hi
+
+        if kernels:
+            for (label, _, symbols), c in zip(kernels, warm):
+                log("info: profile of %s, attempt %d, its opening call "
+                    "(not held): %s counted %d launches, the device ran %d"
+                    % (what, attempt, label, c, sum(
+                        1 for ev in work if not inside(ev)
+                        and any(sym in ev.name for sym in symbols))))
+        work = [ev for ev in work if inside(ev)]
+        other = [ev for ev in other if inside(ev)]
         by_name = {}
         for ev in work:
             t, c = by_name.get(ev.name, (0.0, 0))
             by_name[ev.name] = (t + ev.time_range.elapsed_us(), c + 1)
-        seen = [(label, counter() - b0,
+        seen = [(label, c1 - c0,
                  sum(c for name, (_, c) in by_name.items()
                      if any(sym in name for sym in symbols)))
-                for (label, counter, symbols), b0 in zip(kernels, before)]
+                for (label, _, symbols), c0, c1 in zip(kernels, before,
+                                                       after)]
         bad = [x for x in seen if x[1] != x[2]]
         for label, counted, ran in seen:
             log("check profile of %d %s, attempt %d: %s counted %d "
@@ -857,6 +948,7 @@ def profile_window(step, n, what, top=8, kernels=()):
                    "ok" if counted == ran else "MISMATCH"))
         if not bad:
             break
+        log_window_edges(work, kernels)
     if bad:
         raise Failed("profile of %s: the launch counters disagree with "
                      "the device kernels in three windows: %s"
@@ -6067,6 +6159,622 @@ def detection_path(mx, failures, flush):
     return nums, row
 
 
+# ------------------------------------------------------------------ data --
+# apache/mxnet example/gluon/image_classification.py --dataset cifar10
+# --model resnet18_v1 --use_thumbnail: full-width ResNet-18 with the CIFAR
+# stem, CIFAR-10's train size drawn by the synthetic dataset (the files
+# are not fetched), bs 128, SGD lr 0.1 momentum 0.9 wd 5e-4, f32
+DATA_N, DATA_B, DATA_WORKERS = 50000, 128, 4
+DATA_BATCHES = 150          # the main fit, 4 workers
+DATA_VAL = 3                # validation batches, run once after the fit's last
+DATA_CEILING = 60           # the same step fed from batches on the card
+DATA_W0 = 30                # the same step from a loader with no workers
+DATA_FROM = 10              # rates and waits over the batches after these
+DATA_CHECK_STEPS = 3
+DATA_PROFILE = 10           # batches in a profiled window
+DATA_MEAN, DATA_STD = (0.4914, 0.4822, 0.4465), (0.2023, 0.1994, 0.2010)
+# apache/mxnet example/sparse/matrix_factorization (model.py): user and
+# item Embedding(sparse_grad) -> relu -> Dense, the row-wise product
+# summed; MovieLens-10M's id ranges (max_user 71569, max_movie 65135);
+# factor, hidden and batch this run's choice; Adam lr 1e-3, wd 1e-5
+MF = dict(users=71569, items=65135, factor=128, hidden=64, batch=1024,
+          steps=100, lr=1e-3, wd=1e-5)
+MF_FROM = 10
+MF_PROFILE = 10             # steps in a profiled window
+# a Criteo-shaped batch: 8192 rows over 1,000,000 hashed features, 13
+# integer fields (columns 0-12) and 26 categorical ones, each hashed into
+# its own range of the rest: 39 entries a row
+CRITEO = dict(rows=8192, features=1000000, ints=13, cats=26)
+SPARSE_CALLS = 20
+# card vs CPU for the MF step, and dot against scipy in float64: a sum of
+# k f32 products is within 2k ulp (2^-24) of |A| @ |x| of the exact sum
+MF_TOL = 1e-5
+
+
+class WaitTimer:
+    """Iterates ``loader``, timing each ``next`` (the consumer's wait for
+    the loader) and the moment each batch was handed out."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.waits = []
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.waits.append(time.perf_counter() - t0)
+            yield batch
+
+
+class Cycle:
+    """``n`` batches, cycling through ``batches`` (already on the
+    card)."""
+
+    def __init__(self, batches, n):
+        self.batches, self.n = batches, n
+
+    def __iter__(self):
+        return itertools.islice(itertools.cycle(self.batches), self.n)
+
+
+def cifar_loader(mx, ds, workers, flips=True, shuffle=True):
+    t = mx.gluon.data.vision.transforms
+    chain = [t.ToTensor(), t.Normalize(DATA_MEAN, DATA_STD)]
+    if flips:
+        chain.insert(0, t.RandomFlipLeftRight())
+    return mx.gluon.data.DataLoader(
+        ds.transform_first(t.Compose(chain)), batch_size=DATA_B,
+        shuffle=shuffle, last_batch="discard", num_workers=workers,
+        pin_memory=True, timeout=120)
+
+
+def resnet18_estimator(mx, arrays, hybrid):
+    """The thumbnail ResNet-18 on the card with ``arrays`` as weights,
+    under an Estimator with the example's SGD."""
+    from mxnet_tpu_torch.convert import set_block_params
+    from mxnet_tpu_torch.gluon.contrib.estimator import Estimator
+    ctx = mx.gpu(0)
+    net = mx.gluon.model_zoo.vision.get_model("resnet18_v1", classes=10,
+                                              thumbnail=True)
+    net.initialize(ctx=ctx)
+    set_block_params(net, arrays, ctx=ctx)
+    net.hybridize(hybrid)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": 0.1, "momentum": 0.9, "wd": 5e-4})
+    return Estimator(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                     train_metrics=mx.metric.Accuracy(), trainer=trainer,
+                     context=ctx)
+
+
+def batch_clock(mx):
+    """A BatchEnd handler that keeps each batch's end time, the device
+    synchronised."""
+    from mxnet_tpu_torch.gluon.contrib.estimator import BatchEnd
+
+    class Clock(BatchEnd):
+        def __init__(self):
+            self.ends = []
+
+        def batch_end(self, estimator, *args, **kwargs):
+            torch.cuda.synchronize()
+            self.ends.append(time.perf_counter())
+    return Clock()
+
+
+def timed_fit(mx, est, data, n, handlers=(), val_data=None):
+    """``est.fit(data, val_data, batches=n)``: (images/s over the batches
+    after DATA_FROM, mean ms the consumer waited on the loader there).
+    The clock is the first handler, so a validation run in the last
+    batch's handlers is not in the rate."""
+    clock = batch_clock(mx)
+    est.fit(data, val_data, batches=n,
+            event_handlers=[clock] + list(handlers))
+    if len(clock.ends) != n:
+        raise Failed("fit ran %d batches, asked %d" % (len(clock.ends), n))
+    rate = (n - DATA_FROM) * DATA_B / (clock.ends[-1] - clock.ends[DATA_FROM])
+    waits = getattr(data, "waits", None)
+    wait = float(np.mean(waits[DATA_FROM + 1:])) * 1e3 if waits else 0.0
+    return rate, wait
+
+
+def same_batches(a, b):
+    return len(a) == len(b) and all(
+        np.array_equal(x.asnumpy(), y.asnumpy())
+        for p, q in zip(a, b) for x, y in zip(p, q))
+
+
+def estimator_path(mx, card, failures):
+    """A thumbnail ResNet-18 fed by a 4-worker DataLoader through
+    ``Estimator.fit``: the checks, then the main fit (checkpoint kept),
+    the same step fed from the card and from a loader with no
+    workers."""
+    ctx = mx.gpu(0)
+    t0 = time.perf_counter()
+    np.random.seed(0)
+    ds = mx.gluon.data.vision.CIFAR10(train=True, synthetic=True,
+                                      synthetic_size=DATA_N)
+    t_ds = time.perf_counter() - t0
+    log("data: CIFAR-10 synthetic train set, %d images (%.1f MB of host "
+        "uint8), drawn in %.1f s" % (len(ds), ds._data.size / 1e6, t_ds))
+    # a deterministic pipeline: 4 workers hand out the batches of none
+    plain = [cifar_loader(mx, ds, w, flips=False, shuffle=False)
+             for w in (DATA_WORKERS, 0)]
+    try:
+        firsts = [list(itertools.islice(iter(ld), 3)) for ld in plain]
+    finally:
+        plain[0].close()
+    pinned = all(x._data.is_pinned() for b in firsts[0] for x in b)
+    same = same_batches(*firsts)
+    log("check DataLoader %d workers vs none, first 3 batches of a "
+        "deterministic pipeline: bit for bit %s, pinned %s  %s"
+        % (DATA_WORKERS, same, pinned, "ok" if same and pinned else "FAIL"))
+    if not (same and pinned):
+        failures.append("DataLoader workers vs none")
+    check = [[x.as_in_context(ctx) for x in b] for b in firsts[1]]
+    np.random.seed(1)
+    seed_net = mx.gluon.model_zoo.vision.get_model(
+        "resnet18_v1", classes=10, thumbnail=True)
+    seed_net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    seed_net(mx.nd.zeros((1, 3, 32, 32), ctx=mx.cpu()))
+    arrays = {k: v.data().asnumpy()
+              for k, v in seed_net._collect_params_with_prefix().items()}
+    # DATA_CHECK_STEPS Estimator steps hybridized against op by op
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    from mxnet_tpu_torch.gluon.contrib.estimator import BatchEnd
+
+    class Losses(BatchEnd):
+        def __init__(self):
+            self.seen = []
+
+        def batch_end(self, estimator, *args, **kwargs):
+            self.seen.append(kwargs["loss"].asnumpy())
+
+    runs = []
+    try:
+        for hybrid in (False, True):
+            est = resnet18_estimator(mx, arrays, hybrid)
+            losses = Losses()
+            est.fit(check, batches=DATA_CHECK_STEPS, event_handlers=[losses])
+            losses = losses.seen
+            runs.append((losses, [p.data().asnumpy() for p in
+                                  est.net.collect_params().values()]))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.allow_tf32) = flags
+    (l0, p0), (l1, p1) = runs
+    same = all(np.array_equal(a, b) for a, b in zip(l0 + p0, l1 + p1))
+    log("check ResNet-18 (thumbnail) %d Estimator steps hybridized vs op by "
+        "op: losses and %d parameters and statistics bit for bit: %s  %s"
+        % (DATA_CHECK_STEPS, len(p0), same, "ok" if same else "FAIL"))
+    if not same:
+        failures.append("ResNet-18 Estimator hybridized vs op by op")
+
+    # the main path: DATA_BATCHES batches from DATA_WORKERS workers, then
+    # DATA_VAL batches of the synthetic test set through the same
+    # pipeline (no flips, in order) by the ValidationHandler; with
+    # ``batches=`` no epoch ends, so the handler runs on a batch period
+    from mxnet_tpu_torch.gluon.contrib.estimator import (CheckpointHandler,
+                                                         ValidationHandler)
+    tmp = tempfile.mkdtemp(prefix="data_ckpt_")
+    out = {}
+    val_ds = mx.gluon.data.vision.CIFAR10(
+        train=False, synthetic=True, synthetic_size=DATA_VAL * DATA_B)
+    try:
+        est = resnet18_estimator(mx, arrays, True)
+        np.random.seed(2)
+        random.seed(2)
+        loader = cifar_loader(mx, ds, DATA_WORKERS)
+        val = cifar_loader(mx, val_ds, DATA_WORKERS, flips=False,
+                           shuffle=False)
+        try:
+            data = WaitTimer(loader)
+            t0 = time.perf_counter()
+            out["images_per_s"], out["wait_ms"] = timed_fit(
+                mx, est, data, DATA_BATCHES, [
+                    CheckpointHandler(tmp, model_prefix="r18",
+                                      batch_period=DATA_BATCHES),
+                    ValidationHandler(val, est.evaluate,
+                                      batch_period=DATA_BATCHES)],
+                val_data=val)
+            out["fit_s"] = time.perf_counter() - t0
+        finally:
+            loader.close()
+            val.close()
+        out["accuracy"] = float(est.train_metrics[0].get()[1])
+        out["loss"] = float(est.train_loss_metric.get()[1])
+        out["val_images"] = int(est.val_metrics[0].num_inst)
+        # the synthetic test set draws its own class means (seed 43, the
+        # train set 42), so its accuracy is near chance: only finite
+        out["val_accuracy"] = float(est.val_metrics[0].get()[1])
+        out["val_loss"] = float(est.val_loss_metric.get()[1])
+        ok = out["val_images"] == DATA_VAL * DATA_B and \
+            np.isfinite(out["val_loss"]) and 0 <= out["val_accuracy"] <= 1
+        log("check ResNet-18 Estimator validation after %d batches: %d test "
+            "images (%d expected), accuracy %.3f, loss %.4f, finite %s  %s"
+            % (DATA_BATCHES, out["val_images"], DATA_VAL * DATA_B,
+               out["val_accuracy"], out["val_loss"],
+               bool(np.isfinite(out["val_loss"])), "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("ResNet-18 Estimator validation")
+        # the checkpoint reloads to the same outputs
+        net2 = resnet18_estimator(mx, arrays, True).net
+        net2.load_parameters(os.path.join(
+            tmp, "r18-batch%d.params" % DATA_BATCHES), ctx=ctx)
+        x = check[0][0]
+        a, b = est.net(x).asnumpy(), net2(x).asnumpy()
+        same = np.array_equal(a, b)
+        log("check ResNet-18 checkpoint after %d batches reloaded: outputs "
+            "bit for bit %s (max |diff| %.3e)  %s"
+            % (DATA_BATCHES, same, float(np.abs(a - b).max()),
+               "ok" if same else "FAIL"))
+        if not same:
+            failures.append("ResNet-18 checkpoint reload")
+        # the loader's ceiling: the same step fed from batches on the card
+        out["card_images_per_s"], _ = timed_fit(
+            mx, est, Cycle(check, DATA_CEILING), DATA_CEILING)
+        out["profile"] = profile_window(
+            lambda: est.fit(Cycle(check, DATA_PROFILE),
+                            batches=DATA_PROFILE), 1,
+            "ResNet-18 Estimator.fit calls of %d batches fed from the card"
+            % DATA_PROFILE)
+        # no workers: the consumer decodes every batch itself
+        loader = cifar_loader(mx, ds, 0)
+        data = WaitTimer(loader)
+        out["w0_images_per_s"], out["w0_wait_ms"] = timed_fit(
+            mx, est, data, DATA_W0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ok = out["accuracy"] > 0.1 and np.isfinite(out["loss"])
+    log("data: ResNet-18 (thumbnail, CIFAR-10 shape) Estimator.fit, bs %d, "
+        "f32, TF32 off, hybridized: %d workers %.1f images/s (the consumer "
+        "waits %.3f ms a batch on the loader), fed from the card %.1f "
+        "images/s, no workers %.1f images/s (waits %.3f ms); train "
+        "accuracy after %d batches %.3f, loss %.4f (%s)  %s"
+        % (DATA_B, DATA_WORKERS, out["images_per_s"], out["wait_ms"],
+           out["card_images_per_s"], out["w0_images_per_s"],
+           out["w0_wait_ms"], DATA_BATCHES, out["accuracy"], out["loss"],
+           card, "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("ResNet-18 Estimator: accuracy %.3f not above "
+                        "chance" % out["accuracy"])
+    return out
+
+
+def mf_net(mx, sparse, ctx, arrays=None):
+    """The matrix-factorization net on ``ctx`` (``arrays``, by
+    structural name, else drawn: Xavier, seeded)."""
+    from mxnet_tpu_torch.convert import set_block_params
+    nn = mx.gluon.nn
+
+    class MFNet(mx.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.user = nn.Embedding(MF["users"], MF["factor"],
+                                         sparse_grad=sparse)
+                self.user_fc = nn.Dense(MF["hidden"], in_units=MF["factor"])
+                self.item = nn.Embedding(MF["items"], MF["factor"],
+                                         sparse_grad=sparse)
+                self.item_fc = nn.Dense(MF["hidden"], in_units=MF["factor"])
+
+        def hybrid_forward(self, F, user, item):
+            u = self.user_fc(F.relu(self.user(user)))
+            i = self.item_fc(F.relu(self.item(item)))
+            return F.sum(u * i, axis=1)
+
+    net = MFNet(prefix="mf_")
+    if arrays is None:
+        np.random.seed(3)
+        net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    else:
+        net.initialize(ctx=ctx)
+        set_block_params(net, arrays, ctx=ctx)
+    return net
+
+
+def mf_batches(mx, ctx, n, seed=4):
+    """(user ids, item ids, ratings 1-5) on ``ctx``, from a seed."""
+    rng = np.random.RandomState(seed)
+    return [tuple(mx.nd.array(a, ctx=ctx) for a in (
+        rng.randint(0, MF["users"], MF["batch"]).astype(np.float32),
+        rng.randint(0, MF["items"], MF["batch"]).astype(np.float32),
+        rng.randint(1, 6, MF["batch"]).astype(np.float32)))
+        for _ in range(n)]
+
+
+def mf_state(net, trainer):
+    """Each parameter with its Adam mean and variance (host copies)."""
+    out = {}
+    for i, p in enumerate(net.collect_params().values()):
+        mean, var = trainer._updater.states[i]
+        out[p.name] = (p.data().asnumpy(), mean.asnumpy(), var.asnumpy())
+    return out
+
+
+def mf_step(mx, net):
+    """(a step of ``net`` on one batch under Adam, its Trainer)."""
+    loss_fn = mx.gluon.loss.L2Loss()
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam", {
+        "learning_rate": MF["lr"], "wd": MF["wd"]})
+
+    def step(u, i, r):
+        with mx.autograd.record():
+            loss = loss_fn(net(u, i), r)
+        loss.backward()
+        trainer.step(MF["batch"])
+    return step, trainer
+
+
+def mf_run(mx, net, batches, spy=None, watch=None):
+    """Adam over ``batches``: (ms a step over the steps after MF_FROM,
+    the step, the state after step 1, and for step ``watch`` the user
+    table's (rows of the step's gradient, state before, state
+    after))."""
+    step, trainer = mf_step(mx, net)
+    user = net.user.weight
+    ends, first, seen = [], None, None
+    for s, (u, i, r) in enumerate(batches):
+        if s == watch:
+            before = mf_state(net, trainer)[user.name]
+        step(u, i, r)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        if spy is not None:
+            spy["steps"] += 1
+        if s == 0:
+            first = mf_state(net, trainer)
+        if s == watch:
+            g = user.grad().asnumpy()
+            seen = (np.nonzero(np.abs(g).reshape(len(g), -1).max(1))[0],
+                    before, mf_state(net, trainer)[user.name])
+    ms = (ends[-1] - ends[MF_FROM]) * 1e3 / (len(ends) - 1 - MF_FROM)
+    return ms, step, first, seen
+
+
+def close_state(got, want, grads):
+    """Card against CPU after one Adam step, each tensor within MF_TOL x
+    its own largest CPU magnitude (a tensor of exact zeros: within the
+    least normal f32), so the moments, which carry the gradient's scale
+    (m = 0.1 g, v = 0.001 g^2 after one step), are held to it; an
+    element whose CPU gradient is rounding noise (below 1e-6 of its
+    tensor's largest) may differ by 2 lr in the weight, as Adam moves
+    such an element by about lr whatever its size.  Returns (largest
+    |diff| / tol, noise-level elements apart, the tensors out of
+    tolerance)."""
+    worst, noisy, wrong = 0.0, 0, []
+    for k, (w, m, v) in want.items():
+        for a, b, tag in zip(got[k], (w, m, v), ("w", "m", "v")):
+            d = np.abs(a.astype(np.float64) - b)
+            tol = max(MF_TOL * float(np.abs(b).max()),
+                      float(np.finfo(np.float32).tiny))
+            bad = d > tol
+            if bad.any() and tag == "w":
+                g = np.abs(grads[k])
+                noise = g < 1e-6 * g.max()
+                noisy += int((bad & noise).sum())
+                bad &= ~(noise & (d <= 2 * MF["lr"]))
+            if bad.any():
+                wrong.append("%s.%s" % (k, tag))
+            worst = max(worst, float((d / tol).max()))
+    return worst, noisy, wrong
+
+
+def mf_path(mx, card, failures):
+    """Matrix factorization with row-sparse gradients: lazy Adam
+    (hybridized) for MF steps, one step held against the CPU, the rows
+    outside a step's gradient held bit for bit; then dense Adam on the
+    same net, the comparator."""
+    from mxnet_tpu_torch.ndarray import sparse as SP
+    ctx = mx.gpu(0)
+    arrays = {k: v.data().asnumpy() for k, v in
+              mf_net(mx, True, None)._collect_params_with_prefix().items()}
+    batches = mf_batches(mx, ctx, MF["steps"])
+    spy = {"reads": 0, "rows": 0, "steps": 0}
+    orig = SP._host
+
+    def counting(t):
+        out = orig(t)
+        spy["reads"] += 1
+        if out.dtype == np.bool_:
+            spy["rows"] += int(out.sum())
+        return out
+
+    SP._host = counting
+    try:
+        lazy = mf_net(mx, True, ctx, arrays)
+        lazy.hybridize()
+        ms_lazy, step_l, first, seen = mf_run(mx, lazy, batches, spy,
+                                              watch=50)
+    finally:
+        SP._host = orig
+    dense = mf_net(mx, False, ctx, arrays)
+    dense.hybridize()
+    ms_dense, step_d, _, seen_d = mf_run(mx, dense, batches, watch=50)
+    profiles = {}
+    for tag, stp in (("lazy", step_l), ("dense", step_d)):
+        feed = itertools.cycle(batches)
+        profiles[tag] = profile_window(lambda: stp(*next(feed)), MF_PROFILE,
+                                       "MF %s Adam steps" % tag)
+    # one step on the CPU from the same weights and batch; then, as the
+    # check's own control, the CPU step with its gradient doubled (half
+    # the batch size in ``step``, so twice ``rescale_grad``), which the
+    # check must refuse
+    u, i, r = (x.as_in_context(mx.cpu()) for x in batches[0])
+    loss_fn = mx.gluon.loss.L2Loss()
+    cpu_states = []
+    for scale in (1, 2):
+        cpu = mf_net(mx, True, mx.cpu(), arrays)
+        trainer = mx.gluon.Trainer(cpu.collect_params(), "adam", {
+            "learning_rate": MF["lr"], "wd": MF["wd"]})
+        with mx.autograd.record():
+            loss = loss_fn(cpu(u, i), r)
+        loss.backward()
+        grads = {p.name: p.grad().asnumpy()
+                 for p in cpu.collect_params().values()}
+        trainer.step(MF["batch"] / scale)
+        cpu_states.append((mf_state(cpu, trainer), grads))
+    err, noisy, wrong = close_state(first, *cpu_states[0])
+    log("check MF lazy Adam, one step card vs CPU: largest |diff| / tol "
+        "%.3f, noise-level elements apart %d, tensors out of tolerance %s"
+        "  %s" % (err, noisy, wrong, "FAIL" if wrong else "ok"))
+    if wrong:
+        failures.append("MF lazy Adam card vs CPU: %s" % wrong)
+    err2, _, caught = close_state(first, *cpu_states[1])
+    log("check MF card vs CPU with the CPU's gradient x2, which the check "
+        "must refuse: largest |diff| / tol %.3f, tensors out of tolerance "
+        "%d of %d  %s" % (err2, len(caught), 3 * len(cpu_states[1][0]),
+                          "ok" if caught else "FAIL"))
+    if not caught:
+        failures.append("MF card-vs-CPU check passed a gradient x2")
+    # rows outside step 50's gradient rows: kept by lazy, moved by dense
+    rows, before, after = seen
+    rest = np.setdiff1d(np.arange(MF["users"]), rows)
+    kept = all(np.array_equal(a[rest], b[rest])
+               for a, b in zip(before, after))
+    moved = all(np.array_equal(a[rows], b[rows]) is False
+                for a, b in zip(before, after))
+    _, bd, ad = seen_d
+    dense_moved = int((bd[0][rest] != ad[0][rest]).any(1).sum())
+    ok = kept and moved and dense_moved >= 0.99 * len(rest)
+    log("check MF lazy Adam, step 51: %d gradient rows of %d users; the "
+        "other %d rows' weights, means and variances bit for bit %s; "
+        "dense Adam moved %d of them  %s"
+        % (len(rows), MF["users"], len(rest), kept, dense_moved,
+           "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("MF lazy rows")
+    out = {"lazy_ms": ms_lazy, "dense_ms": ms_dense,
+           "rows_a_step": spy["rows"] / spy["steps"],
+           "host_reads_a_step": spy["reads"] / spy["steps"],
+           "card_vs_cpu": err, "card_vs_cpu_grad_x2": err2,
+           "profiles": profiles}
+    log("data: MF (MovieLens-10M ids, factor %d, hidden %d, bs %d), Adam, "
+        "hybridized: lazy %.3f ms a step, dense %.3f ms a step; %.1f rows "
+        "touched a step (user and item tables), %.1f host reads a step "
+        "(%s)" % (MF["factor"], MF["hidden"], MF["batch"], ms_lazy,
+                  ms_dense, out["rows_a_step"], out["host_reads_a_step"],
+                  card))
+    return out
+
+
+def criteo_csr(rng):
+    C = CRITEO
+    n, span = C["rows"], (C["features"] - C["ints"]) // C["cats"]
+    ints = np.log1p(rng.poisson(8.0, (n, C["ints"]))).astype(np.float32)
+    cats = C["ints"] + np.arange(C["cats"]) * span + rng.randint(
+        0, span, (n, C["cats"]))
+    cols = np.concatenate([np.tile(np.arange(C["ints"]), (n, 1)), cats], 1)
+    vals = np.concatenate([ints, np.ones((n, C["cats"]), np.float32)], 1)
+    nnz = C["ints"] + C["cats"]
+    return vals.ravel(), cols.ravel().astype(np.int32), \
+        np.arange(0, n * nnz + 1, nnz, dtype=np.int32)
+
+
+def host_ms(fn, calls=SPARSE_CALLS):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def sparse_path(mx, card, failures):
+    """``dot(csr, w)``, ``dot(csr.T, g)`` and a lazy ``sgd_update`` at
+    Criteo's shape on the card, against scipy and numpy on the host."""
+    import scipy.sparse as sps
+    from mxnet_tpu_torch.ndarray import sparse as SP
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(5)
+    vals, cols, indptr = criteo_csr(rng)
+    shape = (CRITEO["rows"], CRITEO["features"])
+    A = sps.csr_matrix((vals, cols, indptr), shape=shape)
+    csr = SP.csr_matrix((vals, cols, indptr), shape=shape, ctx=ctx)
+    w_np = (0.01 * rng.randn(CRITEO["features"], 1)).astype(np.float32)
+    g_np = rng.randn(CRITEO["rows"], 1).astype(np.float32)
+    w = mx.nd.array(w_np, ctx=ctx)
+    g = mx.nd.array(g_np, ctx=ctx)
+    absA = abs(A).astype(np.float64)
+    # dot(csr, w) against scipy in float64
+    y = SP.dot(csr, w).asnumpy()
+    want = A.astype(np.float64) @ w_np.astype(np.float64)
+    lim = 2 * (CRITEO["ints"] + CRITEO["cats"]) * 2.0 ** -24 * (
+        absA @ np.abs(w_np.astype(np.float64)))
+    ok1 = y.shape == want.shape and bool((np.abs(y - want) <= lim).all())
+    # dot(csr.T, g): row_sparse over the columns that occur
+    gr = SP.dot(csr, g, transpose_a=True)
+    ids = gr.indices.asnumpy().astype(np.int64)
+    occur = np.unique(cols)
+    want_t = (A.T.astype(np.float64) @ g_np.astype(np.float64))[occur]
+    counts = np.bincount(cols, minlength=CRITEO["features"])[occur]
+    lim_t = 2 * counts[:, None] * 2.0 ** -24 * (
+        absA.T @ np.abs(g_np.astype(np.float64)))[occur]
+    got_t = gr.data.asnumpy()
+    ok2 = gr.stype == "row_sparse" and np.array_equal(ids, occur) and \
+        bool((np.abs(got_t - want_t) <= lim_t).all())
+    # the lazy SGD update of w with that gradient against numpy in f32
+    lr, wd = 0.1, 1e-4
+    w_ref = w_np.copy()
+    wr = w_ref[occur]
+    w_ref[occur] = wr - lr * (got_t + wd * wr)
+    SP.sgd_update(w, gr, lr=lr, wd=wd)
+    ok3 = np.array_equal(w.asnumpy(), w_ref)
+    ms = {"dot": host_ms(lambda: SP.dot(csr, w)),
+          "dot_t": host_ms(lambda: SP.dot(csr, g, transpose_a=True)),
+          "sgd_update": host_ms(lambda: SP.sgd_update(w, gr, lr=lr,
+                                                      wd=wd))}
+    ok = ok1 and ok2 and ok3
+    log("check sparse ops at Criteo's shape (csr %d x %d, %d entries; %d "
+        "columns occur): dot(csr, w) within 2k ulp of scipy %s; "
+        "dot(csr.T, g) row_sparse, its ids those of scipy and values "
+        "within 2k ulp %s; lazy sgd_update = numpy bit for bit %s  %s"
+        % (shape[0], shape[1], len(vals), len(occur), ok1, ok2, ok3,
+           "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("sparse ops at Criteo's shape")
+    log("data: sparse ops at Criteo's shape, ms a call (host clock, "
+        "synchronised, mean of %d): dot(csr, w) %.3f, dot(csr.T, g) %.3f "
+        "(its ids read to the host), lazy sgd_update over %d rows %.3f "
+        "(%s)" % (SPARSE_CALLS, ms["dot"], ms["dot_t"], len(occur),
+                  ms["sgd_update"], card))
+    return ms
+
+
+def data_path(mx, card, failures):
+    """The ``data`` phase: every registered launch counter from 0, and
+    still 0 after (no hand-written kernel is on these paths)."""
+    from mxnet_tpu_torch.kernels._counters import registered
+    t0 = time.perf_counter()
+    for h, a in registered():
+        setattr(h, a, 0)
+    out = {"estimator": estimator_path(mx, card, failures)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["mf"] = mf_path(mx, card, failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["sparse_ms"] = sparse_path(mx, card, failures)
+    launches = {"%s.%s" % (getattr(h, "__name__", type(h).__name__), a):
+                getattr(h, a) for h, a in registered()}
+    others = {k: v for k, v in launches.items() if v}
+    log("data path launches: %s" % (json.dumps(others) if others
+                                    else "every counter 0"))
+    if others:
+        failures.append("data path launches: %s" % others)
+    out["seconds"] = time.perf_counter() - t0
+    log("data phase seconds: %.1f" % out["seconds"])
+    return out
+
+
 def main(argv):
     parent = None
     if argv[:1] == ["--parent"] and len(argv) == 2:
@@ -6388,6 +7096,15 @@ def main(argv):
     report["detection"], nms_row = detection_path(mx, failures, flush)
 
     phase("detection")
+    # ---- 7h. Gluon data, the Estimator and nd.sparse: a thumbnail
+    # ResNet-18 fed by a DataLoader through Estimator.fit, matrix
+    # factorization with row-sparse gradients, the sparse ops at
+    # Criteo's shape; every launch counter from 0 (all stay 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["data"] = data_path(mx, card, failures)
+
+    phase("data")
     # ---- 7c. bench.py's workload through DataParallelTrainer; the BERT and
     # GPT steps' graphs and pools are freed first (captured again for the
     # profiles below)

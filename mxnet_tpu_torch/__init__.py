@@ -19,7 +19,7 @@ as mx``: ``mx.nd``, ``mx.autograd``, ``mx.gluon``, ``mx.init`` /
 ``mx.library``, ``mx.contrib.amp``, ``mx.parallel``
 (``DataParallelTrainer``), the symbolic API (``mx.sym``/``mx.symbol``,
 ``mx.mod``, ``mx.io``, ``mx.metric``, ``mx.model``, ``mx.callback``,
-``mx.name``, ``mx.AttrScope``), ``mx.models`` (the transformer and GPT
+``mx.name``, ``mx.AttrScope``), ``mx.recordio``, ``mx.models`` (the transformer and GPT
 train steps), ``mx.profiler``, ``mx.obs``, ``mx.cpu()``,
 ``mx.cpu_pinned()``, ``mx.gpu(i)`` and ``mx.num_gpus()``; the default
 context is the card.  ``mx.tpu()`` refuses and ``mx.num_tpus()`` is 0.
@@ -73,6 +73,7 @@ from . import name, attribute  # noqa: E402
 from .attribute import AttrScope  # noqa: E402,F401
 from . import symbol  # noqa: E402
 from . import symbol as sym  # noqa: E402
+from . import recordio  # noqa: E402
 from . import io, metric, model, callback  # noqa: E402
 from . import module  # noqa: E402
 from . import module as mod  # noqa: E402

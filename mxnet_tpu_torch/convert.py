@@ -13,7 +13,13 @@ For Gluon blocks, :func:`set_block_params` writes a ``{structural name:
 array}`` dict (``features.0.weight``, as ``_collect_params_with_prefix``
 names them in both packages) into a port ``Block``; the reference's
 ``save_parameters`` file also loads directly through the port's
-``load_parameters``.
+``load_parameters``.  The contrib blocks need nothing of their own:
+``SparseEmbedding`` registers its ``Embedding`` twice, so its weight has
+the names ``_inner.weight`` and ``1.weight`` in both packages,
+and ``SyncBatchNorm`` is a ``BatchNorm`` (running statistics
+included).  Sparse arrays cross as numpy ``(data, indices)`` (row_sparse)
+or ``(data, indices, indptr)`` (csr), :func:`sparse_parts`, which
+``nd.sparse.row_sparse_array`` and ``csr_matrix`` take back.
 
 For the symbolic API, :func:`from_mx_params` turns the reference's
 ``arg_params``/``aux_params`` (its NDArrays, or arrays read from a
@@ -28,7 +34,7 @@ import torch
 from . import resolve_device
 
 __all__ = ["from_jax", "to_numpy", "tree_map", "tree_leaves",
-           "set_block_params", "from_mx_params"]
+           "set_block_params", "from_mx_params", "sparse_parts"]
 
 
 def _leaf(x, device):
@@ -134,3 +140,10 @@ def from_mx_params(arg_params, aux_params, ctx=None):
 
     return ({k: one(v) for k, v in (arg_params or {}).items()},
             {k: one(v) for k, v in (aux_params or {}).items()})
+
+
+def sparse_parts(x):
+    """A sparse NDArray of either package as numpy: ``(data, indices)``
+    of a row_sparse array, ``(data, indices, indptr)`` of a csr one."""
+    parts = [x.data, x.indices] + ([x.indptr] if x.stype == "csr" else [])
+    return tuple(p.asnumpy() for p in parts)

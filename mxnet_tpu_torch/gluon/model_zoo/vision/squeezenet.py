@@ -2,8 +2,8 @@
 
 Port of ``mxnet_tpu/gluon/model_zoo/vision/squeezenet.py``.
 ``HybridConcurrent`` (branches on one input, concatenated on ``axis``)
-lives here, as in the reference, and Inception and DenseNet import it
-from here.
+is named here, as in the reference, and Inception and DenseNet import it
+from here: the contrib layer with ``axis=1`` by default.
 """
 from __future__ import annotations
 
@@ -11,6 +11,8 @@ from ...block import HybridBlock
 from ... import nn
 from ....base import MXNetError
 from ._weights import refuse_pretrained
+from ...contrib.nn.basic_layers import \
+    HybridConcurrent as _ContribHybridConcurrent
 
 __all__ = ["SqueezeNet", "squeezenet1_0", "squeezenet1_1"]
 
@@ -26,23 +28,13 @@ def _make_fire(squeeze_channels, expand1x1_channels, expand3x3_channels):
     return out
 
 
-class HybridConcurrent(HybridBlock):
-    """Parallel branches concatenated on channel axis (reference:
-    ``gluon.contrib.nn.HybridConcurrent``)."""
+class HybridConcurrent(_ContribHybridConcurrent):
+    """``gluon.contrib.nn.HybridConcurrent`` with the zoo's default axis,
+    the channel axis (the reference's zoo defines its own with
+    ``axis=1``)."""
 
     def __init__(self, axis=1, prefix=None, params=None):
-        super().__init__(prefix=prefix, params=params)
-        self.axis = axis
-
-    def add(self, *blocks):
-        for block in blocks:
-            self.register_child(block)
-
-    def hybrid_forward(self, F, x):
-        out = []
-        for block in self._children.values():
-            out.append(block(x))
-        return F.Concat(*out, dim=self.axis)
+        super().__init__(axis=axis, prefix=prefix, params=params)
 
 
 def _make_fire_conv(channels, kernel_size, padding=0):

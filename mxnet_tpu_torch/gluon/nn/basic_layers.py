@@ -133,16 +133,13 @@ class Dropout(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Rows of an ``(input_dim, output_dim)`` weight by index.  The
-    ``row_sparse`` gradient (``sparse_grad=True``) waits for the sparse
-    arrays (ROADMAP A.3b.4)."""
+    """Rows of an ``(input_dim, output_dim)`` weight by index.  With
+    ``sparse_grad=True`` the weight's gradient is declared
+    ``row_sparse``: the forward and backward stay dense, and the Trainer
+    updates only the rows whose gradient is nonzero."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, **kwargs):
-        if sparse_grad:
-            raise NotImplementedError(
-                "Embedding(sparse_grad=True) needs row_sparse gradients, "
-                "not ported yet (ROADMAP A.3b.4)")
         super().__init__(**kwargs)
         self._input_dim = input_dim
         self._output_dim = output_dim
@@ -151,7 +148,8 @@ class Embedding(HybridBlock):
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim), dtype=dtype,
-                init=weight_initializer, allow_deferred_init=True)
+                init=weight_initializer, allow_deferred_init=True,
+                grad_stype="row_sparse" if sparse_grad else "default")
 
     def hybrid_forward(self, F, x, weight=None):
         return F.Embedding(x, weight, **self._kwargs)

@@ -54,6 +54,7 @@ class Parameter:
         self.init = init
         self.allow_deferred_init = allow_deferred_init
         self._differentiable = differentiable
+        self.grad_stype = grad_stype
         self._data: Optional[Dict[Context, NDArray]] = None
         self._grad: Optional[Dict[Context, NDArray]] = None
         self._deferred_init = ()
@@ -187,6 +188,20 @@ class Parameter:
     def list_data(self):
         self._check_initialized()
         return list(self._data.values())
+
+    @property
+    def grad_stype(self):
+        """The declared storage type of the gradient.  The buffer that
+        :meth:`grad` returns stays dense (the backward writes it); with
+        ``row_sparse`` the Trainer turns it into a row_sparse gradient
+        once a step and runs the optimizer's row-lazy update."""
+        return self._grad_stype
+
+    @grad_stype.setter
+    def grad_stype(self, v):
+        if v not in ("default", "row_sparse"):
+            raise MXNetError("grad_stype must be default/row_sparse")
+        self._grad_stype = v
 
     def grad(self, ctx=None) -> NDArray:
         if self._grad is None:
@@ -332,6 +347,12 @@ class ParameterDict:
             self._params[name] = param
             return param
         for k, v in kwargs.items():
+            if k == "grad_stype":
+                # the requesting layer's declaration wins, as for a new
+                # Parameter ("default" is the unset value)
+                if v != "default" and param.grad_stype != v:
+                    param.grad_stype = v
+                continue
             existing = getattr(param, k, None)
             if existing is None:
                 setattr(param, k, v)

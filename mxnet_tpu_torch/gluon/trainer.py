@@ -3,7 +3,8 @@
 Port of ``mxnet_tpu/gluon/trainer.py``: ``step(batch_size)`` sets the
 optimizer's ``rescale_grad`` to ``scale / batch_size`` and updates each
 parameter through the optimizer's ``Updater``, one tensor at a time, as
-the reference does.  ``save_states``/``load_states`` write and read the
+the reference does; a ``row_sparse`` parameter's gradient reaches its
+optimizer as a ``RowSparseNDArray`` of its nonzero rows.  ``save_states``/``load_states`` write and read the
 reference's pickle (the states and the optimizer), so either package
 resumes from the other's states.  With one context there is nothing to
 reduce; a kvstore over several contexts is not ported.
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 from .. import optimizer as opt
 from ..base import MXNetError, not_ported
+from ..ndarray import sparse
 from .parameter import Parameter
 
 __all__ = ["Trainer"]
@@ -103,7 +105,12 @@ class Trainer:
             if param.grad_req == "null" or param._data is None \
                     or param._grad is None:
                 continue
-            self._updater(i, param.list_grad()[0], param.list_data()[0])
+            grad = param.list_grad()[0]
+            if param.grad_stype == "row_sparse":
+                # one conversion a step: the nonzero rows of the dense
+                # gradient, read to the host, feed the row-lazy update
+                grad = sparse.cast_storage(grad, "row_sparse")
+            self._updater(i, grad, param.list_data()[0])
 
     def save_states(self, fname):
         """Write the optimizer's states and the optimizer (the

@@ -14,6 +14,7 @@ from ..base import not_ported as _not_ported
 _register.populate(globals())
 _ndmod._install_methods()
 from . import contrib  # noqa: E402,F401
+from . import sparse  # noqa: E402,F401  (row_sparse / csr storage types)
 
 
 def eye(N, M=0, k=0, ctx=None, dtype="float32"):

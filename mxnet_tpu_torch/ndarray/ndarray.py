@@ -38,6 +38,8 @@ _NP_OF = {torch.float32: np.float32, torch.float64: np.float64,
 def _torch_dtype(dtype):
     if isinstance(dtype, torch.dtype):
         return dtype
+    if str(dtype) == "bfloat16":        # numpy has none of its own
+        return torch.bfloat16
     return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
 
 
@@ -221,18 +223,22 @@ class NDArray:
         return NDArray(self._data.detach())
 
     def tostype(self, stype):
-        if stype != "default":
-            from ..base import not_ported
-            raise not_ported("storage type %r" % stype,
-                             "mxnet_tpu.ndarray.sparse")
-        return self.copy()
+        """A copy in storage ``stype`` (``default``, ``row_sparse`` or
+        ``csr``); always a new array, as in the reference."""
+        if stype == "default":
+            return self.copy()
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
 
     def todense(self):
         return self.copy()
 
     # -- autograd ----------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
-        """Allocate a zero gradient buffer and make this a variable."""
+        """Allocate a zero gradient buffer and make this a variable.  The
+        buffer is dense whatever ``stype`` says, as in the reference: a
+        ``row_sparse`` gradient is made from it where an optimizer
+        update reads it (``gluon.Trainer``)."""
         from .. import autograd
         autograd.mark_variables([self], [NDArray(torch.zeros_like(
             self._data.detach()))], [grad_req])

@@ -211,6 +211,26 @@ def _run(op, arrays, pos_attrs, attrs, recording):
         return invoke_impl(op, arrays, pos_attrs, attrs)
 
 
+def _operand(a, opname):
+    """The tensor an op reads for NDArray ``a``.  No op of the registry
+    has a sparse kernel, so a sparse array enters in its dense form,
+    with one warning per op name: MXNet's storage fallback."""
+    if a.stype == "default":
+        return a._data
+    from ..ndarray.sparse import _fallback_warn
+    _fallback_warn(opname)
+    return a._to_dense()
+
+
+def _dense_target(a, opname):
+    """``a``'s tensor, for an op that writes into it; a sparse target
+    would take a dense result into its compact block, so it raises."""
+    if a.stype != "default":
+        raise MXNetError("%s: cannot write a dense result into a %s array"
+                         % (opname, a.stype))
+    return a._data
+
+
 def invoke(op: OpDef, inputs: Sequence, pos_attrs=(), attrs=None,
            out=None, ctx=None):
     """Run ``op`` on NDArrays ``inputs`` (its created tensors on ``ctx``
@@ -222,7 +242,8 @@ def invoke(op: OpDef, inputs: Sequence, pos_attrs=(), attrs=None,
     attrs = {} if attrs is None else attrs
     if op.training_aware and "_training" not in attrs:
         attrs = dict(attrs, _training=autograd.is_training())
-    arrays = [i._data if isinstance(i, NDArray) else i for i in inputs]
+    arrays = [_operand(i, op.name) if isinstance(i, NDArray) else i
+              for i in inputs]
     no_grad = op.no_grad
     if callable(no_grad):
         no_grad = no_grad(_bind_pos_attrs(op, len(arrays), pos_attrs, attrs))
@@ -232,8 +253,10 @@ def invoke(op: OpDef, inputs: Sequence, pos_attrs=(), attrs=None,
                          "autograd recording is on (reference semantics).")
     outs = None if out is None else \
         (out if isinstance(out, (tuple, list)) else [out])
-    if op.writes_out and outs is not None:
-        attrs = dict(attrs, out=[o._data for o in outs])
+    if outs is not None:
+        targets = [_dense_target(o, op.name) for o in outs]
+        if op.writes_out:
+            attrs = dict(attrs, out=targets)
     eng = Engine.get()
     scope = contextlib.nullcontext() if ctx is None else \
         device_scope(ctx.torch_device)
@@ -254,6 +277,7 @@ def invoke(op: OpDef, inputs: Sequence, pos_attrs=(), attrs=None,
     resolving = in_shape_resolve()
     for idx, new in zip(mutate_idx, rlist[n_out:]):
         if isinstance(inputs[idx], NDArray) and not resolving:
+            _dense_target(inputs[idx], op.name)
             inputs[idx]._set_data(new)
     rlist = rlist[:n_out]
     if ctx is not None and ctx.device_type == "cpu_pinned":

@@ -31,6 +31,7 @@ import numpy as np
 
 from .. import ndarray as nd
 from ..base import MXNetError, Registry
+from ..ndarray import sparse
 
 __all__ = ["Optimizer", "SGD", "Adam", "AdaGrad", "RMSProp", "FTRL", "NAG",
            "Signum", "LAMB", "AdaDelta", "Adamax", "Nadam", "LARS", "Test",
@@ -181,7 +182,8 @@ def _prep(opt, grad, weight, wd):
 class SGD(Optimizer):
     """SGD with MXNet's momentum (``m = momentum*m - lr*g; w += m``),
     one ``sgd_update`` / ``sgd_mom_update`` op per tensor (``mp_*``
-    under ``multi_precision``)."""
+    under ``multi_precision``).  A ``row_sparse`` gradient takes the
+    row-lazy update under ``lazy_update`` and is made dense otherwise."""
 
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
@@ -198,6 +200,16 @@ class SGD(Optimizer):
         lr = self._get_lr(index)
         wd = self._get_wd(index)
         kw = _common_kwargs(self)
+        if grad.stype == "row_sparse" and self.lazy_update:
+            if state is not None:
+                sparse.sgd_mom_update(weight, grad, state, out=weight, lr=lr,
+                                      wd=wd, momentum=self.momentum, **kw)
+            else:
+                sparse.sgd_update(weight, grad, out=weight, lr=lr, wd=wd,
+                                  **kw)
+            return
+        if grad.stype != "default":
+            grad = grad.todense()
         if state is not None:
             nd.sgd_mom_update(weight, grad, state, out=weight, lr=lr, wd=wd,
                               momentum=self.momentum, **kw)
@@ -250,7 +262,8 @@ class NAG(Optimizer):
 class Adam(Optimizer):
     """Adam: ``adam_update`` per tensor, the bias correction
     ``sqrt(1 - beta2**t) / (1 - beta1**t)`` folded into ``lr`` on the
-    host, ``t`` the tensor's own update count."""
+    host, ``t`` the tensor's own update count (for a row-lazy update
+    too: one count per parameter, not per row)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_update=True, **kwargs):
@@ -272,6 +285,13 @@ class Adam(Optimizer):
         coef2 = 1. - self.beta2 ** t
         lr *= math.sqrt(coef2) / coef1
         mean, var = state
+        if grad.stype == "row_sparse" and self.lazy_update:
+            sparse.adam_update(weight, grad, mean, var, out=weight, lr=lr,
+                               wd=wd, beta1=self.beta1, beta2=self.beta2,
+                               epsilon=self.epsilon, **_common_kwargs(self))
+            return
+        if grad.stype != "default":
+            grad = grad.todense()
         nd.adam_update(weight, grad, mean, var, out=weight, lr=lr, wd=wd,
                        beta1=self.beta1, beta2=self.beta2,
                        epsilon=self.epsilon, **_common_kwargs(self))

@@ -227,8 +227,18 @@ def test_every_reference_name_exists():
 
 
 def test_embedding_sparse_grad_waits_for_row_sparse():
-    with pytest.raises(NotImplementedError, match="A.3b.4"):
-        P.gluon.nn.Embedding(10, 4, sparse_grad=True)
+    """``sparse_grad=True`` declares a ``row_sparse`` weight gradient, as
+    in the reference, and the forward stays the dense gather
+    (``tests/test_torch_sparse.py`` holds the Trainer's lazy update)."""
+    outs = []
+    w = np.random.RandomState(0).randn(10, 4).astype(np.float32)
+    for mx in (R, P):
+        emb = mx.gluon.nn.Embedding(10, 4, sparse_grad=True)
+        emb.initialize(ctx=mx.cpu())
+        emb.weight.set_data(arr(mx, w))
+        assert emb.weight.grad_stype == "row_sparse"
+        outs.append(emb(arr(mx, [[1, 3], [9, 1]])).asnumpy())
+    np.testing.assert_array_equal(outs[1], outs[0])
 
 
 # --- twins of tests/test_gluon.py and tests/test_api_longtail.py ---------

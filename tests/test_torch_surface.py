@@ -65,9 +65,7 @@ _DIST = ["init_moe_ffn", "latest_step", "moe_ffn", "moe_param_shardings",
 DEFERRED = {}
 for _mod in ("mxnet_tpu.ndarray", "mxnet_tpu.symbol"):
     DEFERRED.update({"%s:%s" % (_mod, n): "A.9" for n in _QUANT})
-DEFERRED.update({"mxnet_tpu.gluon.parameter:Parameter.grad_stype": "A.3",
-                 "mxnet_tpu.gluon.parameter:Constant.grad_stype": "A.3",
-                 "mxnet_tpu.parallel.mesh:init_sharded_opt_state": "A.7",
+DEFERRED.update({"mxnet_tpu.parallel.mesh:init_sharded_opt_state": "A.7",
                  "mxnet_tpu.parallel.mesh:opt_state_shardings": "A.7",
                  "mxnet_tpu.parallel.mesh:zero1_sharding": "A.7",
                  "mxnet_tpu.serving.engine:ServingEngine.admit_prefilled":
