@@ -223,6 +223,30 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    sparse ops at Criteo's shape (8192 x 1,000,000, 39 entries a row):
    ``dot(csr, w)``, ``dot(csr.T, g)`` and a lazy ``sgd_update`` against
    scipy and numpy, each timed;
+7i. drives the image pipeline (the ``image`` phase, after ``bench``; under
+   60 s), every launch counter from 0 around its main path (only
+   ``image_aug`` and ``jpeg_color`` may launch, and both must): 2,048
+   seeded synthetic photos at ImageNet's stored shape (``im2rec --resize
+   480 --quality 95``: 480 x 640 or 640 x 480, 4:2:0) encoded by nvJPEG
+   and packed with ``recordio``; the card's decode (nvJPEG's planes, then
+   ``jpeg_color``) against libjpeg's pixels of ``tests/data/torch_image``
+   in full and at 1/2 scale within DECODE_*/HALF_*; ``jpeg_color`` (at
+   scale 1, 1/2, 1/4) and ``image_aug`` bit for bit against their plain
+   versions on two batches decoded and planned as the iterator's card
+   route does (random crops and flips with DCT scaling, the main path's
+   own input; centre crops; ``resize=256``; NHWC without DCT scaling; an
+   image smaller than the crop), ``image_aug``'s bound from the pixels
+   its crop windows read; then ``ImageRecordIter`` on the card alone (bs
+   128, 224^2 random crops and flips, e2e_train_bench.py's mean and std:
+   images/s, ms a batch of reading, decoding and augmenting, a profiled
+   window) and the full path ``ImageRecordIter ->
+   DevicePrefetchIter(super_size=BENCH_STEPS) -> run_steps`` of the
+   ``bench`` phase's s2d trainer (images/s over IMG_SUPERS superbatches
+   after the ones filled ahead, beside its resident-batch figure; the
+   consumer's wait a superbatch, a profiled superbatch, a falling loss);
+   no image decoded outside a batched nvJPEG call; the host route (the
+   native libjpeg loader) beside it where the machine has libjpeg's and
+   libpng's headers, else a line naming the missing ones;
 7b. drives bench.py's workload (the ``bench`` phase; the BERT and GPT
    steps' graphs freed first): ResNet-50 v1 with the space-to-depth
    stem, ``amp=True``, bs 128, through ``DataParallelTrainer.run_steps``
@@ -239,8 +263,9 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
 8. times each kernel, its plain version and a library call at the
    paths' shapes (L2 flushed between launches) beside the least time
    the card could take for the same work: the flash, paged and SGD
-   kernels, SDPA and ``nms_keep`` (at the SSD300 decode's own inputs)
-   by their device time (torch.profiler, 20 calls)
+   kernels, SDPA, ``nms_keep`` (at the SSD300 decode's own inputs),
+   ``image_aug`` and ``jpeg_color`` (at a decoded batch of 128) by their
+   device time (torch.profiler, 20 calls)
    with CUDA events around the call beside it, the others by CUDA
    events; logs the operations SDPA ran; profiles 20 engine steps, 8
    BERT steps, 6 GPT steps and 8 ResNet steps (torch.profiler), each
@@ -526,6 +551,33 @@ NMT_BUCKETS, NMT_VOCAB, NMT_EMB = (8, 16, 24), 32, 16
 NMT_BATCHES, NMT_B, NMT_LR, NMT_ACC_TOL = 60, 32, 0.5, 0.02
 AMP_LOSS_TOL = (1e-2, 2e-2)
 
+
+# the image phase (after bench): MXNet's ImageNet input pipeline on the
+# card.  IMG_N seeded synthetic photos at ImageNet's stored shape
+# (tools/im2rec.py --resize 480 --quality 95: short side 480, a 4:3 /
+# 3:4 mix, 4:2:0), encoded by nvJPEG, packed with recordio, read by
+# ImageRecordIter on the card (bs 128, 224^2 random crops and flips, the
+# mean and std of benchmark/e2e_train_bench.py:82-83) and fed through
+# DevicePrefetchIter(super_size=BENCH_STEPS) to bench.py's s2d trainer
+# (the pipeline shape of e2e_train_bench.py:60-100)
+IMG_N, IMG_B, IMG_SHORT, IMG_LONG, IMG_Q = 2048, 128, 480, 640, 95
+IMG_SHAPE = (3, 224, 224)
+IMG_MEAN, IMG_STD = (123.68, 116.78, 103.94), (58.4, 57.12, 57.38)
+# batches timed alone and profiled alone; the full path's superbatches
+# timed, after a warm one and IMG_DRAIN more (DevicePrefetchIter's queue
+# of one and the one its worker holds, filled while the warm one trained)
+IMG_ALONE, IMG_PROFILE = 12, 4
+IMG_SUPERS, IMG_DRAIN = 3, 2
+# the card's decode (nvJPEG's planes, then jpeg_color's libjpeg
+# upsampling and colour tables) against libjpeg's pixels of the fixtures
+# (tests/data/torch_image, OpenCV's decode): only the IDCT's rounding
+# differs, so each image's mean |difference| stays within DECODE_MEAN
+# levels and no pixel moves more than DECODE_MAX; the DCT-scaling
+# stand-in (planes box-averaged) against libjpeg's 1/2-scale decode (a
+# reduced IDCT) within HALF_MEAN and HALF_MAX
+DECODE_MEAN, DECODE_MAX = 0.25, 4
+HALF_MEAN, HALF_MAX = 1.0, 24
+IMG_FIXTURES = os.path.join(REPO, "tests", "data", "torch_image")
 
 def log(*a):
     print(*a, flush=True)
@@ -2892,14 +2944,15 @@ def bench_dispatch(tr, x, y):
     return losses.asnumpy().tolist(), time.perf_counter() - t0
 
 
-def bench_path(mx, failures, gluon):
+def bench_path(mx, failures, gluon, keep=None):
     """bench.py's workload through ``DataParallelTrainer.run_steps`` on
     the card (a CUDA graph of whole steps replayed BENCH_STEPS times a
     dispatch): the captured-vs-eager check, then the main path with
     every launch counter from 0 (one warm dispatch and two timed ones,
     in turns with the 7x7 stem: 7x7, s2d, s2d, 7x7), a profiled window,
     and BENCH_AMP=0 (f32, bs 64) beside the Gluon Trainer's hybridized
-    figure ``gluon``.  Returns the numbers."""
+    figure ``gluon``.  Returns the numbers; ``keep["s2d"]`` gets the
+    s2d trainer (for the ``image`` phase)."""
     from mxnet_tpu_torch._graphs import kept_launches
     card = card_line()
     torch.backends.cudnn.allow_tf32 = True       # PyTorch's default
@@ -2963,6 +3016,8 @@ def bench_path(mx, failures, gluon):
     nums["profile_eager"] = profile_window(
         lambda: tr.run_steps(x, y, steps=1), BENCH_PROFILE,
         "bench.py ResNet-50 (stem_s2d, amp) run_steps steps, eager")
+    if keep is not None:
+        keep["s2d"] = trainers["s2d"]
     del trainers, tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -6775,6 +6830,485 @@ def data_path(mx, card, failures):
     return out
 
 
+def synth_photo(i, dev):
+    """Image ``i`` of the phase's data, (h, w, 3) uint8 on ``dev``: a
+    smooth colour field with a disc, a bar (edges) and mild texture (a
+    photo's statistics, not white noise), 480 x 640 or 640 x 480."""
+    g = np.random.RandomState(1000 + i)
+    h, w = (IMG_SHORT, IMG_LONG) if g.rand() < 0.5 else (IMG_LONG, IMG_SHORT)
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    chans = []
+    for _ in range(3):
+        fy, fx = g.uniform(0.004, 0.04, 2).tolist()
+        ph = float(g.uniform(0, 6))
+        chans.append(128 + 80 * torch.sin(xx * fx + ph) * torch.cos(yy * fy))
+    img = torch.stack(chans, -1)
+    cy, cx = g.uniform(0.2, 0.8) * h, g.uniform(0.2, 0.8) * w
+    disc = (yy - cy) ** 2 + (xx - cx) ** 2 < (min(h, w) / 4) ** 2
+    img[disc] = torch.tensor(g.uniform(150, 250, 3), device=dev,
+                             dtype=torch.float32)
+    x0 = int(g.randint(0, w // 2))
+    img[:, x0:x0 + w // 12] = torch.tensor(g.uniform(0, 60, 3), device=dev,
+                                           dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(i)
+    img += torch.randn(img.shape, device=dev, generator=gen) * 3.0
+    return img.clamp(0, 255).to(torch.uint8)
+
+
+def image_records(mx, codec, dev, tmp):
+    """Encode IMG_N images with nvJPEG (quality IMG_Q, 4:2:0) and pack
+    them with the port's recordio: (rec, idx, jpeg bytes, seconds)."""
+    t0 = time.perf_counter()
+    rec, idx = os.path.join(tmp, "img.rec"), os.path.join(tmp, "img.idx")
+    w = mx.recordio.MXIndexedRecordIO(idx, rec, "w")
+    nbytes = 0
+    for i in range(IMG_N):
+        blob = codec.encode(synth_photo(i, dev), IMG_Q, 420)
+        nbytes += len(blob)
+        w.write_idx(i, mx.recordio.pack(
+            mx.recordio.IRHeader(0, float(i % RESNET_CLASSES), i, 0), blob))
+    w.close()
+    return rec, idx, nbytes, time.perf_counter() - t0
+
+
+def check_decode(mx, codec, failures):
+    """The card's decode against libjpeg's pixels of the fixtures, in full
+    and at 1/2 scale (the pipeline's DCT scaling: jpeg_color's plane box
+    averages, for every layout).  Returns the largest mean and max
+    differences of each."""
+    ref = np.load(os.path.join(IMG_FIXTURES, "pixels.npz"))
+    names = sorted(f[:-4] for f in os.listdir(IMG_FIXTURES)
+                   if f.endswith(".jpg"))
+    worst = {"full": [0.0, 0], "half": [0.0, 0]}
+    for name in names:
+        with open(os.path.join(IMG_FIXTURES, name + ".jpg"), "rb") as f:
+            blob = f.read()
+        got = codec.decode([blob])[0]
+        buf, sizes = codec.decode_batch([blob], denoms=[2])
+        half = buf.view(sizes[0][0], sizes[0][1], 3)
+        for tag, a, b, lim in (
+                ("full", got, ref["full_" + name], (DECODE_MEAN, DECODE_MAX)),
+                ("half", half, ref["half_" + name], (HALF_MEAN, HALF_MAX))):
+            a = a.cpu().numpy().astype(np.int64)
+            if a.shape != b.shape:
+                failures.append("card decode %s %s shape %s vs %s"
+                                % (name, tag, a.shape, b.shape))
+                continue
+            d = np.abs(a - b)
+            mean_c = [float((a[..., c] - b[..., c]).mean()) for c in range(3)]
+            ok = d.mean() <= lim[0] and d.max() <= lim[1]
+            log("check card decode %-15s %s vs libjpeg (OpenCV): mean |diff| "
+                "%.3f (limit %.2f), max %d (limit %d), mean signed diff by "
+                "channel %s  %s"
+                % (name, tag, d.mean(), lim[0], d.max(), lim[1],
+                   " ".join("%+.3f" % v for v in mean_c),
+                   "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("card decode %s %s vs libjpeg" % (name, tag))
+            w = worst[tag]
+            w[0], w[1] = max(w[0], float(d.mean())), max(w[1], int(d.max()))
+    return worst
+
+
+def check_image_aug(mx, IA, rec, idx, blobs, failures):
+    """image_aug against its plain version on the card, bit for bit, on
+    two batches of ``blobs`` decoded and planned as ImageRecordIter's card
+    route does them (``decode``: DCT-scaled on the random-crop path;
+    ``table``: its crops and flips) under each case.  Returns (max
+    |error|, the main path's first batch: buffer, sizes, table)."""
+    cases = [("main: rand_crop, mirror, DCT", {}),
+             ("centre crop, no mirror", dict(rand_crop=False,
+                                             rand_mirror=False)),
+             ("resize=256", dict(resize=256)),
+             ("NHWC, no DCT scaling", dict(layout="NHWC", dct_scale=False))]
+    F = {n: i for i, n in enumerate(IA.FIELDS)}
+    err, main = 0.0, None
+    for tag, kw in cases:
+        impl = image_iter(mx, rec, idx, mx.gpu(0), **kw)._py
+        for k in range(2):
+            buf, sizes = impl.decode(blobs[k * IMG_B:(k + 1) * IMG_B])
+            table = impl.table(sizes).to(buf.device)
+            args = (IMG_SHAPE, impl.mean, impl.std, impl.scale, impl.layout)
+            a = IA.image_aug(buf, table, *args)
+            b = IA.image_aug_reference(buf, table, *args)
+            torch.cuda.synchronize()
+            same = torch.equal(a, b)
+            e = float((a - b).abs().max())
+            err = max(err, e)
+            up = int((table[:, F["uh"]] != table[:, F["rh"]]).sum()
+                     + (table[:, F["uw"]] != table[:, F["rw"]]).sum())
+            log("check image_aug %-29s batch %d (%d images decoded at %s, "
+                "%d resized up): bit for bit %s, max_abs_err %.3e  %s"
+                % (tag, k, len(sizes), sorted(set(sizes))[:3], up, same, e,
+                   "ok" if same else "FAIL"))
+            if not same:
+                failures.append("image_aug %s batch %d" % (tag, k))
+            if main is None:
+                main = (buf, sizes, table)
+    return err, main
+
+
+def check_jpeg_color(JC, codec, blobs, failures):
+    """jpeg_color against its plain version on the card, bit for bit, on
+    the planes nvJPEG decodes from ``blobs``.  Returns (max |error|, the
+    planes, the table on the card, the output size, the largest image)."""
+    infos = [codec.info(b) for b in blobs]
+    err, main = 0.0, None
+    for denom in (1, 2, 4):
+        scratch, table = codec.decode_planes(blobs, infos,
+                                             denoms=[denom] * len(blobs))
+        outs = [JC.out_size(inf[0], inf[1], denom) for inf in infos]
+        n_out = sum(h * w * 3 for h, w in outs)
+        big = max(h * w for h, w in outs)
+        table = table.to(scratch.device)
+        a = JC.jpeg_color(scratch, table, torch.zeros(
+            n_out, dtype=torch.uint8, device=scratch.device), max_pixels=big)
+        b = JC.jpeg_color_reference(scratch, table, torch.zeros(
+            n_out, dtype=torch.uint8, device=scratch.device))
+        torch.cuda.synchronize()
+        same = torch.equal(a, b)
+        e = float((a.int() - b.int()).abs().max())
+        err = max(err, e)
+        kinds = sorted(set(table[:, 7].tolist()))
+        log("check jpeg_color %d images (layouts %s, scale 1/%d, planes "
+            "%.1f MB): bit for bit %s, max_abs_err %.0f  %s"
+            % (len(blobs), kinds, denom, scratch.numel() / 1e6, same, e,
+               "ok" if same else "FAIL"))
+        if not same:
+            failures.append("jpeg_color 1/%d" % denom)
+        if denom == 2:          # the main path's: DCT scaling by 2
+            main = (scratch, table, n_out, big)
+    return (err,) + main
+
+
+def time_jpeg_color(JC, scratch, table, n_out, big, flush):
+    """jpeg_color's device time on a batch's planes, its plain version's
+    and its bound (the planes read once, the RGB written once)."""
+    out = torch.empty(n_out, dtype=torch.uint8, device=scratch.device)
+    ms, _ = device_time(lambda: JC.jpeg_color(scratch, table, out,
+                                              max_pixels=big),
+                        flush, match="jpeg_color")
+    plain = cuda_ms(lambda: JC.jpeg_color_reference(scratch, table, out),
+                    iters=3)
+    bound_ms, by = bound(scratch.numel() + table.numel() * 8 + n_out, 0,
+                         torch.float32)
+    log("jpeg_color at bs %d (planes %.1f MB, RGB %.1f MB): %.4f ms, plain "
+        "%.2f ms, bound %.4f ms (%s)"
+        % (table.shape[0], scratch.numel() / 1e6, n_out / 1e6, ms, plain,
+           bound_ms, by))
+    return {"name": "jpeg_color", "route": "cuda",
+            "source": "mxnet_tpu_torch/kernels/csrc/jpeg_color.cu",
+            "replaces": "none: the reference decodes with libjpeg on the "
+                        "host (mxnet_tpu/image/image.py:32-48, "
+                        "native/src/image_loader.cc:50-90), no pallas_call",
+            "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": None,
+            "shape": "bs %d 4:2:0 JPEG planes at scale 1/2 (the main "
+                     "path's DCT scaling) -> interleaved RGB"
+                     % table.shape[0],
+            "tolerance": "bit for bit"}
+
+
+def image_iter(mx, rec, idx, ctx, **kw):
+    """The main path's ImageRecordIter (``kw`` overrides its options)."""
+    opts = dict(path_imgrec=rec, path_imgidx=idx, data_shape=IMG_SHAPE,
+                batch_size=IMG_B, shuffle=True, rand_crop=True,
+                rand_mirror=True, mean_r=IMG_MEAN[0], mean_g=IMG_MEAN[1],
+                mean_b=IMG_MEAN[2], std_r=IMG_STD[0], std_g=IMG_STD[1],
+                std_b=IMG_STD[2], ctx=ctx)
+    opts.update(kw)
+    return mx.io.ImageRecordIter(**opts)
+
+
+def pipeline_alone(mx, rec, idx, codec):
+    """ImageRecordIter on the card alone: images/s over IMG_ALONE
+    batches after one warm batch, ms a batch of reading, decoding and
+    augmenting apart (those calls made by hand, their launches not
+    counted), and a profiled window's busy share."""
+    from mxnet_tpu_torch._graphs import kept_launches
+    from mxnet_tpu_torch.kernels import image_aug as IA
+    it = image_iter(mx, rec, idx, mx.gpu(0))
+    b = it.next()
+    torch.cuda.synchronize()
+    d = b.data[0]
+    if tuple(d.shape) != (IMG_B,) + IMG_SHAPE or \
+            not bool(torch.isfinite(d._data).all()):
+        raise Failed("ImageRecordIter on the card gave %s" % (d.shape,))
+    t0 = time.perf_counter()
+    for _ in range(IMG_ALONE):
+        b = it.next()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    out = {"images_per_s": IMG_B * IMG_ALONE / sec,
+           "ms_per_batch": sec * 1e3 / IMG_ALONE}
+    # the stages apart: host reads, then the decode (nvJPEG and
+    # jpeg_color) and the augment timed by CUDA events around each (the
+    # host's part of a decode, headers and nvJPEG's parsing, is inside its
+    # events)
+    impl = it._py
+    impl.reset()
+    t0 = time.perf_counter()
+    got = [impl.read_batch() for _ in range(4)]
+    out["read_ms"] = (time.perf_counter() - t0) * 1e3 / 4
+    dec, aug = [], []
+    with kept_launches():
+        for blobs, _, _ in got:
+            e0, e1, e2, e3 = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(4))
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            e0.record()
+            buf, sizes = impl.decode(blobs)
+            e1.record()
+            table = impl.table(sizes).to(codec.device)
+            e2.record()
+            IA.image_aug(buf, table, IMG_SHAPE, IMG_MEAN, IMG_STD)
+            e3.record()
+            e3.synchronize()
+            dec.append((e0.elapsed_time(e1), time.perf_counter() - h0))
+            aug.append(e2.elapsed_time(e3))
+    out["decode_ms"] = float(np.mean([x for x, _ in dec]))
+    out["augment_ms"] = float(np.mean(aug))
+    out["decode_images_per_s"] = IMG_B * 1e3 / out["decode_ms"]
+    out["profile"] = profile_window(it.next, IMG_PROFILE,
+                                    "ImageRecordIter batches on the card")
+    log("image pipeline alone (ImageRecordIter on the card, bs %d, %s, "
+        "random crops and flips): %.1f images/s, %.2f ms a batch; stages: "
+        "read %.2f ms, nvJPEG decode %.2f ms (%.1f images/s; %s backend, "
+        "%s), image_aug %.3f ms; %s"
+        % (IMG_B, IMG_SHAPE, out["images_per_s"], out["ms_per_batch"],
+           out["read_ms"], out["decode_ms"], out["decode_images_per_s"],
+           codec.backend, json.dumps(codec.stats), out["augment_ms"],
+           card_line()))
+    return out
+
+
+def full_path(mx, rec, idx, tr, resident, failures):
+    """DevicePrefetchIter(super_size=BENCH_STEPS) over ImageRecordIter on
+    the card (a ResizeIter loops the 16-batch epoch) into the s2d
+    trainer's run_steps: images/s over IMG_SUPERS superbatches, timed
+    after a warm one and IMG_DRAIN more (the superbatches the worker
+    filled ahead while the warm one trained), the consumer's wait a
+    superbatch, a profiled superbatch, the loss."""
+    n = (1 + IMG_DRAIN + IMG_SUPERS + 1) * BENCH_STEPS
+    it = mx.io.DevicePrefetchIter(
+        mx.io.ResizeIter(image_iter(mx, rec, idx, mx.gpu(0)), n),
+        super_size=BENCH_STEPS, ctx=mx.gpu(0))
+    losses, waits = [], []
+
+    def one():
+        t = time.perf_counter()
+        b = it.next()
+        waits.append(time.perf_counter() - t)
+        losses.extend(tr.run_steps(b.data[0], b.label[0]).asnumpy().tolist())
+
+    try:
+        for _ in range(1 + IMG_DRAIN):  # warm, then the queue's credit
+            one()
+        torch.cuda.synchronize()
+        waits.clear()
+        t0 = time.perf_counter()
+        for _ in range(IMG_SUPERS):
+            one()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        prof = profile_window(one, 1, "the full image path, one superbatch "
+                              "of %d run_steps steps" % BENCH_STEPS)
+    finally:
+        it.close()
+    ips = IMG_SUPERS * BENCH_STEPS * IMG_B / sec
+    out = {"images_per_s": ips, "resident_images_per_s": resident,
+           "wait_ms_per_super": [w * 1e3 for w in waits[:IMG_SUPERS]],
+           "superbatches_timed": IMG_SUPERS,
+           "profile": prof, "losses": losses[::BENCH_STEPS] + losses[-1:]}
+    log("image full path (ImageRecordIter -> DevicePrefetchIter(super_size="
+        "%d) -> ResNet-50 s2d amp run_steps, bs %d; %d superbatches timed "
+        "after %d untimed): %.1f images/s against %.1f resident-batch "
+        "images/s in this call; the consumer waits %s ms a superbatch; "
+        "losses %s; %s"
+        % (BENCH_STEPS, IMG_B, IMG_SUPERS, 1 + IMG_DRAIN, ips, resident,
+           " ".join("%.1f" % w for w in out["wait_ms_per_super"]),
+           " ".join("%.4f" % v for v in out["losses"]), card_line()))
+    first = float(np.mean(losses[:BENCH_STEPS]))
+    last = float(np.mean(losses[-BENCH_STEPS:]))
+    log("check image full path: loss finite %s, mean of the first "
+        "superbatch %.4f, of the last %.4f (must fall)  %s"
+        % (bool(np.isfinite(losses).all()), first, last,
+           "ok" if np.isfinite(losses).all() and last < first else "FAIL"))
+    if not (np.isfinite(losses).all() and last < first):
+        failures.append("image full path losses %s" % out["losses"])
+    return out
+
+
+def host_route(mx, rec, idx):
+    """Information: the CPU route's loader (the native copy) where the
+    machine has libjpeg's and libpng's headers; else which are missing."""
+    from mxnet_tpu_torch import native
+    missing = [h for h in ("jpeglib.h", "png.h")
+               if not os.path.exists(os.path.join("/usr/include", h))]
+    if not native.available():
+        log("info: host route (native libjpeg loader): not built here, "
+            "missing headers %s" % (missing or "none (see native.build_log)"))
+        return {"missing_headers": missing}
+    it = image_iter(mx, rec, idx, mx.cpu(),
+                    preprocess_threads=os.cpu_count() or 1)
+    it.next()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        it.next()
+    ips = 4 * IMG_B / (time.perf_counter() - t0)
+    log("info: host route (native libjpeg loader, %d threads): %.1f "
+        "images/s" % (os.cpu_count() or 1, ips))
+    return {"images_per_s": ips}
+
+
+def image_path(mx, tr, resident, failures, flush):
+    """The ``image`` phase: the records, the decode and kernel checks
+    (counters kept), then, every registered counter from 0, the pipeline
+    alone and the full path; only ``image_aug`` and ``jpeg_color`` may
+    launch, and both must.  Returns
+    (numbers, the kernels-line rows of image_aug and jpeg_color)."""
+    from mxnet_tpu_torch._graphs import kept_launches
+    from mxnet_tpu_torch.image import _nvjpeg
+    from mxnet_tpu_torch.kernels import image_aug as IA
+    from mxnet_tpu_torch.kernels import jpeg_color as JC
+    from mxnet_tpu_torch.kernels._counters import registered
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    codec = _nvjpeg.decoder(dev)
+    out = {"backend": codec.backend,
+           "hardware_status": codec.hardware_status}
+    log("info: nvJPEG batched backend %s (creating the hardware backend "
+        "returned nvjpegStatus_t %d)" % (codec.backend,
+                                         codec.hardware_status))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_image_")
+    parts = {}
+    try:
+        rec, idx, nbytes, sec = image_records(mx, codec, dev, tmp)
+        parts["records"] = sec
+        out["records"] = {"n": IMG_N, "mean_bytes": nbytes / IMG_N,
+                          "seconds": sec}
+        log("image records: %d JPEGs (q %d, 4:2:0, short side %d), mean "
+            "%.1f KB, encoded and packed in %.1f s"
+            % (IMG_N, IMG_Q, IMG_SHORT, nbytes / IMG_N / 1e3, sec))
+        with kept_launches():
+            out["decode_check"] = check_decode(mx, codec, failures)
+            # two batches' records; the second holds one image smaller
+            # than the crop (a fixture), to take the resize-up
+            R = mx.recordio.MXIndexedRecordIO(idx, rec, "r")
+            blobs = [mx.recordio.unpack(R.read_idx(i))[1]
+                     for i in range(2 * IMG_B)]
+            R.close()
+            with open(os.path.join(IMG_FIXTURES, "q95_420_96x80.jpg"),
+                      "rb") as f:
+                blobs[-1] = f.read()
+            err, (buf, sizes, table) = check_image_aug(mx, IA, rec, idx,
+                                                       blobs, failures)
+            jc = check_jpeg_color(JC, codec, blobs[:IMG_B], failures)
+            jc_row = time_jpeg_color(JC, *jc[1:], flush)
+            jc_row["max_abs_err"] = jc[0]
+            row = time_image_aug(IA, buf, table, sizes, flush)
+        parts["checks"] = time.perf_counter() - t_start - sum(parts.values())
+        for h, a in registered():
+            setattr(h, a, 0)
+        single = codec.stats["single"]
+        out["alone"] = pipeline_alone(mx, rec, idx, codec)
+        parts["alone"] = time.perf_counter() - t_start - sum(parts.values())
+        tr._eager = False
+        out["full"] = full_path(mx, rec, idx, tr, resident, failures)
+        parts["full"] = time.perf_counter() - t_start - sum(parts.values())
+        single = codec.stats["single"] - single
+        log("check image path decodes batched: %d images decoded alone "
+            "(outside a batched nvJPEG call) on the main path, %s  %s"
+            % (single, json.dumps(codec.stats), "ok" if not single
+               else "FAIL"))
+        if single:
+            failures.append("image path: %d images decoded alone" % single)
+        launches = {"%s.%s" % (getattr(h, "__name__", type(h).__name__), a):
+                    getattr(h, a) for h, a in registered()}
+        others = {k: v for k, v in launches.items() if v and k not in (
+            "image_aug.launches", "jpeg_color.launches")}
+        log("image path launches: %s" % json.dumps(
+            {k: v for k, v in launches.items() if v}))
+        if others:
+            failures.append("image path launches: %s" % others)
+        for name, fn in (("image_aug", IA.image_aug),
+                         ("jpeg_color", JC.jpeg_color)):
+            if fn.launches <= 0:
+                raise Failed("%s was never launched on the image path"
+                             % name)
+        out["host_route"] = host_route(mx, rec, idx)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row.update(launches=IA.image_aug.launches, max_abs_err=err)
+    jc_row["launches"] = JC.jpeg_color.launches
+    out["seconds"] = time.perf_counter() - t_start
+    log("image phase seconds: %.1f (%s)" % (out["seconds"], ", ".join(
+        "%s %.1f" % kv for kv in parts.items())))
+    return out, [row, jc_row]
+
+
+def _taps(o, n, on):
+    """The source rows (or columns) the native ResizeBilinear of ``n`` to
+    ``on`` reads for outputs ``o``: both taps of each, as image_aug.cu's
+    ``taps`` takes them."""
+    f = (o.astype(np.float32) + np.float32(0.5)) \
+        * (np.float32(n) / np.float32(on)) - np.float32(0.5)
+    a = np.floor(f).astype(np.int64)
+    return np.unique(np.concatenate([np.maximum(a, 0),
+                                     np.minimum(a + 1, n - 1)]))
+
+
+def crop_read_bytes(IA, table):
+    """The bytes of the decoded batch that image_aug must read: for each
+    image the pixels its crop window reaches through the resize stages
+    the table plans (3 bytes each)."""
+    _, H, W = IMG_SHAPE
+    total = 0
+    for r in table.tolist():
+        t = dict(zip(IA.FIELDS, r))
+        ys = np.arange(t["y0"], t["y0"] + H)
+        xs = np.arange(t["x0"], t["x0"] + W)
+        for (nh, nw), (oh, ow) in ((("rh", "rw"), ("uh", "uw")),
+                                   (("h", "w"), ("rh", "rw"))):
+            if (t[nh], t[nw]) != (t[oh], t[ow]):
+                ys, xs = _taps(ys, t[nh], t[oh]), _taps(xs, t[nw], t[ow])
+        total += len(ys) * len(xs) * 3
+    return total
+
+
+def time_image_aug(IA, buf, table, sizes, flush):
+    """image_aug's device time on the main path's input (a batch of IMG_B
+    decoded and DCT-scaled as ImageRecordIter's card route does, its
+    random crops and flips), its plain version's, and its bound: the
+    pixels the crop windows read and the f32 batch written once (the
+    operations are a few per byte)."""
+    fn = lambda: IA.image_aug(buf, table, IMG_SHAPE, IMG_MEAN, IMG_STD)
+    ms, _ = device_time(fn, flush, match="image_aug")
+    plain = cuda_ms(lambda: IA.image_aug_reference(
+        buf, table, IMG_SHAPE, IMG_MEAN, IMG_STD), iters=3)
+    n_out = IMG_B * 3 * IMG_SHAPE[1] * IMG_SHAPE[2] * 4
+    n_read = crop_read_bytes(IA, table)
+    bound_ms, by = bound(n_read + table.numel() * 8 + n_out, 0,
+                         torch.float32)
+    log("image_aug at bs %d (decoded %.1f MB, of which the crops read %.1f "
+        "MB; out %.1f MB): %.4f ms, plain %.2f ms, bound %.4f ms (%s)"
+        % (IMG_B, buf.numel() / 1e6, n_read / 1e6, n_out / 1e6, ms, plain,
+           bound_ms, by))
+    return {"name": "image_aug", "route": "cuda",
+            "source": "mxnet_tpu_torch/kernels/csrc/image_aug.cu",
+            "replaces": "none: the reference augments on the host "
+                        "(native/src/image_loader.cc:405-460), no "
+                        "pallas_call",
+            "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": None,
+            "shape": "bs %d of %s decoded JPEGs (DCT-scaled as the main "
+                     "path decodes them) -> %s f32"
+                     % (IMG_B, sorted(set(sizes)), IMG_SHAPE),
+            "tolerance": "bit for bit"}
+
+
 def main(argv):
     parent = None
     if argv[:1] == ["--parent"] and len(argv) == 2:
@@ -7112,10 +7646,23 @@ def main(argv):
         stp._graphs.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    report["bench"] = bench_path(mx, failures, resnet)
+    kept = {}
+    report["bench"] = bench_path(mx, failures, resnet, kept)
     check_small_bench(mx, failures)
 
     phase("bench")
+    # ---- 7i. the image pipeline: JPEG records decoded by nvJPEG and
+    # augmented by image_aug on the card, alone and feeding the s2d
+    # trainer through DevicePrefetchIter; every launch counter from 0
+    # (only image_aug launches)
+    report["image"], image_rows = image_path(
+        mx, kept.pop("s2d"), float(np.mean(report["bench"]["s2d"]
+                                           ["images_per_s"])),
+        failures, flush)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("image")
     # ---- 7b. the extension surface, each path with its counters from 0:
     # the fused conv experiment's twin, then rtc kernels through CustomOp
     t_ext = time.perf_counter()
@@ -7244,6 +7791,9 @@ def main(argv):
         "library": "y.add_(x, alpha=3.0)",
         "note": "NVRTC-compiled user kernels; the timed one is upstream's "
                 "axpy"})
+    for row in image_rows:
+        kernels.append(dict(row, launches_by_path={
+            "image": row["launches"]}))
 
     phase("kernel timings")
     # each window's kernels of the port, held to their launch counters

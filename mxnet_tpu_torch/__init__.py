@@ -19,7 +19,9 @@ as mx``: ``mx.nd``, ``mx.autograd``, ``mx.gluon``, ``mx.init`` /
 ``mx.library``, ``mx.contrib.amp``, ``mx.parallel``
 (``DataParallelTrainer``), the symbolic API (``mx.sym``/``mx.symbol``,
 ``mx.mod``, ``mx.io``, ``mx.metric``, ``mx.model``, ``mx.callback``,
-``mx.name``, ``mx.AttrScope``), ``mx.recordio``, ``mx.models`` (the transformer and GPT
+``mx.name``, ``mx.AttrScope``), ``mx.recordio``, ``mx.image`` (decode,
+resize, augmenters, ``ImageIter``, ``ImageDetIter``), ``mx.native`` (the
+host runtime in C++), ``mx.models`` (the transformer and GPT
 train steps), ``mx.profiler``, ``mx.obs``, ``mx.cpu()``,
 ``mx.cpu_pinned()``, ``mx.gpu(i)`` and ``mx.num_gpus()``; the default
 context is the card.  ``mx.tpu()`` refuses and ``mx.num_tpus()`` is 0.
@@ -75,6 +77,7 @@ from . import symbol  # noqa: E402
 from . import symbol as sym  # noqa: E402
 from . import recordio  # noqa: E402
 from . import io, metric, model, callback  # noqa: E402
+from . import image, native  # noqa: E402
 from . import module  # noqa: E402
 from . import module as mod  # noqa: E402
 from . import models, profiler, obs  # noqa: E402,F401

@@ -28,11 +28,20 @@ program, and replays it.  This module holds what the three share:
   counted.
 * :class:`GraphCache` — an owner's programs by signature, captured into
   one memory pool per device, freed with the owner.
+* :data:`CAPTURE_LOCK` — held around every capture and every counter
+  window (:func:`kept_launches`, so :func:`recorded_launches` and
+  :func:`warm_up` too); a thread that does CUDA work beside the captured
+  one (``io.DevicePrefetchIter``'s worker) holds it around that work, so
+  the capture neither records nor refuses it, and no launch counter
+  moves inside a window but by the window's own work: the worker's
+  launches are neither taken into a capture's change (which each replay
+  would add again) nor undone with a warm-up's.
 """
 from __future__ import annotations
 
 import contextlib
 import gc
+import threading
 
 import torch
 
@@ -40,7 +49,9 @@ from .kernels._counters import registered
 
 __all__ = ["LaunchCounts", "kept_launches",
            "recorded_launches", "warm_up", "no_collection", "Program",
-           "GraphCache"]
+           "GraphCache", "CAPTURE_LOCK"]
+
+CAPTURE_LOCK = threading.RLock()
 
 
 class LaunchCounts:
@@ -57,14 +68,16 @@ class LaunchCounts:
 
 @contextlib.contextmanager
 def kept_launches(counters=None):
-    """Every launch counter as it was on entry, again on exit."""
+    """Every launch counter as it was on entry, again on exit, with
+    :data:`CAPTURE_LOCK` held in between."""
     counters = registered() if counters is None else counters
-    before = [getattr(h, a) for h, a in counters]
-    try:
-        yield counters, before
-    finally:
-        for (h, a), v in zip(counters, before):
-            setattr(h, a, v)
+    with CAPTURE_LOCK:
+        before = [getattr(h, a) for h, a in counters]
+        try:
+            yield counters, before
+        finally:
+            for (h, a), v in zip(counters, before):
+                setattr(h, a, v)
 
 
 def recorded_launches(fn, counters=None):
@@ -128,7 +141,8 @@ class Program:
             graph.register_generator_state(gen)
 
         def capture():
-            with no_collection(), torch.cuda.graph(graph, pool=pool):
+            with CAPTURE_LOCK, no_collection(), \
+                    torch.cuda.graph(graph, pool=pool):
                 return body()
 
         self.out, self.launches = recorded_launches(capture)

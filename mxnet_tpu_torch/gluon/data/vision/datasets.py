@@ -7,9 +7,9 @@ synthetic data (``synthetic=True``, or no files): the same images and
 labels in both packages.  The images are held on the host (CPU
 NDArrays), so DataLoader workers can read them without CUDA; the
 reference keeps them on its default context.  ``ImageRecordDataset``,
-``ImageFolderDataset`` and ``ImageListDataset`` decode through
-``mxnet_tpu.image``, which the port does not have yet: they list their
-items and raise ``NotPorted`` when one is read.
+``ImageFolderDataset`` and ``ImageListDataset`` decode each item on the
+host (``image.imdecode``/``imread`` with a CPU context), so a forked
+DataLoader worker never touches CUDA.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import os
 import struct
 import numpy as _np
 
-from ....base import MXNetError, not_ported
+from ....base import MXNetError
 from .... import ndarray as nd
 from ....context import cpu
 from ..dataset import _DownloadedDataset, Dataset
@@ -191,8 +191,16 @@ class ImageRecordDataset(Dataset):
         return len(self._rec)
 
     def __getitem__(self, idx):
-        raise not_ported("ImageRecordDataset's image decode (image.imdecode)",
-                         "mxnet_tpu.image")
+        from .... import recordio, image
+        record = self._rec[idx]
+        header, img = recordio.unpack(record)
+        img = image.imdecode(img, self._flag, ctx=cpu())
+        label = header.label
+        if isinstance(label, _np.ndarray) and label.size == 1:
+            label = float(label[0])
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
 
 
 class ImageFolderDataset(Dataset):
@@ -220,8 +228,12 @@ class ImageFolderDataset(Dataset):
                                        label))
 
     def __getitem__(self, idx):
-        raise not_ported("ImageFolderDataset's image read (image.imread)",
-                         "mxnet_tpu.image")
+        from .... import image
+        img = image.imread(self.items[idx][0], self._flag, ctx=cpu())
+        label = self.items[idx][1]
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
 
     def __len__(self):
         return len(self.items)
@@ -259,8 +271,9 @@ class ImageListDataset(Dataset):
         return len(self._items)
 
     def __getitem__(self, idx):
-        raise not_ported("ImageListDataset's image read (image.imread)",
-                         "mxnet_tpu.image")
+        from ....image import imread
+        path, label = self._items[idx]
+        return imread(path, flag=self._flag, ctx=cpu()), label
 
 
 class SyntheticInstanceSegDataset(Dataset):

@@ -2,11 +2,11 @@
 
 Port of ``mxnet_tpu/gluon/data/vision/transforms.py``.  Each transform
 acts on its input where it lies (the host, in a DataLoader) and makes
-its constants there.  The random ones draw from Python's ``random``, as
-the reference does, so seeding it gives both packages the same flips.
-``Resize``, ``CenterCrop``, ``RandomResizedCrop``, ``RandomCrop`` and the
-colour jitters call ``mxnet_tpu.image``, which the port does not have
-yet: they keep their signatures and raise ``NotPorted`` when called.
+its constants there.  The random ones draw from Python's ``random`` (and
+``RandomLighting`` from numpy), as the reference does, so seeding them
+gives both packages the same flips, crops and jitters.  ``Resize``,
+``CenterCrop``, ``RandomResizedCrop``, ``RandomCrop`` and the colour
+jitters go through ``mxnet_tpu_torch.image``.
 """
 from __future__ import annotations
 
@@ -17,7 +17,6 @@ import numpy as _np
 from ...block import Block, HybridBlock
 from ...nn import Sequential
 from .... import ndarray as nd
-from ....base import not_ported
 
 __all__ = ["Compose", "Cast", "ToTensor", "Normalize", "Resize",
            "RandomCrop", "RandomGray",
@@ -25,11 +24,6 @@ __all__ = ["Compose", "Cast", "ToTensor", "Normalize", "Resize",
            "RandomFlipTopBottom", "RandomBrightness", "RandomContrast",
            "RandomSaturation", "RandomHue", "RandomColorJitter",
            "RandomLighting"]
-
-
-def _needs_image(what):
-    return not_ported("transforms.%s (it calls the image module)" % what,
-                      "mxnet_tpu.image")
 
 
 class Compose(Sequential):
@@ -89,7 +83,15 @@ class Resize(Block):
         self._interpolation = interpolation
 
     def forward(self, x):
-        raise _needs_image("Resize")
+        from .... import image
+        if isinstance(self._size, int):
+            if self._keep:
+                return image.resize_short(x, self._size,
+                                          self._interpolation)
+            return image.imresize(x, self._size, self._size,
+                                  self._interpolation)
+        return image.imresize(x, self._size[0], self._size[1],
+                              self._interpolation)
 
 
 class CenterCrop(Block):
@@ -99,7 +101,8 @@ class CenterCrop(Block):
         self._interpolation = interpolation
 
     def forward(self, x):
-        raise _needs_image("CenterCrop")
+        from .... import image
+        return image.center_crop(x, self._size, self._interpolation)[0]
 
 
 class RandomResizedCrop(Block):
@@ -113,7 +116,10 @@ class RandomResizedCrop(Block):
         self._interpolation = interpolation
 
     def forward(self, x):
-        raise _needs_image("RandomResizedCrop")
+        from .... import image
+        return image.random_size_crop(x, self._size, self._scale,
+                                      self._ratio,
+                                      self._interpolation)[0]
 
 
 class RandomFlipLeftRight(Block):
@@ -147,7 +153,8 @@ class RandomContrast(Block):
         self._contrast = contrast
 
     def forward(self, x):
-        raise _needs_image("RandomContrast")
+        from ....image import ContrastJitterAug
+        return ContrastJitterAug(self._contrast)(x.astype("float32"))
 
 
 class RandomSaturation(Block):
@@ -156,7 +163,8 @@ class RandomSaturation(Block):
         self._saturation = saturation
 
     def forward(self, x):
-        raise _needs_image("RandomSaturation")
+        from ....image import SaturationJitterAug
+        return SaturationJitterAug(self._saturation)(x.astype("float32"))
 
 
 class RandomHue(Block):
@@ -165,7 +173,8 @@ class RandomHue(Block):
         self._hue = hue
 
     def forward(self, x):
-        raise _needs_image("RandomHue")
+        from ....image import HueJitterAug
+        return HueJitterAug(self._hue)(x.astype("float32"))
 
 
 class RandomColorJitter(Block):
@@ -175,7 +184,11 @@ class RandomColorJitter(Block):
         self._hue = hue
 
     def forward(self, x):
-        raise _needs_image("RandomColorJitter")
+        from ....image import ColorJitterAug, HueJitterAug
+        x = ColorJitterAug(*self._args)(x.astype("float32"))
+        if self._hue:
+            x = HueJitterAug(self._hue)(x)
+        return x
 
 
 class RandomLighting(Block):
@@ -184,7 +197,13 @@ class RandomLighting(Block):
         self._alpha = alpha
 
     def forward(self, x):
-        raise _needs_image("RandomLighting")
+        from ....image import LightingAug
+        eigval = _np.array([55.46, 4.794, 1.148])
+        eigvec = _np.array([[-0.5675, 0.7192, 0.4009],
+                            [-0.5808, -0.0045, -0.8140],
+                            [-0.5836, -0.6948, 0.4203]])
+        return LightingAug(self._alpha, eigval, eigvec)(
+            x.astype("float32"))
 
 
 class RandomCrop(Block):
@@ -198,7 +217,16 @@ class RandomCrop(Block):
         self._pad_value = pad_value
 
     def forward(self, x):
-        raise _needs_image("RandomCrop")
+        from ....image import random_crop
+        if self._pad:
+            p = self._pad
+            arr = _np.pad(x.asnumpy(), ((p, p), (p, p), (0, 0)),
+                          constant_values=self._pad_value)
+            x = nd.array(arr, ctx=x.context, dtype=arr.dtype)
+        # random_crop resizes undersized inputs up to `size`, so the
+        # output shape is always (th, tw, C)
+        out, _ = random_crop(x, (self._size[1], self._size[0]))
+        return out
 
 
 class RandomGray(Block):

@@ -34,10 +34,14 @@ _CSRC = os.path.join(_HERE, "csrc")
 _OUT = os.path.join(_HERE, "_build")
 
 SOURCES = ("flash_fwd", "flash_bwd", "paged_attention", "fused_sgd",
-           "fused_conv", "nms")
+           "fused_conv", "nms", "image_aug", "jpeg_color", "nvjpeg_codec")
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# libraries a source links beyond the CUDA runtime (nvJPEG: the codec of
+# the CUDA toolkit)
+LINK = {"nvjpeg_codec": ("-lnvjpeg",)}
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
@@ -56,11 +60,36 @@ def _nvcc():
     return found
 
 
+def _lib_dirs():
+    """Directories holding the CUDA toolkit's libraries, for ``-L`` and
+    the run path of a source that links one of them (``LINK``)."""
+    out = []
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if not root:
+            continue
+        for sub in ("lib64", os.path.join("targets", "x86_64-linux", "lib")):
+            d = os.path.join(root, sub)
+            if os.path.isdir(d) and d not in out:
+                out.append(d)
+    return out
+
+
+def _link_flags(name):
+    libs = LINK.get(name, ())
+    if not libs:
+        return ()
+    flags = []
+    for d in _lib_dirs():
+        flags += ["-L" + d, "-Xlinker", "-rpath=" + d]
+    return tuple(flags) + libs
+
+
 def source_hash(src):
     """Hex digest of the source file ``src``, of every header it
     includes with quotes that lies beside the including file (followed
     transitively, each read once) and of the nvcc flags."""
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+    name = os.path.splitext(os.path.basename(src))[0]
+    h = hashlib.sha256(" ".join(FLAGS + LINK.get(name, ())).encode())
     seen, todo = set(), [os.path.abspath(src)]
     while todo:
         path = todo.pop()
@@ -94,7 +123,8 @@ def _compile(name):
     os.makedirs(_OUT, exist_ok=True)
     tmp = "%s.%d.tmp" % (so, os.getpid())
     out = subprocess.run([_nvcc(), *FLAGS, "-o", tmp,
-                          os.path.join(_CSRC, name + ".cu")],
+                          os.path.join(_CSRC, name + ".cu"),
+                          *_link_flags(name)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     log = out.stdout.decode(errors="replace")
     if out.returncode != 0:

@@ -14,8 +14,8 @@
   after the same ``random.seed``: equal within rtol 1e-6, atol 1e-6
   (``ToTensor``'s divide and ``Normalize``'s subtract and divide are one
   f32 rounding each; flips, casts and crops are exact).  The transforms
-  and datasets that decode or resize through ``mxnet_tpu.image`` raise
-  ``NotPorted`` in the port.
+  and datasets that decode or resize through ``image`` hold the
+  reference's outputs too (resizes within OpenCV's rounding: 1 level).
 * A loader with ``num_workers=2`` gives the ``num_workers=0`` batches of
   a deterministic pipeline, bit for bit, with ``timeout=30`` so that a
   hung worker fails the test.
@@ -324,24 +324,51 @@ IMAGE_TRANSFORMS = [("Resize", (8,)), ("CenterCrop", (4,)),
                     ("RandomLighting", (0.1,))]
 
 
+def _image_input():
+    rng = np.random.RandomState(5)
+    return rng.randint(0, 256, (6, 7, 3)).astype(np.uint8)
+
+
 @pytest.mark.parametrize("name,args", IMAGE_TRANSFORMS,
                          ids=[n for n, _ in IMAGE_TRANSFORMS])
 def test_image_backed_transform_raises_not_ported(name, args):
-    tf = getattr(P.gluon.data.vision.transforms, name)(*args)
-    x = P.nd.array(np.zeros((6, 6, 3), np.uint8), dtype="uint8",
-                   ctx=P.cpu())
-    with pytest.raises(P.base.NotPorted, match="mxnet_tpu.image"):
-        tf(x)
+    """The transforms that go through the image module (they raised
+    ``NotPorted`` before it was ported) against the reference's, after
+    the same ``random``/``np.random`` seed: the resizes within OpenCV's
+    rounding (``tests/test_torch_image.py``: 1 level), the rest exact or
+    f32 within rtol 1e-5."""
+    x = _image_input()
+    outs = []
+    for mod in (R, P):
+        tf = getattr(mod.gluon.data.vision.transforms, name)(*args)
+        random.seed(0)
+        np.random.seed(0)
+        a = mod.nd.array(x, dtype="uint8") if mod is R else \
+            P.nd.array(x, dtype="uint8", ctx=P.cpu())
+        out = tf(a)
+        outs.append(out.asnumpy())
+    want, got = outs
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_allclose(got.astype(np.float64),
+                               want.astype(np.float64), rtol=1e-5, atol=1.0
+                               if name in ("Resize", "RandomResizedCrop",
+                                           "RandomCrop") else 1e-4)
 
 
 def test_image_backed_datasets_raise_not_ported(tmp_path):
-    v = P.gluon.data.vision
+    """The image datasets (they raised ``NotPorted`` before the image
+    module was ported) read the same images and labels as the
+    reference's, decoded on the host."""
+    import cv2
+    v, rv = P.gluon.data.vision, R.gluon.data.vision
     (tmp_path / "cls").mkdir()
-    (tmp_path / "cls" / "a.png").write_bytes(b"")
+    img = _image_input()
+    cv2.imwrite(str(tmp_path / "cls" / "a.png"), img)
     (tmp_path / "list.lst").write_text("0\t1.0\tcls/a.png\n")
     rec, idx = str(tmp_path / "i.rec"), str(tmp_path / "i.idx")
     w = P.recordio.MXIndexedRecordIO(idx, rec, "w")
-    w.write_idx(0, P.recordio.pack(P.recordio.IRHeader(0, 1.0, 0, 0), b""))
+    w.write_idx(0, R.recordio.pack_img(P.recordio.IRHeader(0, 1.0, 0, 0),
+                                       img, img_fmt=".png"))
     w.close()
     folder = v.ImageFolderDataset(str(tmp_path))
     assert folder.synsets == ["cls"] and len(folder) == 1
@@ -349,9 +376,14 @@ def test_image_backed_datasets_raise_not_ported(tmp_path):
     assert len(lst) == 1
     recds = v.ImageRecordDataset(rec)
     assert len(recds) == 1
-    for ds in (folder, lst, recds):
-        with pytest.raises(P.base.NotPorted, match="mxnet_tpu.image"):
-            ds[0]
+    refs = (rv.ImageFolderDataset(str(tmp_path)),
+            rv.ImageListDataset(str(tmp_path), str(tmp_path / "list.lst")),
+            rv.ImageRecordDataset(rec))
+    for ds, ref in zip((folder, lst, recds), refs):
+        (a, la), (b, lb) = ds[0], ref[0]
+        assert a.context == P.cpu()
+        np.testing.assert_array_equal(a.asnumpy(), b.asnumpy())
+        assert la == lb
 
 
 # --- on the card -------------------------------------------------------------

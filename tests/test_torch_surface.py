@@ -53,8 +53,6 @@ _CLUSTER = ["ApiKeyTable", "Autoscaler", "ChaosDriver", "ChaosEvent",
             "HistogramWindow", "HttpFrontend", "RequestCancelled",
             "RequestExpired", "ServingCluster", "chaos_schedule",
             "run_worker"]
-_IO = ["CSVIter", "DevicePrefetchIter", "ImageRecordIter", "LibSVMIter",
-       "MXDataIter", "PrefetchingIter", "list_iters", "register_iter"]
 _DIST = ["init_moe_ffn", "latest_step", "moe_ffn", "moe_param_shardings",
          "pipeline_apply", "restore_sharded", "ring_attention",
          "save_sharded",
@@ -74,8 +72,6 @@ DEFERRED.update({"mxnet_tpu.parallel.mesh:init_sharded_opt_state": "A.7",
                  "mxnet_tpu.obs.trace:MergedTraceEmitter.add_flight": "A.8",
                  "mxnet_tpu.callback:MetricsCallback": "A.9",
                  "mxnet_tpu.callback:ProgressBar": "A.9"})
-DEFERRED.update({"mxnet_tpu.io:%s" % n: "A.5" for n in _IO})
-DEFERRED.update({"mxnet_tpu.io.io:%s" % n: "A.5" for n in _IO})
 DEFERRED.update({"mxnet_tpu.parallel:%s" % n: "A.7" for n in _DIST})
 DEFERRED.update({"mxnet_tpu.serving:%s" % n: "A.8" for n in _CLUSTER})
 DEFERRED.update({"mxnet_tpu.obs:%s" % n: "A.8" for n in (
