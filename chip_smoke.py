@@ -7309,6 +7309,249 @@ def time_image_aug(IA, buf, table, sizes, flush):
             "tolerance": "bit for bit"}
 
 
+
+# ------------------------------------------------------------- kvstore --
+# the kvstore phase: two worker processes and one server on the card,
+# started by the port's launcher (tests/_torch_dist_worker.py --resnet),
+# held to a replay in this process; then the in-process stores
+KV_STEPS, KV_COMPRESSED_STEPS = 4, 2
+KV_TIMEOUT = 300                # seconds a launcher run may take
+KV_SPLIT_BYTES = 512 << 10      # an ici bucket size that splits buckets
+
+
+def kv_worker_module():
+    tests = os.path.join(REPO, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import _torch_dist_worker as W
+    return W
+
+
+def kv_launch(out_dir, failures):
+    """The launcher's ``-n 2 -s 1 --launcher local`` run of the ResNet
+    worker; its process group is killed on a timeout.  Returns the two
+    workers' reports and their weights after the plain steps and at the
+    end, or None."""
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n", "2",
+           "-s", "1", "--launcher", "local", sys.executable,
+           os.path.join(REPO, "tests", "_torch_dist_worker.py"),
+           "--resnet", out_dir, "--steps", str(KV_STEPS),
+           "--compressed-steps", str(KV_COMPRESSED_STEPS)]
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=REPO, start_new_session=True,
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+    try:
+        out, _ = p.communicate(timeout=KV_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, 9)
+        out, _ = p.communicate()
+        failures.append("kvstore launcher run timed out")
+        log(out[-4000:])
+        return None
+    finally:
+        try:
+            os.killpg(p.pid, 9)          # nothing of the job outlives it
+        except ProcessLookupError:
+            pass
+    log("kvstore launcher: rc %d in %.1f s" % (p.returncode,
+                                               time.perf_counter() - t0))
+    if p.returncode != 0 or out.count("OK") != 2:
+        failures.append("kvstore launcher run failed (rc %d)"
+                        % p.returncode)
+        log(out[-4000:])
+        return None
+    reports, weights = [], {"plain": [], "2-bit": []}
+    for r in range(2):
+        with open(os.path.join(out_dir, "worker%d.json" % r)) as f:
+            reports.append(json.load(f))
+        for name, f in (("plain", "worker%d_plain.npz"),
+                        ("2-bit", "worker%d.npz")):
+            with np.load(os.path.join(out_dir, f % r)) as z:
+                weights[name].append([z["arr_%d" % i]
+                                      for i in range(len(z.files))])
+    return reports, weights
+
+
+def kv_replay(mx, W):
+    """The job in this process: each step both workers' gradients on the
+    card, read to the host (2-bit coded through each worker's own
+    compressor in the compressed steps), summed in f32 as the server
+    sums them, and SGD applied on the card by the optimizer's updater.
+    Returns the weights after the plain steps and at the end."""
+    from mxnet_tpu_torch.parallel.compression import (TwoBitCompressor,
+                                                      decompress)
+    W.deterministic()
+    ctx = mx.gpu(0)
+    net, params = W.resnet_net(ctx)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    upd = mx.optimizer.get_updater(mx.optimizer.SGD(**W.RESNET_OPT))
+    thr = W.RESNET_COMPRESSION["threshold"]
+    comps = [TwoBitCompressor(thr) for _ in range(W.RESNET_WORKERS)]
+    store = [p.data(ctx).asnumpy() for p in params]
+    out = {}
+    for step in range(KV_STEPS + KV_COMPRESSED_STEPS):
+        if step == KV_STEPS:
+            out["plain"] = list(store)
+        per = []
+        for r in range(W.RESNET_WORKERS):
+            x, y = W.resnet_batch(r, step, ctx)
+            grads = [g.asnumpy() for g in
+                     W.resnet_grads(net, params, loss_fn, x, y, ctx)]
+            if step >= KV_STEPS:
+                grads = [decompress(*comps[r].compress(k, g)[:2], thr)
+                         for k, g in enumerate(grads)]
+            per.append(grads)
+        for k, p in enumerate(params):
+            agg = np.sum([g[k] for g in per], axis=0)
+            w = mx.nd.array(store[k], ctx=ctx)
+            upd(k, mx.nd.array(agg, ctx=ctx), w)
+            store[k] = w.asnumpy()
+            p.data(ctx)._set_data(torch.from_numpy(store[k])
+                                  .to(ctx.torch_device))
+    out["2-bit"] = store
+    return out
+
+
+def kv_diff(a, b):
+    """(arrays that differ in any bit, largest |difference|)."""
+    n = sum(not np.array_equal(x.view(np.uint32), y.view(np.uint32))
+            for x, y in zip(a, b))
+    return n, max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+
+def kv_job(mx, W, failures):
+    """The launcher's job against its replay; the per-step figures."""
+    tmp = tempfile.mkdtemp(prefix="kvstore-")
+    try:
+        got = kv_launch(tmp, failures)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if got is None:
+        return {}
+    reports, weights = got
+    want = kv_replay(mx, W)
+    out = {"model_bytes": reports[0]["bytes"],
+           "first_step_ms": [rep["steps"][0]["step_ms"] for rep in reports]}
+    for name in ("plain", "2-bit"):
+        n01, d01 = kv_diff(weights[name][0], weights[name][1])
+        n0r, d0r = kv_diff(weights[name][0], want[name])
+        log("kvstore dist_sync %s: %d weights a worker; worker 0 vs 1: %d "
+            "differ (max %.3g); worker 0 vs replay: %d differ (max %.3g)"
+            % (name, len(want[name]), n01, d01, n0r, d0r))
+        if n01 or n0r or len(weights[name][0]) != len(want[name]):
+            failures.append("kvstore %s: weights not bit for bit (%d, %d "
+                            "of %d)" % (name, n01, n0r, len(want[name])))
+        # past each worker's first step (start-up and graph capture)
+        rows = [s for rep in reports for s in rep["steps"][1:]
+                if s["compressed"] == (name == "2-bit")]
+        med = {k: float(np.median([s[k] for s in rows]))
+               for k in rows[0] if k != "compressed"}
+        med["wait_share"] = float(np.median(
+            [(s["push_ms"] + s["pull_ms"]) / s["step_ms"] for s in rows]))
+        log("kvstore dist_sync %s per step (median of %d worker steps): %s"
+            % (name, len(rows), json.dumps(med)))
+        out[name] = {"median": med, "worker_vs_worker_differ": n01,
+                     "worker_vs_replay_differ": n0r,
+                     "max_abs_diff": max(d01, d0r)}
+    for rep in reports:
+        others = {k: v for k, v in rep["launches"].items() if v}
+        if others:
+            failures.append("kvstore worker %d launches: %s"
+                            % (rep["rank"], others))
+    return out
+
+
+def kv_stores_on_card(mx, failures):
+    """ResNet-50's 193 gradient shapes as two contributions, one on
+    gpu(0) and one on cpu(0), through local, device, ici (bucketed, per
+    key, split) and horovod; each sum pulled onto gpu(0) must equal the
+    torch sum v0 + v1 bit for bit."""
+    from mxnet_tpu_torch.kvstore.ici import ICIKVStore
+    shapes = resnet50_shapes(mx)
+    gpu, cpu = mx.gpu(0), mx.cpu(0)
+    rng = np.random.RandomState(5)
+    host = [[rng.standard_normal(s).astype(np.float32) for s in shapes]
+            for _ in range(2)]
+    a = [mx.nd.array(h, ctx=gpu) for h in host[0]]
+    b = [mx.nd.array(h, ctx=cpu) for h in host[1]]
+    want = [x._data + y._data.to(x._data.device) for x, y in zip(a, b)]
+    keys = list(range(len(shapes)))
+    out = {}
+    for name, make in [
+            ("local", lambda: mx.kv.create("local")),
+            ("device", lambda: mx.kv.create("device")),
+            ("ici bucketed", lambda: ICIKVStore()),
+            ("ici per key", lambda: ICIKVStore(0)),
+            ("ici split", lambda: ICIKVStore(KV_SPLIT_BYTES)),
+            ("horovod", lambda: mx.kv.create("horovod"))]:
+        kv = make()
+        outs = [mx.nd.zeros(s, ctx=gpu) for s in shapes]
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "horovod":
+                for k in keys:
+                    kv.pushpull(k, [a[k], b[k]], out=outs[k])
+            else:
+                kv.init(keys, [mx.nd.zeros(s, ctx=gpu) for s in shapes])
+                kv.push(keys, [[x, y] for x, y in zip(a, b)])
+                kv.pull(keys, out=outs)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        bad = sum(not torch.equal(o._data, w) for o, w in zip(outs, want))
+        row = {"ms": times[1:], "differ": bad}
+        if isinstance(kv, ICIKVStore):
+            row.update(kv.stats())
+        out[name] = row
+        if bad:
+            failures.append("kvstore %s on the card: %d of %d sums not bit "
+                            "for bit" % (name, bad, len(keys)))
+    buckets = [out[n]["buckets"] // 3 for n in
+               ("ici bucketed", "ici split", "ici per key")]
+    if not buckets[0] < buckets[1] < buckets[2] == len(keys) or any(
+            out[n]["collectives"] for n in out if n.startswith("ici")):
+        failures.append("kvstore ici buckets %s (want bucketed < split < %d "
+                        "per key, no collective)" % (buckets, len(keys)))
+    log("kvstore stores on the card (gpu(0) + cpu(0), %d keys, %.1f MB; "
+        "ms of a push and pull, 2 timed after 1; buckets a sync %s): %s"
+        % (len(keys), sum(w.numel() * 4 for w in want) / 1e6, buckets,
+           json.dumps(out)))
+    return out
+
+
+def kvstore_path(mx, card, failures):
+    """The ``kvstore`` phase: every registered launch counter from 0, and
+    still 0 after, in this process and in each worker (no hand-written
+    kernel is on these paths)."""
+    from mxnet_tpu_torch.kernels._counters import registered
+    t0 = time.perf_counter()
+    for h, a in registered():
+        setattr(h, a, 0)
+    W = kv_worker_module()
+    log("kvstore: %s; ResNet-50 v1, 224x224, f32, hybridized; 2 workers x "
+        "%d images (bench.py's 64), SGD %s on the server; %d steps, then "
+        "%d with 2-bit compression %s"
+        % (card, W.RESNET_BATCH, json.dumps(W.RESNET_OPT), KV_STEPS,
+           KV_COMPRESSED_STEPS, json.dumps(W.RESNET_COMPRESSION)))
+    out = {"dist_sync": kv_job(mx, W, failures)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["stores"] = kv_stores_on_card(mx, failures)
+    launches = {"%s.%s" % (getattr(h, "__name__", type(h).__name__), a):
+                getattr(h, a) for h, a in registered()}
+    others = {k: v for k, v in launches.items() if v}
+    log("kvstore path launches: %s" % (json.dumps(others) if others
+                                       else "every counter 0"))
+    if others:
+        failures.append("kvstore path launches: %s" % others)
+    out["seconds"] = time.perf_counter() - t0
+    log("kvstore phase seconds: %.1f" % out["seconds"])
+    return out
+
+
+
 def main(argv):
     parent = None
     if argv[:1] == ["--parent"] and len(argv) == 2:
@@ -7663,6 +7906,15 @@ def main(argv):
     torch.cuda.empty_cache()
 
     phase("image")
+    # ---- 7j. the KVStore family: ResNet-50 trained by two worker
+    # processes through one parameter server on the card, held to a
+    # replay here, then the in-process stores; every launch counter from
+    # 0 (all stay 0)
+    report["kvstore"] = kvstore_path(mx, card, failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("kvstore")
     # ---- 7b. the extension surface, each path with its counters from 0:
     # the fused conv experiment's twin, then rtc kernels through CustomOp
     t_ext = time.perf_counter()

@@ -14,7 +14,8 @@ CUDA tensor it launches the hand-written kernel or raises.
 The MXNet surface reads as in the reference, ``import mxnet_tpu_torch
 as mx``: ``mx.nd``, ``mx.autograd``, ``mx.gluon``, ``mx.init`` /
 ``mx.initializer``, ``mx.optimizer``, ``mx.lr_scheduler``, ``mx.random``,
-``mx.operator`` (CustomOp),
+``mx.operator`` (CustomOp), ``mx.kv``/``mx.kvstore`` (the stores,
+the parameter server's ``dist_*`` among them),
 ``mx.rtc`` (CUDA source compiled at run time), ``mx.runtime``,
 ``mx.library``, ``mx.contrib.amp``, ``mx.parallel``
 (``DataParallelTrainer``), the symbolic API (``mx.sym``/``mx.symbol``,
@@ -67,6 +68,8 @@ from . import ndarray  # noqa: E402
 from . import ndarray as nd  # noqa: E402
 from .ndarray import NDArray  # noqa: E402,F401
 from . import autograd, initializer, optimizer, gluon  # noqa: E402
+from . import kvstore  # noqa: E402
+from . import kvstore as kv  # noqa: E402
 from . import random, lr_scheduler  # noqa: E402
 from . import initializer as init  # noqa: E402
 from . import runtime, library, rtc  # noqa: E402

@@ -54,7 +54,7 @@ from .._graphs import (GraphCache, Program, no_collection,
                        recorded_launches, warm_up)
 from ..base import MXNetError
 from ..context import Context, cpu
-from ..ndarray.ndarray import NDArray
+from ..ndarray.ndarray import NDArray, _tagged
 from ..ops.registry import device_scope, invoke, shape_resolve_scope
 from .. import symbol as sym
 from .parameter import Parameter, ParameterDict
@@ -519,7 +519,7 @@ class _CachedOp:
     """
 
     def __init__(self, block, params, leaves, tree, training, recording,
-                 device, cache, fire_hooks):
+                 device, cache, fire_hooks, ctx):
         self.block = block
         self.fire_hooks = fire_hooks    # at the first body run only
         self.params = params
@@ -527,7 +527,7 @@ class _CachedOp:
         self.training = training
         self.recording = recording
         self.device = device
-        self.ctx = Context.of(device)
+        self.ctx = ctx
         self.out_tree = None
         self.bound = self.param_tensors()
         self.replicas = []
@@ -558,9 +558,10 @@ class _CachedOp:
         saved = [(p, p._data) for p in self.params]
         try:
             for p, t in zip(self.params, tensors[:n]):
-                p._data = OrderedDict({self._param_nd(p)[0]: NDArray(t)})
-            args = _unflatten_nds(self.tree,
-                                  [NDArray(t) for t in tensors[n:]])
+                p._data = OrderedDict({self._param_nd(p)[0]:
+                                       _tagged(NDArray(t), self.ctx)})
+            args = _unflatten_nds(self.tree, [_tagged(NDArray(t), self.ctx)
+                                              for t in tensors[n:]])
             calls = [] if self.fire_hooks else None
             self.fire_hooks = False
             with _tracing(), _hook_scope(calls), \
@@ -628,7 +629,8 @@ class _CachedOp:
                     s.copy_(a)
             outs = [o.clone() for o in self.program()]
         tree, seq = self.out_tree
-        result = _unflatten_nds(tree, [NDArray(o) for o in outs])
+        result = _unflatten_nds(tree, [_tagged(NDArray(o), self.ctx)
+                                       for o in outs])
         return result if seq else result[0]
 
 
@@ -710,7 +712,7 @@ class HybridBlock(Block):
         # the reference's signature, plus the recording flag (a recorded
         # call also captures the backward) and each input's device and
         # requires_grad (make_graphed_callables needs them to match)
-        sig = (tuple((a.shape, str(a.dtype), a._data.device,
+        sig = (tuple((a.shape, str(a.dtype), a._ctx, a._data.device,
                       a._data.requires_grad) for a in leaves),
                autograd.is_training(), autograd.is_recording(),
                _tree_sig(tree))
@@ -730,7 +732,8 @@ class HybridBlock(Block):
             entry = self._cached_ops.put(sig, _CachedOp(
                 self, params, leaves, tree, autograd.is_training(),
                 autograd.is_recording(), device, self._cached_ops,
-                traced not in self._traced))
+                traced not in self._traced,
+                leaves[0].context if leaves else Context.of(device)))
             self._traced.add(traced)
         return entry(leaves)
 

@@ -165,7 +165,7 @@ class Parameter:
         from .. import autograd
         self._grad = OrderedDict()
         for c, d in self._data.items():
-            g = NDArray(torch.zeros_like(d._data.detach()))
+            g = NDArray(torch.zeros_like(d._data.detach()), c)
             self._grad[c] = g
             autograd.mark_variables([d], [g], [self._grad_req])
 

@@ -46,19 +46,22 @@ def _torch_dtype(dtype):
 class NDArray:
     """Multi-dimensional array with MXNet's mutation semantics."""
 
-    __slots__ = ("_data", "_version", "_grad", "_grad_req", "_hook",
+    __slots__ = ("_data", "_ctx", "_version", "_grad", "_grad_req", "_hook",
                  "__weakref__")
 
     def __init__(self, data, ctx: Context = None):
         """An array over ``data``: a tensor (taken as it is), an NDArray
         (its tensor) or anything numpy reads (copied, float64 made
         float32 as :func:`array` does); ``ctx`` moves it there."""
-        if not isinstance(data, torch.Tensor):
-            data = data._data if isinstance(data, NDArray) \
-                else array(data, ctx=ctx)._data
+        if isinstance(data, NDArray):
+            ctx = data._ctx if ctx is None else ctx
+            data = data._data
+        elif not isinstance(data, torch.Tensor):
+            data = array(data, ctx=ctx)._data
         if ctx is not None:
             data = _place(data, ctx)
         self._data = data
+        self._ctx = _host_ctx(ctx)
         self._version = 0
         self._grad = None
         self._grad_req = "null"
@@ -118,6 +121,12 @@ class NDArray:
 
     @property
     def context(self) -> Context:
+        """The context the array was made on: ``cpu(i)`` contexts share
+        the host's one torch device, so the array carries its own and an
+        op's output takes it from its first such input."""
+        c = self._ctx
+        if c is not None and self._data.device.type == "cpu":
+            return c
         return Context.of(self._data.device)
 
     ctx = context
@@ -201,26 +210,26 @@ class NDArray:
 
     def copyto(self, other):
         if isinstance(other, Context):
-            return NDArray(_place(self._data.detach().to(
-                other.torch_device, copy=True), other))
+            return NDArray(self._data.detach().to(other.torch_device,
+                                                  copy=True), other)
         if isinstance(other, NDArray):
             other._set_data(self._data.detach().to(other._data.device))
             return other
         raise MXNetError("copyto target must be Context or NDArray")
 
     def copy(self) -> "NDArray":
-        return NDArray(self._data.detach().clone())
+        return _tagged(NDArray(self._data.detach().clone()), self._ctx)
 
     def astype(self, dtype, copy: bool = True) -> "NDArray":
         """A copy in ``dtype`` (this array when ``copy=False`` and the
         dtype already matches)."""
         if not copy and _torch_dtype(dtype) == self._data.dtype:
             return self
-        return NDArray(self._data.detach().to(_torch_dtype(dtype),
-                                              copy=True))
+        return _tagged(NDArray(self._data.detach().to(_torch_dtype(dtype),
+                                                      copy=True)), self._ctx)
 
     def detach(self) -> "NDArray":
-        return NDArray(self._data.detach())
+        return _tagged(NDArray(self._data.detach()), self._ctx)
 
     def tostype(self, stype):
         """A copy in storage ``stype`` (``default``, ``row_sparse`` or
@@ -240,8 +249,8 @@ class NDArray:
         ``row_sparse`` gradient is made from it where an optimizer
         update reads it (``gluon.Trainer``)."""
         from .. import autograd
-        autograd.mark_variables([self], [NDArray(torch.zeros_like(
-            self._data.detach()))], [grad_req])
+        autograd.mark_variables([self], [_tagged(NDArray(torch.zeros_like(
+            self._data.detach())), self._ctx)], [grad_req])
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
         from .. import autograd
@@ -502,6 +511,29 @@ def _device(ctx):
         return ctx.torch_device
     from ..ops.registry import creation_device
     return creation_device()
+
+
+def _host_ctx(ctx):
+    """``ctx`` where the tensor's device does not name it (``cpu(i)``,
+    ``i > 0``), else None."""
+    if ctx is not None and ctx.device_id and ctx.device_type == "cpu":
+        return ctx
+    return None
+
+
+def _tagged(arr, ctx):
+    """``arr`` marked as made on ``ctx`` (see :attr:`NDArray.context`)."""
+    arr._ctx = _host_ctx(ctx)
+    return arr
+
+
+def _lead_ctx(inputs):
+    """The context an op's outputs take from its inputs: that of the
+    first input made on a ``cpu(i)``, ``i > 0``, else None."""
+    for a in inputs:
+        if isinstance(a, NDArray) and a._ctx is not None:
+            return a._ctx
+    return None
 
 
 def _place(t, ctx):

@@ -237,7 +237,7 @@ def invoke(op: OpDef, inputs: Sequence, pos_attrs=(), attrs=None,
     when given); returns an NDArray or a tuple of them (reference
     ``Imperative::Invoke``)."""
     from .. import autograd
-    from ..ndarray.ndarray import NDArray
+    from ..ndarray.ndarray import NDArray, _tagged, _lead_ctx
 
     attrs = {} if attrs is None else attrs
     if op.training_aware and "_training" not in attrs:
@@ -292,6 +292,9 @@ def invoke(op: OpDef, inputs: Sequence, pos_attrs=(), attrs=None,
             o._set_data(r)
         return out
     outputs = [NDArray(r) for r in rlist]
+    at = ctx if ctx is not None else _lead_ctx(inputs)
+    if at is not None:
+        outputs = [_tagged(o, at) for o in outputs]
     if len(outputs) == 1 and (not multi or op.num_outputs == 1):
         return outputs[0]
     return tuple(outputs)
