@@ -74,6 +74,28 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    tokens and requests; the profiler's dump loads as JSON with a ``req
    N`` lane per request holding admission_wait, prefill, decode and
    retire);
+4d. drives the serving cluster (``serving/cluster.py``, the
+   ``serving cluster`` phase, after ``telemetry and tier``), each part's
+   paged-kernel counter from 0: (a) the ``full`` preset (bf16/w8, float
+   KV, 16 slots, page 16, chunk 16) through ``ServingCluster(replicas=2,
+   prefix_cache=True, metrics=True)``, then ``replicas=1``, on
+   serve_bench's shared-prefix mix (``shared_prefix_frac=0.8``, 64
+   seeded requests), one warm request outside the clock each: tok/s,
+   cluster-side TTFT p50/p95, steps and prefix hits a replica, host and
+   device ms a step (CUDA events around each dispatch), a profiled
+   window each (the device's busy union, idle share and the overlap of
+   the replicas' kernels); tokens identical to one captured engine's,
+   the counter equal to steps x layers, no page or ref left; the
+   1-replica cluster's ``add_replica`` takes its KV pool and buffers
+   only (the weights' tensors shared); (b) the same width in f32, 2
+   replicas: replica 0's step raising at its 4th call, then sleeping
+   past ``watchdog_s`` at its 3rd, every output identical to one
+   undisturbed captured engine's, one failover, the victim dead, the
+   survivor leak-free; (c) the small f32 model of 4b from one replica
+   under an ``Autoscaler``: a seeded burst in waves scales it up, a
+   ``ChaosDriver`` kill and stall fire during it, idling drains it back
+   to one, every output equal to ``generate`` on the card, and a
+   scale-up's capture overlaps another replica's replays;
 5. holds the paged kernel against its plain version on the inputs kept
    from the live engine (its real pools, block table and positions);
 6. drives the training paths, each with the counters set to 0 just
@@ -302,8 +324,15 @@ DIR's flash kernels against this tree's; the ``full`` serving mix
 with DIR's paged kernel bound into the engine against this tree's; and
 DIR's ``conv3x3_fused`` against this tree's at the conv path's four
 batch-128 shapes, conv alone and chain.
+
+``python3 chip_smoke.py --image-profile-probe stopped|alive|none RUNS``
+runs the image phase's full path RUNS times in one process, its
+profiled superbatch taken with the prefetch worker stopped (as the
+smoke run does), with it alive, or unprofiled: with the worker alive
+under torch.profiler the process aborts now and then.
 """
 import dataclasses
+import faulthandler
 import gc
 import itertools
 import json
@@ -313,6 +342,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -4594,6 +4624,539 @@ def telemetry_and_tier(G, ServingEngine, params, cfg, dev, card, failures):
 
 
 
+# ---------------------------------------------------------- serving cluster --
+# serve_bench.py's cluster rows: --replicas 2 --shared-prefix-frac 0.8
+CLUSTER_FRAC = 0.8
+# phase 4d (b): the f32 failover and watchdog runs, on this many requests
+# of the shared-prefix mix cut to 64 prompt and 32 new tokens
+CLUSTER_F32_REQ, CLUSTER_WATCHDOG_S, CLUSTER_STALL_S = 16, 1.0, 2.5
+# phase 4d (c): the small model's burst, in waves CLUSTER_WAVE_S apart,
+# and the chaos events' times from its start
+CLUSTER_BURST, CLUSTER_WAVES, CLUSTER_WAVE_S = 96, 8, 0.15
+CLUSTER_KILL_S, CLUSTER_CHAOS_STALL_S = 0.45, 0.75
+
+
+def step_timers(cl):
+    """Per replica, host seconds in ``step()`` (steps that ran), the
+    token read-back's share of them, and CUDA events around each
+    dispatch (its copies and the graph's replay, on the replica's
+    stream).  Returns {idx: row}; :func:`step_numbers` reads a row."""
+    rows = {}
+    for rep in cl.replicas:
+        eng = rep.engine
+        row = {"host": 0.0, "wait": 0.0, "steps": 0, "events": []}
+        step, dispatch, put = eng.step, eng._dispatch, eng._readback.put
+
+        def timed_step(step=step, row=row):
+            t0 = time.perf_counter()
+            out = step()
+            if out is not False:
+                row["host"] += time.perf_counter() - t0
+                row["steps"] += 1
+            return out
+
+        def timed_dispatch(plan, dispatch=dispatch, row=row):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = dispatch(plan)
+            e1.record()
+            row["events"].append((e0, e1))
+            return out
+
+        def timed_put(tok, put=put, row=row):
+            wait = put(tok)
+
+            def timed_wait():
+                t0 = time.perf_counter()
+                try:
+                    return wait()
+                finally:
+                    row["wait"] += time.perf_counter() - t0
+            return timed_wait
+
+        eng.step, eng._dispatch = timed_step, timed_dispatch
+        eng._readback.put = timed_put
+        rows[rep.idx] = row
+    return rows
+
+
+def step_numbers(row):
+    n = max(1, row["steps"])
+    dev_ms = [a.elapsed_time(b) for a, b in row["events"]]
+    return {"steps": row["steps"],
+            "host_ms_per_step": (row["host"] - row["wait"]) * 1e3 / n,
+            "token_wait_ms_per_step": row["wait"] * 1e3 / n,
+            "device_ms_per_step": float(np.mean(dev_ms)) if dev_ms else 0.0}
+
+
+def cluster_leaks(name, cl, failures):
+    """No live replica holds a page or ref beyond its cache's own
+    (``leak_check``, which then clears each cache)."""
+    for rep in cl.replicas:
+        if rep.engine is not None and not rep.dead:
+            leak_check("%s replica %d" % (name, rep.idx), rep.engine,
+                       failures)
+
+
+def cluster_mix(cl, reqs, PA, name, card, failures, timers=False):
+    """The mix through a cluster, the paged kernel's counter from 0:
+    tok/s, cluster-side TTFT p50/p95 (submit to first committed token),
+    steps and prefix hits a replica, and (``timers``: a pass of its own,
+    the timers' events cost a little) host and device ms a step.
+    Asserts every request finished and the counter equals steps x
+    layers."""
+    base = {r.idx: dict(r.engine.stats) for r in cl.replicas}
+    rows = step_timers(cl) if timers else None
+    PA.paged_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [cl.submit(p, n) for p, n in reqs]
+    outs = [cl.result(r, timeout=600) for r in rids]
+    dt = time.perf_counter() - t0
+    launches = PA.paged_attention.launches
+    if rows is not None:            # the engines' own methods again
+        for rep in cl.replicas:
+            del rep.engine.step, rep.engine._dispatch
+            del rep.engine._readback.put
+    crs = [cl.requests[r] for r in rids]
+    bad = [cr.rid for cr, (p, n) in zip(crs, reqs)
+           if cr.state != "done" or cr.output.size != p.size + n]
+    if bad:
+        raise Failed("%s: requests not finished: %s" % (name, bad[:8]))
+    ttft = [(cr.first_token_t - cr.submit_t) * 1e3 for cr in crs]
+    per = {}
+    for rep in cl.replicas:
+        st = {k: rep.engine.stats[k] - base[rep.idx][k]
+              for k in ("steps", "prefix_hit_tokens", "admitted")}
+        if rows is not None:
+            st.update(step_numbers(rows[rep.idx]))
+        per[rep.idx] = st
+    steps = sum(st["steps"] for st in per.values())
+    toks = sum(n for _, n in reqs)
+    run = {"replicas": len(cl.replicas), "tokens_per_s": toks / dt,
+           "seconds": dt, "tokens": toks,
+           "ttft_ms_p50": float(np.percentile(ttft, 50)),
+           "ttft_ms_p95": float(np.percentile(ttft, 95)),
+           "steps": steps,
+           "prefix_hit_tokens": sum(st["prefix_hit_tokens"]
+                                    for st in per.values()),
+           "per_replica": per, "paged_launches": launches,
+           "routed": {k: v for k, v in cl.metrics()["counters"].items()
+                      if k.startswith("cluster_routed")}}
+    log("serve %s [%s]: %.1f tok/s, TTFT p50 %.1f ms p95 %.1f ms, steps a "
+        "replica %s, %d prefix hit tokens, host/device ms a step %s"
+        % (name, card, run["tokens_per_s"], run["ttft_ms_p50"],
+           run["ttft_ms_p95"], [st["steps"] for st in per.values()],
+           run["prefix_hit_tokens"],
+           [(round(st.get("host_ms_per_step", 0.0), 3),
+             round(st.get("device_ms_per_step", 0.0), 3))
+            for st in per.values()]))
+    ok = launches == steps * LAYERS
+    log("check %s: paged_attention counted %d launches, steps x layers = "
+        "%d  %s" % (name, launches, steps * LAYERS, "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("%s: paged launches" % name)
+    return outs, run
+
+
+def cluster_profile(cl, reqs, what):
+    """Information: a torch.profiler window over the mix through a
+    cluster: wall time, the device's busy time (the union of its kernel,
+    copy and fill intervals), the sum of their durations (above the
+    union where replicas' kernels ran at once), the idle share, and the
+    share of busy time two or more kernels overlapped."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(PROFILE_SPAN):
+            t0 = time.perf_counter()
+            rids = [cl.submit(p, n) for p, n in reqs]
+            for r in rids:
+                cl.result(r, timeout=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    work, _, how = device_work(prof)
+    span = [ev for ev in prof.events() if ev.name == PROFILE_SPAN
+            and ev.device_type == DeviceType.CPU]
+    if len(span) != 1:
+        raise Failed("profile of %s: %d spans" % (what, len(span)))
+    lo, hi = span[0].time_range.start, span[0].time_range.end
+    iv = sorted((max(lo, ev.time_range.start), min(hi, ev.time_range.end))
+                for ev in work if ev.time_range.end > lo
+                and ev.time_range.start < hi)
+    total = sum(b - a for a, b in iv)
+    union, end = 0.0, None
+    start = None
+    for a, b in iv:
+        if end is None or a > end:
+            if end is not None:
+                union += end - start
+            start, end = a, b
+        else:
+            end = max(end, b)
+    if end is not None:
+        union += end - start
+    if union == 0.0:
+        log("info: profile of %s: no device time recorded (not measured)"
+            % what)
+        return None
+    out = {"wall_ms": wall * 1e3, "busy_ms": union / 1e3,
+           "kernel_sum_ms": total / 1e3,
+           "idle": 1.0 - union / 1e3 / (wall * 1e3),
+           "overlap": total / union - 1.0, "told_apart_by": how}
+    log("info: profile of %s: %s" % (what, json.dumps(
+        {k: round(v, 4) if isinstance(v, float) else v
+         for k, v in out.items()})))
+    return out
+
+
+def cluster_rates(G, PA, ServingEngine, ServingCluster, params, cfg, dev,
+                  card, failures):
+    """Phase 4d (a): the ``full`` preset bf16/w8 through the cluster, 2
+    replicas then 1, on serve_bench's shared-prefix mix, tokens held to
+    the single undisturbed captured engine's; the second replica's
+    allocation (the 1-replica cluster's ``add_replica``) held to its KV
+    pool and buffers, no second copy of the weights."""
+    reqs = workload(0, shared_prefix_frac=CLUSTER_FRAC)
+    kw = dict(num_slots=SLOTS, page_size=PAGE, prefill_chunk=CHUNK,
+              prefix_cache=True, metrics=True, device=dev)
+    single, srun = serve_mix(ServingEngine, params, cfg, reqs, dev,
+                             failures, "full shared-prefix mix, one "
+                             "engine, prefix cache", prefix_cache=True)
+    log("serve full shared-prefix mix (frac %.1f), one captured engine "
+        "[%s]: %.1f tok/s, %.3f ms/step, %d prefix hit tokens"
+        % (CLUSTER_FRAC, card, srun["tokens_per_s"], srun["ms_per_step"],
+           srun["prefix_hit_tokens"]))
+    rep = {"card": card, "single_engine": srun}
+    for n in (2, 1):
+        cl = ServingCluster(params, cfg, replicas=n, **kw)
+        try:
+            name = "full shared-prefix mix, cluster of %d" % n
+            cl.result(cl.submit(np.arange(1, PAGE + 1, dtype=np.int32),
+                                4), timeout=600)      # warm, unclocked
+            outs, run = cluster_mix(cl, reqs, PA, name, card, failures)
+            same_tokens("%s vs one captured engine (bf16/w8)" % name,
+                        dict(enumerate(outs)), dict(enumerate(single)),
+                        failures)
+            outs, run["timed_pass"] = cluster_mix(
+                cl, reqs, PA, name + ", step timers", card, failures,
+                timers=True)
+            same_tokens("%s, step timers, vs one captured engine" % name,
+                        dict(enumerate(outs)), dict(enumerate(single)),
+                        failures)
+            run["profile"] = cluster_profile(
+                cl, reqs[:32], "cluster of %d, 32 requests" % n)
+            if n == 1:
+                run["second_replica"] = second_replica_bytes(cl)
+            cluster_leaks(name, cl, failures)
+        finally:
+            cl.close(timeout=120)
+        rep["replicas_%d" % n] = run
+        del cl
+        gc.collect()
+        torch.cuda.empty_cache()
+    weights = rep["replicas_1"]["second_replica"]
+    ok = weights["shared_weights"] and weights["bytes"] < \
+        weights["kv_pool_bytes"] + weights["weight_bytes"] / 2
+    log("check second replica's allocation [%s]: %.1f MB (KV pool %.1f "
+        "MB, weights %.1f MB shared: %s)  %s"
+        % (card, weights["bytes"] / 1e6, weights["kv_pool_bytes"] / 1e6,
+           weights["weight_bytes"] / 1e6, weights["shared_weights"],
+           "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("cluster: the second replica copied the weights")
+    return rep
+
+
+def second_replica_bytes(cl):
+    """``add_replica`` on a live cluster: the device memory it took, its
+    KV pool's bytes, the weights' bytes, and whether its engine holds
+    the first replica's weight tensors."""
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        if isinstance(tree, (list, tuple)):
+            return [x for v in tree for x in leaves(v)]
+        return [tree] if isinstance(tree, torch.Tensor) else []
+
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    idx = cl.add_replica()
+    torch.cuda.synchronize()
+    took = torch.cuda.memory_allocated() - m0
+    a, b = cl.replicas[0].engine, cl.replicas[idx].engine
+    wa, wb = leaves(a.params), leaves(b.params)
+    return {"bytes": took, "kv_pool_bytes": b.hbm_pool,
+            "weight_bytes": sum(t.numel() * t.element_size() for t in wa),
+            "shared_weights": [t.data_ptr() for t in wa]
+            == [t.data_ptr() for t in wb]}
+
+
+def fault_run(ServingCluster, PA, params, cfg, reqs, dev, fault, **kw):
+    """The requests through a 2-replica cluster with ``fault`` (called
+    with replica 0's engine) set up first, the paged kernel's counter
+    from 0 once both replicas are warm; returns (outputs, counters,
+    health, requests resumed, leaks, paged launches, steps over both
+    replicas), the last two read once every worker (a stalled one's
+    zombie step too) has ended."""
+    cl = ServingCluster(params, cfg, replicas=2, num_slots=SLOTS,
+                        page_size=PAGE, prefill_chunk=CHUNK,
+                        prefix_cache=True, metrics=True, device=dev, **kw)
+    try:
+        fault(cl.replicas[0].engine)
+        PA.paged_attention.launches = 0
+        rids = [cl.submit(p, n) for p, n in reqs]
+        outs = [cl.result(r, timeout=600) for r in rids]
+        counters = cl.metrics()["counters"]
+        health = cl.health()
+        resumed = sum(cl.requests[r].failovers > 0 for r in rids)
+        leaks = []
+        cluster_leaks("f32 %s survivors" % fault.__name__, cl, leaks)
+    finally:
+        cl.close(timeout=120)
+    steps = sum(rep.engine.stats["steps"] for rep in cl.replicas)
+    return (outs, counters, health, resumed, leaks,
+            PA.paged_attention.launches, steps)
+
+
+def nth_step(eng, when, action):
+    """Make ``action`` run before the engine's ``when``-th step."""
+    orig, calls = eng.step, [0]
+
+    def step():
+        calls[0] += 1
+        if calls[0] == when:
+            action()
+        return orig()
+
+    eng.step = step
+
+
+def cluster_faults(G, PA, ServingEngine, ServingCluster, master, cfg, dev,
+                   card, failures):
+    """Phase 4d (b): the ``full`` width in f32, 2 replicas: replica 0's
+    step raises at its 4th call, then (another cluster) sleeps past the
+    watchdog at its 3rd; every output token-identical to one undisturbed
+    captured engine's, one failover each, the victim dead, no page or ref
+    left on the survivor, and the paged kernel's counter (from 0 on the
+    warm cluster, the undisturbed engine's run outside it) equal to the
+    steps of both replicas x layers."""
+    f32cfg = G.gpt_config(**{**cfg.__dict__, "dtype": "float32"})
+    reqs = [(p[:64], 32) for p, _ in
+            workload(0, shared_prefix_frac=CLUSTER_FRAC)[:CLUSTER_F32_REQ]]
+    eng = ServingEngine(master, f32cfg, num_slots=SLOTS, page_size=PAGE,
+                        prefill_chunk=CHUNK, prefix_cache=True, device=dev)
+    rids = [eng.submit(p, n) for p, n in reqs]
+    outs = eng.run()
+    want = {i: outs[r] for i, r in enumerate(rids)}
+    del eng
+
+    def raises(eng):
+        def boom():
+            raise RuntimeError("injected replica failure")
+        nth_step(eng, 4, boom)
+
+    def stalls(eng):
+        nth_step(eng, 3, lambda: time.sleep(CLUSTER_STALL_S))
+
+    rep = {"card": card}
+    for fault, kw in ((raises, {"watchdog_s": 30.0}),
+                      (stalls, {"watchdog_s": CLUSTER_WATCHDOG_S})):
+        t0 = time.perf_counter()
+        got, counters, health, resumed, leaks, launches, steps = fault_run(
+            ServingCluster, PA, master, f32cfg, reqs, dev, fault, **kw)
+        name = "f32 cluster of 2, replica 0 %s" % fault.__name__
+        same_tokens("%s vs one undisturbed engine" % name,
+                    dict(enumerate(got)), want, failures)
+        ok = counters["cluster_failovers_total"] == 1 and \
+            health[0]["dead"] and not health[0]["alive"] and \
+            health[1]["alive"] and resumed > 0 and not leaks
+        log("check %s: %d failover(s), %d requests resumed, victim dead %s, "
+            "survivor leaks %s, %.2f s  %s"
+            % (name, counters["cluster_failovers_total"], resumed,
+               health[0]["dead"], leaks or "none",
+               time.perf_counter() - t0, "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append(name)
+        ok = launches == steps * LAYERS
+        log("check %s: paged_attention counted %d launches, steps x layers "
+            "= %d  %s" % (name, launches, steps * LAYERS,
+                          "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("%s: paged launches" % name)
+        rep[fault.__name__] = {"failovers":
+                               counters["cluster_failovers_total"],
+                               "resumed": resumed, "steps": steps,
+                               "paged_launches": launches,
+                               "seconds": time.perf_counter() - t0}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rep
+
+
+def cluster_scaling(G, PA, E, S, dev, card, failures):
+    """Phase 4d (c): the small f32 model of 4b from one replica under an
+    autoscaler: a seeded burst in waves scales it up, a chaos ``kill``
+    and ``stall`` fire during the burst, idling drains it back to one;
+    every output equals ``generate`` on the card, no live replica holds
+    a page or ref beyond its cache's own, a scale-up's capture ran while
+    another replica replayed, and the paged kernel's counter (from 0 on
+    the warm first replica) equals the steps of every replica the run
+    had, removed ones too, plus the warm-up step of each replica added
+    in it, x layers."""
+    tiny = G.gpt_tiny(dtype="float32", vocab_size=128, max_len=64,
+                      d_model=128, n_heads=2, d_ff=256, dropout=0.0)
+    tp = G.init_params(3, tiny, device=dev)
+    rng = np.random.RandomState(21)
+    burst = [(rng.randint(1, 90, int(rng.randint(3, 13))).astype(np.int32),
+              int(rng.randint(16, 49))) for _ in range(CLUSTER_BURST)]
+    want = [G.generate(tp, tiny, p[None], n, device=dev)[0].cpu().numpy()
+            for p, n in burst]
+    captures, replays, stats = [], [], []
+
+    class Timed(E.Program):
+        """The engine's step program, its capture's span and each
+        replay's time logged with the thread, and its engine's stats
+        (``remove_replica`` drops the engine)."""
+
+        def __init__(self, body, *a, **k):
+            t0 = time.perf_counter()
+            super().__init__(body, *a, **k)
+            captures.append((threading.get_ident(), t0,
+                             time.perf_counter()))
+            stats.append(body.__self__.stats)
+
+        def __call__(self):
+            replays.append((threading.get_ident(), time.perf_counter()))
+            return super().__call__()
+
+    orig = E.Program
+    E.Program = Timed
+    try:
+        cl = S.ServingCluster(tp, tiny, replicas=1, num_slots=2,
+                              page_size=4, prefill_chunk=8,
+                              prefix_cache=True, metrics=True,
+                              max_queue=10 ** 6, watchdog_s=0.5, device=dev)
+        first = len(captures)
+        sc = S.Autoscaler(cl, min_size=1, max_size=3, interval_s=0.02,
+                          cooldown_s=0.2, up_ticks=1, down_ticks=10,
+                          up_queue_factor=0.5, down_queue_factor=0.5)
+        drv = S.ChaosDriver(cl, [S.ChaosEvent(CLUSTER_KILL_S, "kill"),
+                                 S.ChaosEvent(CLUSTER_CHAOS_STALL_S,
+                                              "stall")], seed=3)
+        PA.paged_attention.launches = 0
+        sc.start()
+        t0 = time.perf_counter()
+        try:
+            rids, per = [], CLUSTER_BURST // CLUSTER_WAVES
+            for w in range(CLUSTER_WAVES):
+                while time.perf_counter() - t0 < w * CLUSTER_WAVE_S:
+                    drv.poll(time.perf_counter() - t0)
+                    time.sleep(0.005)
+                rids += [cl.submit(p, n)
+                         for p, n in burst[w * per:(w + 1) * per]]
+            while not drv.done():
+                drv.poll(time.perf_counter() - t0)
+                time.sleep(0.005)
+            outs = [cl.result(r, timeout=300) for r in rids]
+            t_burst = time.perf_counter() - t0
+            deadline = time.perf_counter() + 60
+            while len(cl._healthy()) > 1 and \
+                    time.perf_counter() < deadline:
+                time.sleep(0.02)
+            healthy = len(cl._healthy())
+            counters = cl.metrics()["counters"]
+            events = [dict(e) for e in sc.events]
+            same_tokens("small f32 cluster under autoscaler and chaos vs "
+                        "generate (card)", dict(enumerate(outs)),
+                        dict(enumerate(want)), failures)
+            for rep in cl.replicas:
+                if rep.engine is not None and not rep.dead:
+                    eng = rep.engine
+                    cached = 0 if eng.prefix is None \
+                        else eng.prefix.cached_pages
+                    if eng.cache.pages_in_use != cached or (
+                            eng.prefix is not None and eng.prefix.refs_total):
+                        failures.append("small cluster: replica %d holds "
+                                        "pages or refs" % rep.idx)
+            cluster_leaks("small f32 cluster", cl, failures)
+        finally:
+            drv.close()
+            sc.close()
+            cl.close(timeout=120)
+    finally:
+        E.Program = orig
+    launches = PA.paged_attention.launches
+    steps = sum(st["steps"] for st in stats)
+    added = len(captures) - first
+    counted = launches == (steps + added) * tiny.n_layers
+    log("check small f32 cluster: paged_attention counted %d launches, "
+        "(steps %d + %d added replicas' warm-up) x layers = %d  %s"
+        % (launches, steps, added, (steps + added) * tiny.n_layers,
+           "ok" if counted else "FAIL"))
+    if not counted:
+        failures.append("small f32 cluster: paged launches")
+    overlaps = []
+    for tid, a, b in captures[first:]:
+        overlaps.append(sum(1 for t, when in replays
+                            if t != tid and a <= when <= b))
+    ups = sum(e["action"] == "up" for e in events)
+    downs = sum(e["action"] == "down" for e in events)
+    ok = ups >= 1 and downs >= 1 and healthy == 1 and \
+        counters["cluster_failovers_total"] == 2 and \
+        len(drv.applied) == 2 and all(a["victim"] is not None
+                                      for a in drv.applied) and \
+        any(n > 0 for n in overlaps)
+    rep = {"card": card, "requests": len(burst), "burst_s": t_burst,
+           "scale_ups": ups, "scale_downs": downs, "healthy_after": healthy,
+           "chaos": drv.applied, "failovers":
+           counters["cluster_failovers_total"],
+           "replays_during_scale_up_captures": overlaps,
+           "scale_up_capture_ms": [(b - a) * 1e3 for _, a, b
+                                   in captures[first:]],
+           "actuation_s": [round(e["actuation_s"], 4) for e in events],
+           "steps": steps, "paged_launches": launches}
+    log("check small f32 cluster, autoscaler and chaos [%s]: %s  %s"
+        % (card, json.dumps(rep), "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("small f32 cluster: autoscaler and chaos")
+    return rep
+
+
+def cluster_path(G, PA, FA, E, ServingEngine, params, master, cfg, dev,
+                 card, failures):
+    """Phase 4d, the serving cluster: (a) rates and routing, (b)
+    failover and the watchdog, (c) the autoscaler and chaos.  Returns
+    (report, launches by part)."""
+    from mxnet_tpu_torch import serving as S
+    t0 = time.perf_counter()
+    rep = {"rates": cluster_rates(G, PA, ServingEngine, S.ServingCluster,
+                                  params, cfg, dev, card, failures)}
+    launches = {"serving cluster (rates), paged_attention": sum(
+        r["paged_launches"] + r["timed_pass"]["paged_launches"]
+        for r in (rep["rates"]["replicas_%d" % n] for n in (2, 1)))}
+    rep["faults"] = cluster_faults(G, PA, ServingEngine, S.ServingCluster,
+                                   master, cfg, dev, card, failures)
+    launches["serving cluster (f32 faults), paged_attention"] = sum(
+        r["paged_launches"] for k, r in rep["faults"].items() if k != "card")
+    FA.flash_fwd.launches = 0
+    rep["scaling"] = cluster_scaling(G, PA, E, S, dev, card, failures)
+    launches["serving cluster (autoscaler, chaos), paged_attention"] = \
+        rep["scaling"]["paged_launches"]
+    launches["serving cluster (generate oracle), flash_fwd"] = \
+        FA.flash_fwd.launches
+    log("serving cluster path launches: %s" % json.dumps(launches))
+    for k, n in launches.items():
+        if n <= 0:
+            raise Failed("%s was never launched on the serving cluster "
+                         "path" % k)
+    log("serving cluster phase: %.1f s" % (time.perf_counter() - t0))
+    return rep, launches
+
+
 def shared_prefix(seed):
     """The shared prefix of ``workload(seed, F)``: the seeded
     generator's first draw."""
@@ -7084,39 +7647,60 @@ def pipeline_alone(mx, rec, idx, codec):
     return out
 
 
-def full_path(mx, rec, idx, tr, resident, failures):
+def full_path(mx, rec, idx, tr, resident, failures, window="stopped"):
     """DevicePrefetchIter(super_size=BENCH_STEPS) over ImageRecordIter on
     the card (a ResizeIter loops the 16-batch epoch) into the s2d
     trainer's run_steps: images/s over IMG_SUPERS superbatches, timed
     after a warm one and IMG_DRAIN more (the superbatches the worker
     filled ahead while the warm one trained), the consumer's wait a
-    superbatch, a profiled superbatch, the loss."""
+    superbatch, a profiled superbatch, the loss.
+
+    ``window``: "stopped" (the run's) profiles the epoch's last
+    superbatch, taken and the worker stopped before the profiler
+    starts; "alive" takes it inside the window, the worker's thread
+    still alive; None profiles nothing.  With the worker alive under
+    torch.profiler the process aborts now and then inside the window
+    (``free(): invalid pointer`` off the Python threads, the worker
+    parked): ``--image-profile-probe`` repeats the path in one mode."""
     n = (1 + IMG_DRAIN + IMG_SUPERS + 1) * BENCH_STEPS
     it = mx.io.DevicePrefetchIter(
         mx.io.ResizeIter(image_iter(mx, rec, idx, mx.gpu(0)), n),
         super_size=BENCH_STEPS, ctx=mx.gpu(0))
     losses, waits = [], []
 
-    def one():
+    def take():
         t = time.perf_counter()
         b = it.next()
         waits.append(time.perf_counter() - t)
+        return b
+
+    def train(b):
         losses.extend(tr.run_steps(b.data[0], b.label[0]).asnumpy().tolist())
 
     try:
         for _ in range(1 + IMG_DRAIN):  # warm, then the queue's credit
-            one()
+            train(take())
         torch.cuda.synchronize()
         waits.clear()
         t0 = time.perf_counter()
         for _ in range(IMG_SUPERS):
-            one()
+            train(take())
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        prof = profile_window(one, 1, "the full image path, one superbatch "
-                              "of %d run_steps steps" % BENCH_STEPS)
+        what = "the full image path's last superbatch of %d run_steps " \
+            "steps" % BENCH_STEPS
+        if window == "alive":
+            prof = profile_window(lambda: train(take()), 1, what)
+        else:
+            last = take()
     finally:
         it.close()
+    if window == "stopped":
+        prof = profile_window(lambda: train(last), 1, what + " (taken, "
+                              "the worker stopped, before the window)")
+    elif window is None:
+        train(last)
+        prof = None
     ips = IMG_SUPERS * BENCH_STEPS * IMG_B / sec
     out = {"images_per_s": ips, "resident_images_per_s": resident,
            "wait_ms_per_super": [w * 1e3 for w in waits[:IMG_SUPERS]],
@@ -7552,17 +8136,62 @@ def kvstore_path(mx, card, failures):
 
 
 
+def image_profile_probe(mode, runs):
+    """``--image-profile-probe MODE RUNS``: the image phase's full path
+    (bench.py's s2d AMP trainer, the phase's records) ``runs`` times in
+    this process, profiled as ``full_path``'s ``window`` MODE says
+    ("stopped", "alive" or "none"); a run that aborts ends the
+    process."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.image import _nvjpeg
+    from mxnet_tpu_torch.kernels import _build
+    with ThreadPoolExecutor(len(_build.SOURCES)) as ex:
+        list(ex.map(_build.load, _build.SOURCES))
+    failures = []
+    tr = bench_trainer(mx, True, True)
+    x, y = bench_batch(mx, IMG_B)
+    for _ in range(2):
+        bench_dispatch(tr, x, y)
+    codec = _nvjpeg.decoder(torch.device("cuda", 0))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_probe_")
+    try:
+        rec, idx = image_records(mx, codec, torch.device("cuda", 0),
+                                 tmp)[:2]
+        tr._eager = False
+        t0 = time.perf_counter()
+        for i in range(runs):
+            full_path(mx, rec, idx, tr, 0.0, failures,
+                      window=None if mode == "none" else mode)
+            log("image profile probe, window %s: run %d of %d ended at "
+                "%.1f s [%s]" % (mode, i + 1, runs,
+                                 time.perf_counter() - t0, card_line()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("image profile probe, window %s: %d runs, failures %s"
+        % (mode, runs, failures))
+    return 1 if failures else 0
+
+
 def main(argv):
     parent = None
     if argv[:1] == ["--parent"] and len(argv) == 2:
         parent = argv[1]
+    elif argv[:1] == ["--image-profile-probe"] and len(argv) == 3 \
+            and argv[1] in ("stopped", "alive", "none"):
+        pass
     elif argv:
-        print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
+        print("usage: chip_smoke.py [--parent DIR | --image-profile-probe "
+              "stopped|alive|none RUNS]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
+    faulthandler.enable()            # a fatal signal prints every thread
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if argv[:1] == ["--image-profile-probe"]:
+        return image_profile_probe(argv[1], int(argv[2]))
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.kernels import _build
     from mxnet_tpu_torch.kernels import flash_attention as FA
@@ -7574,8 +8203,6 @@ def main(argv):
     from mxnet_tpu_torch.serving import ServingEngine
     from mxnet_tpu_torch.serving import engine as E
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log("card:", card)
     dev = torch.device("cuda", 0)
@@ -7755,6 +8382,16 @@ def main(argv):
     torch.cuda.empty_cache()
 
     phase("telemetry and tier")
+    # ---- 4d. the serving cluster: rates and routing on the preset,
+    # failover and the watchdog in f32, the autoscaler and chaos on the
+    # small model, each part's kernel counters from 0
+    report["serving_cluster"], cluster_launches = cluster_path(
+        G, PA, FA, E, ServingEngine, params, master, cfg, dev, card,
+        failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("serving cluster")
     # ---- 6. the training paths, each with its own counters from 0
     bert_cfg = T_.bert_base(**BERT)
     init_state, step = T_.make_train_step(bert_cfg, learning_rate=1e-4,
@@ -7940,7 +8577,9 @@ def main(argv):
             "serving": launches["paged_attention"],
             "serving, all three options, shared-prefix mix":
                 options_launches,
-            "telemetry and tier": tier_launches["paged_attention"]},
+            "telemetry and tier": tier_launches["paged_attention"],
+            **{k.rsplit(", ", 1)[0]: n for k, n in cluster_launches.items()
+               if k.endswith("paged_attention")}},
         "launches_note": "calls, two kernel launches each",
         "max_abs_err": errs["paged"], "tolerance": PAGED_TOL_TEXT,
         **time_paged(PA, q, pool, s, bt, pos, flush),
@@ -7958,6 +8597,9 @@ def main(argv):
     time_prefill(FA, dev, flush, errs["flash"])
 
     by_path = {"serving": launches, "telemetry and tier": tier_launches,
+               "serving cluster (generate oracle)": {
+                   "flash_fwd": cluster_launches[
+                       "serving cluster (generate oracle), flash_fwd"]},
                "bert": bert_launches, "gpt": gpt_launches,
                "bert remat dots": report["remat"]["dots"]["flash_launches"],
                "bert scan_steps=%d" % SCAN_K: scan_launches}

@@ -30,12 +30,21 @@ program, and replays it.  This module holds what the three share:
   one memory pool per device, freed with the owner.
 * :data:`CAPTURE_LOCK` — held around every capture and every counter
   window (:func:`kept_launches`, so :func:`recorded_launches` and
-  :func:`warm_up` too); a thread that does CUDA work beside the captured
-  one (``io.DevicePrefetchIter``'s worker) holds it around that work, so
-  the capture neither records nor refuses it, and no launch counter
-  moves inside a window but by the window's own work: the worker's
-  launches are neither taken into a capture's change (which each replay
-  would add again) nor undone with a warm-up's.
+  :func:`warm_up` too); a thread that launches kernels op by op beside
+  the captured one (``io.DevicePrefetchIter``'s worker) holds it around
+  that work, so no launch counter moves inside a window but by the
+  window's own work: the worker's launches are neither taken into a
+  capture's change (which each replay would add again) nor undone with a
+  warm-up's.
+* replays beside a capture — the serving cluster's replicas each
+  replay their own graph on a stream of their own while another replica
+  captures.  A capture runs in ``thread_local`` error mode (CUDA refuses
+  only the capturing thread's unsafe calls, not another thread's
+  replays, event waits and copies), and a replay does not take
+  :data:`CAPTURE_LOCK`: while another thread holds a counter window, its
+  :meth:`LaunchCounts.add` is kept aside and applied when the window
+  closes, so the window's change and the counters' totals both stay
+  exact.
 """
 from __future__ import annotations
 
@@ -53,6 +62,11 @@ __all__ = ["LaunchCounts", "kept_launches",
 
 CAPTURE_LOCK = threading.RLock()
 
+# the open counter window: its thread, its depth, and the replays of
+# other threads kept aside until it closes (all under _COUNTS)
+_COUNTS = threading.Lock()
+_WINDOW = {"owner": None, "depth": 0, "aside": []}
+
 
 class LaunchCounts:
     """The change of a set of launch counters over some run, which
@@ -62,6 +76,14 @@ class LaunchCounts:
         self.changes = changes          # [(holder, attribute, delta)]
 
     def add(self):
+        with _COUNTS:
+            owner = _WINDOW["owner"]
+            if owner is not None and owner != threading.get_ident():
+                _WINDOW["aside"].append(self)
+                return
+            self._apply()
+
+    def _apply(self):
         for holder, attr, delta in self.changes:
             setattr(holder, attr, getattr(holder, attr) + delta)
 
@@ -69,15 +91,26 @@ class LaunchCounts:
 @contextlib.contextmanager
 def kept_launches(counters=None):
     """Every launch counter as it was on entry, again on exit, with
-    :data:`CAPTURE_LOCK` held in between."""
+    :data:`CAPTURE_LOCK` held in between (other threads' replays in
+    between are counted after)."""
     counters = registered() if counters is None else counters
     with CAPTURE_LOCK:
+        with _COUNTS:
+            _WINDOW["owner"] = threading.get_ident()
+            _WINDOW["depth"] += 1
         before = [getattr(h, a) for h, a in counters]
         try:
             yield counters, before
         finally:
             for (h, a), v in zip(counters, before):
                 setattr(h, a, v)
+            with _COUNTS:
+                _WINDOW["depth"] -= 1
+                if _WINDOW["depth"] == 0:
+                    _WINDOW["owner"] = None
+                    aside, _WINDOW["aside"] = _WINDOW["aside"], []
+                    for counts in aside:
+                        counts._apply()
 
 
 def recorded_launches(fn, counters=None):
@@ -127,7 +160,12 @@ class Program:
     advances them as an eager run would) and replayed by every call;
     run eagerly by every call on the CPU.  A call returns what the body
     returned: on CUDA the captured (static) tensors, which the next
-    replay overwrites."""
+    replay overwrites.  Called on a stream other than the default one
+    (a serving cluster's replica), it captures on that stream, else on
+    torch's shared capture stream: graphs that replay at once on
+    different streams must be captured on different streams, since a
+    graph keeps the cuBLAS workspace of the stream it was captured
+    on."""
 
     def __init__(self, body, device, pool=None, generators=()):
         self.body = body
@@ -139,10 +177,14 @@ class Program:
         graph = torch.cuda.CUDAGraph()
         for gen in generators:
             graph.register_generator_state(gen)
+        stream = torch.cuda.current_stream(device)
+        if stream == torch.cuda.default_stream(device):
+            stream = None
 
         def capture():
             with CAPTURE_LOCK, no_collection(), \
-                    torch.cuda.graph(graph, pool=pool):
+                    torch.cuda.graph(graph, pool=pool, stream=stream,
+                                     capture_error_mode="thread_local"):
                 return body()
 
         self.out, self.launches = recorded_launches(capture)

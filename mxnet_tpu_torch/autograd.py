@@ -119,7 +119,11 @@ def _deliver(t, ref):
 
 
 def _heads(heads, head_grads):
-    """The heads' tensors and their head gradients (ones where missing)."""
+    """The heads' tensors and their head gradients (ones where missing).
+    A head computed under ``record()`` from a variable but off torch's
+    graph (an integer output such as ``topk``'s indices, or an output of
+    ``grad_req="null"`` variables only) adds no gradient, as in the
+    reference; a head no variable reaches cannot be differentiated."""
     if not isinstance(heads, (list, tuple)):
         heads = [heads]
     if head_grads is not None and not isinstance(head_grads, (list, tuple)):
@@ -129,6 +133,8 @@ def _heads(heads, head_grads):
     tensors, grads = [], []
     for h, g in zip(heads, head_grads):
         if not h._data.requires_grad:
+            if getattr(h, "_reach", False):
+                continue
             raise MXNetError(
                 "Cannot differentiate: output is not on the autograd tape "
                 "(was it computed under autograd.record() from a variable "
@@ -144,7 +150,8 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     with respect to every variable they depend on, written into the
     variables' gradient buffers.  A missing head gradient is ones."""
     tensors, grads = _heads(heads, head_grads)
-    torch.autograd.backward(tensors, grads, retain_graph=retain_graph)
+    if tensors:
+        torch.autograd.backward(tensors, grads, retain_graph=retain_graph)
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
@@ -165,11 +172,14 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     if retain_graph is None:
         retain_graph = create_graph
     tensors, grads = _heads(heads, head_grads)
-    with torch.enable_grad():
-        res = torch.autograd.grad(tensors, [v._data for v in variables],
-                                  grads, retain_graph=retain_graph,
-                                  create_graph=create_graph,
-                                  allow_unused=True)
+    if not tensors:
+        res = [None] * len(variables)
+    else:
+        with torch.enable_grad():
+            res = torch.autograd.grad(tensors, [v._data for v in variables],
+                                      grads, retain_graph=retain_graph,
+                                      create_graph=create_graph,
+                                      allow_unused=True)
     out = [NDArray(torch.zeros_like(v._data.detach()) if g is None
                    else g if create_graph else g.detach())
            for v, g in zip(variables, res)]

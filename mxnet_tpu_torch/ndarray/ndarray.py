@@ -35,6 +35,36 @@ _NP_OF = {torch.float32: np.float32, torch.float64: np.float64,
           torch.bool: np.bool_}
 
 
+class _BFloat16Dtype:
+    """``NDArray.dtype`` of a bfloat16 array.  numpy has no bfloat16 (the
+    reference's comes from JAX's ``ml_dtypes``), so this stands in for
+    it: its ``str`` and ``name`` are ``'bfloat16'``, it equals
+    ``'bfloat16'`` and ``torch.bfloat16``, and every dtype argument of
+    the port takes it."""
+
+    name = "bfloat16"
+    itemsize = 2
+
+    def __str__(self):
+        return "bfloat16"
+
+    def __repr__(self):
+        return "dtype(bfloat16)"
+
+    def __eq__(self, other):
+        if isinstance(other, _BFloat16Dtype):
+            return True
+        if isinstance(other, torch.dtype):
+            return other == torch.bfloat16
+        return isinstance(other, str) and other == "bfloat16"
+
+    def __hash__(self):
+        return hash("bfloat16")
+
+
+_BF16 = _BFloat16Dtype()
+
+
 def _torch_dtype(dtype):
     if isinstance(dtype, torch.dtype):
         return dtype
@@ -46,8 +76,11 @@ def _torch_dtype(dtype):
 class NDArray:
     """Multi-dimensional array with MXNet's mutation semantics."""
 
+    # ``_reach``: a variable (any grad_req) is upstream of this array on
+    # the autograd tape; set by ``_mark_variable`` and by ``invoke`` under
+    # ``record()``, left unset otherwise
     __slots__ = ("_data", "_ctx", "_version", "_grad", "_grad_req", "_hook",
-                 "__weakref__")
+                 "_reach", "__weakref__")
 
     def __init__(self, data, ctx: Context = None):
         """An array over ``data``: a tensor (taken as it is), an NDArray
@@ -94,6 +127,7 @@ class NDArray:
             self._hook = None
         self._data = self._data.detach().requires_grad_(req != "null")
         self._grad, self._grad_req = grad, req
+        self._reach = True
         if req != "null":
             from ..autograd import _deliver
             ref = weakref.ref(self)
@@ -109,7 +143,9 @@ class NDArray:
     def dtype(self):
         """The numpy dtype (the torch dtype where numpy has none)."""
         dt = self._data.dtype
-        return np.dtype(_NP_OF[dt]) if dt in _NP_OF else dt
+        if dt in _NP_OF:
+            return np.dtype(_NP_OF[dt])
+        return _BF16 if dt == torch.bfloat16 else dt
 
     @property
     def size(self) -> int:

@@ -8,8 +8,10 @@ them).
 """
 from __future__ import annotations
 
+import numpy as np
+
 from ..ops import registry as _registry
-from .ndarray import NDArray
+from .ndarray import NDArray, _lead_ctx, array
 
 
 def _make_stub(op):
@@ -26,10 +28,18 @@ def _make_stub(op):
                 flat.append(a)
         arrays, pos_attrs = [], []
         for a in flat:
-            if isinstance(a, NDArray) and not pos_attrs:
+            if isinstance(a, (NDArray, np.ndarray)) and not pos_attrs:
                 arrays.append(a)
             else:
                 pos_attrs.append(a)
+        if any(isinstance(a, np.ndarray) for a in arrays):
+            # a numpy operand (the reference's ops take one where they
+            # take an array) becomes an array where the others lie
+            at = _lead_ctx(arrays) or ctx or next(
+                (a.context for a in arrays if isinstance(a, NDArray)),
+                None)
+            arrays = [array(a, ctx=at) if isinstance(a, np.ndarray) else a
+                      for a in arrays]
         return _registry.invoke(op, arrays, tuple(pos_attrs), kwargs,
                                 out=out, ctx=ctx)
 

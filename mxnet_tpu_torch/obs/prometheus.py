@@ -2,11 +2,11 @@
 process.  Port of ``mxnet_tpu/obs/prometheus.py``.
 
 ``prometheus_text()`` renders, in one scrape body, the process
-**default registry** and every live **engine registry** (each
+**default registry**, every live **engine registry** (each
 ``ServingEngine(metrics=True)`` registers its own, weakly: a collected
-engine drops out of the scrape).  The reference also folds in its
-native runtime's counters; the port has no native library, so that
-part adds nothing, as in the reference when its library is absent.
+engine drops out of the scrape) and, where the native runtime library
+(``native.py``) loads, its counters under the reference's names: the
+dependency engine's, the image decoder's and the host storage pool's.
 
 The format is Prometheus text v0.0.4: HELP/TYPE headers, cumulative
 ``_bucket{le=...}`` rows with a ``+Inf`` tail, and ``_sum``/``_count``
@@ -114,18 +114,59 @@ def _render_families(regs, lines: list):
                                                 inst.count))
 
 
+def _native_lines(lines: list):
+    """Fold the native runtime's counters in (an absent library, or one
+    that cannot answer, contributes nothing)."""
+    try:
+        from .. import native
+        if not native.available():
+            return
+    except Exception:
+        return
+    try:
+        es = native.engine_stats()
+        for key, kind in (("ops_dispatched", "counter"),
+                          ("ops_executed", "counter"),
+                          ("worker_wakeups", "counter")):
+            name = "mxnet_native_engine_%s_total" % key
+            lines.append("# TYPE %s %s" % (name, kind))
+            lines.append("%s %d" % (name, es[key]))
+        for key in ("queue_depth", "outstanding", "workers"):
+            name = "mxnet_native_engine_%s" % key
+            lines.append("# TYPE %s gauge" % name)
+            lines.append("%s %d" % (name, es[key]))
+    except Exception:
+        pass
+    try:
+        ds = native.decode_profile_stats()
+        for key in ("jpeg", "png", "dct_scaled", "errors"):
+            name = "mxnet_native_decode_%s_total" % key
+            lines.append("# TYPE %s counter" % name)
+            lines.append("%s %d" % (name, ds[key]))
+    except Exception:
+        pass
+    try:
+        ss = native.storage_stats()
+        for key in ("allocated", "pooled"):
+            name = "mxnet_native_host_pool_%s_bytes" % key
+            lines.append("# TYPE %s gauge" % name)
+            lines.append("%s %d" % (name, ss[key]))
+    except Exception:
+        pass
+
+
 def prometheus_text(registries: Optional[Iterable[MetricsRegistry]]
                     = None, include_native: bool = True) -> str:
     """Render the scrape body.  ``registries=None`` → default registry
     + every live engine registry; pass an explicit iterable to scope
-    the scrape (tests).  ``include_native`` is accepted for the
-    reference's signature: the port has no native runtime library, so
-    there are no native collectors to include (the reference's own
-    output when its library is absent)."""
+    the scrape (tests).  ``include_native=False`` drops the native
+    collectors."""
     if registries is None:
         regs = [default_registry()] + engine_registries()
     else:
         regs = list(registries)
     lines: list = []
     _render_families(regs, lines)
+    if include_native:
+        _native_lines(lines)
     return "\n".join(lines) + "\n"

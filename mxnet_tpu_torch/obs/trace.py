@@ -1,7 +1,5 @@
 """Request-lifecycle chrome-trace spans on the profiler's clock.  Port
-of ``mxnet_tpu/obs/trace.py`` without the flight-recorder fold of
-``MergedTraceEmitter`` (``add_flight``), which waits for the port of
-``obs/flight.py``.
+of ``mxnet_tpu/obs/trace.py``.
 
 The serving engine's telemetry lands in the SAME dump as the
 profiler's op events (one trace, one clock):
@@ -201,8 +199,9 @@ class MergedTraceEmitter:
     """Router-side merge of many processes onto one corrected
     timeline.
 
-    Spans shipped by workers (:class:`SpanBuffer` wire dicts) land
-    here, each under a *lane* — a worker name, or the shared ``transport``
+    Spans shipped by workers (:class:`SpanBuffer` wire dicts) and
+    instants recovered from a victim's flight recorder land here,
+    each under a *lane* — a worker name, or the shared ``transport``
     lane for cross-process transfer spans.  Every lane becomes a
     synthetic chrome process (``pid = LANE_PID_BASE + k`` with a
     ``process_name`` metadata event) so the single router dump shows
@@ -276,6 +275,18 @@ class MergedTraceEmitter:
             self._pending.append(ev)
             self._batch.add((pid, rid))
             self._batch_lanes.add(lane)
+
+    def add_flight(self, lane: str, event: dict,
+                   offset_s: float = 0.0):
+        """Stage one recovered flight-recorder event as an instant on
+        ``lane``: the post-mortem tail folded into the live trace."""
+        args = {k: v for k, v in event.items()
+                if k not in ("kind", "t", "seq", "rid")}
+        args["seq"] = event.get("seq")
+        self.add(lane, {"rid": event.get("rid", 0),
+                        "name": "flight:%s" % event.get("kind", "?"),
+                        "ph": "i", "t": event.get("t", 0.0),
+                        "cat": "flight", "args": args}, offset_s)
 
     def flush(self) -> bool:
         """Hand the staged batch to the profiler; drop it either way

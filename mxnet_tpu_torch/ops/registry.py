@@ -292,6 +292,10 @@ def invoke(op: OpDef, inputs: Sequence, pos_attrs=(), attrs=None,
             o._set_data(r)
         return out
     outputs = [NDArray(r) for r in rlist]
+    if recording and any(getattr(i, "_reach", False) for i in inputs
+                         if isinstance(i, NDArray)):
+        for o in outputs:
+            o._reach = True
     at = ctx if ctx is not None else _lead_ctx(inputs)
     if at is not None:
         outputs = [_tagged(o, at) for o in outputs]

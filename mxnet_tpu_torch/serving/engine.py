@@ -609,6 +609,9 @@ class ServingEngine:
         it with the process-wide Prometheus scrape.
     device : where the engine runs; None means the CUDA device (and
         raises without one), ``"cpu"`` runs the plain versions.
+    rid_start : the first request id this engine gives (a
+        ``ServingCluster`` gives each replica a block of its own, so
+        request ids and their trace lanes are unique in the cluster).
     """
 
     def __init__(self, params, cfg, *, num_slots, page_size=16,
@@ -616,7 +619,8 @@ class ServingEngine:
                  kv_int8=False, prefix_cache=False, spec_K=0,
                  spec_drafter="ngram", spec_ngram=2, overlap=None,
                  device=None, tier_bytes=None, metrics=None,
-                 registry=None, tp=1, mesh=None, kernel=None):
+                 registry=None, rid_start=0, tp=1, mesh=None,
+                 kernel=None):
         unported = {"tp": tp != 1, "mesh": mesh is not None,
                     "kernel": kernel is not None}
         for name, on in unported.items():
@@ -694,7 +698,7 @@ class ServingEngine:
         self.cache.deferred = True
         self._queue: List[Request] = []
         self._slots: List[Optional[Request]] = [None] * num_slots
-        self._next_rid = 0
+        self._next_rid = int(rid_start)
         self.requests: Dict[int, Request] = {}
         self.stats = {"steps": 0, "preemptions": 0, "admitted": 0,
                       "decode_rows": 0, "prefill_rows": 0,
@@ -1442,7 +1446,10 @@ class ServingEngine:
         on an all-dead row batch, which writes only scratch page 0 (and,
         under overlap, the argmax tensor, put back to what it held), and
         captured in inference mode, the mode it replays in; the pools
-        are captured in place (the reference donates them)."""
+        are captured in place (the reference donates them).  An engine
+        run on a stream of its own (a cluster's replica) captures on
+        that stream (:class:`Program`), so replicas replaying at once
+        share no cuBLAS workspace."""
         prog = self._graphs.get("step")
         if prog is None:
             if self.device.type == "cuda":

@@ -66,10 +66,12 @@ def dtype_name(dtype) -> str:
 
 
 def _np_dtype(dtype: torch.dtype):
-    """The numpy dtype of a torch dtype, the torch dtype where numpy has
-    none (bfloat16), as ``NDArray.dtype`` answers."""
-    from ..ndarray.ndarray import _NP_OF
-    return _np.dtype(_NP_OF[dtype]) if dtype in _NP_OF else dtype
+    """The numpy dtype of a torch dtype, as ``NDArray.dtype`` answers
+    (bfloat16, which numpy lacks, as ``NDArray.dtype``'s stand-in)."""
+    from ..ndarray.ndarray import _BF16, _NP_OF
+    if dtype in _NP_OF:
+        return _np.dtype(_NP_OF[dtype])
+    return _BF16 if dtype == torch.bfloat16 else dtype
 
 
 # ---------------------------------------------------------------------------
