@@ -331,6 +331,7 @@ profiled superbatch taken with the prefetch worker stopped (as the
 smoke run does), with it alive, or unprofiled: with the worker alive
 under torch.profiler the process aborts now and then.
 """
+import ctypes
 import dataclasses
 import faulthandler
 import gc
@@ -598,6 +599,9 @@ IMG_MEAN, IMG_STD = (123.68, 116.78, 103.94), (58.4, 57.12, 57.38)
 # of one and the one its worker holds, filled while the warm one trained)
 IMG_ALONE, IMG_PROFILE = 12, 4
 IMG_SUPERS, IMG_DRAIN = 3, 2
+# --image-profile-probe every: superbatches an epoch, and the resident
+# source's host delay a batch (about the card route's pace)
+IMG_PROBE_SUPERS, IMG_PROBE_DELAY_S = 6, 0.04
 # the card's decode (nvJPEG's planes, then jpeg_color's libjpeg
 # upsampling and colour tables) against libjpeg's pixels of the fixtures
 # (tests/data/torch_image, OpenCV's decode): only the IDCT's rounding
@@ -640,26 +644,28 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def workload(seed=0, shared_prefix_frac=0.0):
+def workload(seed=0, shared_prefix_frac=0.0, timed=False):
     """The preset's request mix, drawn as serve_bench.py ``_workload``
-    draws it (same seed, same sequence of draws): [(prompt, n_new)].
+    draws it (same seed, same sequence of draws): [(prompt, n_new)], or
+    with ``timed`` [(Poisson arrival s at 100/s, prompt, n_new)].
     With ``shared_prefix_frac`` F, a fraction F of the requests open
     with one fixed prefix of PREFIX_LEN tokens (a "system prompt": half
     the longest prompt on the page grid, at most the prompt less one
     token) and a random tail."""
     rng = np.random.RandomState(seed)
     shared = rng.randint(1, VOCAB, PREFIX_LEN).astype(np.int32)
-    out = []
+    out, t = [], 0.0
     for _ in range(N_REQ):
-        rng.exponential(1.0 / 100.0)
+        t += rng.exponential(1.0 / 100.0)
         P = int(rng.choice(PROMPT_LENS))
         N = int(rng.choice(OUT_LENS))
         if shared_prefix_frac > 0.0 and rng.rand() < shared_prefix_frac:
             head = shared[:min(P - 1, PREFIX_LEN)]
             tail = rng.randint(1, VOCAB, P - head.size).astype(np.int32)
-            out.append((np.concatenate([head, tail]), N))
+            prompt = np.concatenate([head, tail])
         else:
-            out.append((rng.randint(1, VOCAB, P).astype(np.int32), N))
+            prompt = rng.randint(1, VOCAB, P).astype(np.int32)
+        out.append((t, prompt, N) if timed else (prompt, N))
     return out
 
 
@@ -4633,6 +4639,8 @@ CLUSTER_F32_REQ, CLUSTER_WATCHDOG_S, CLUSTER_STALL_S = 16, 1.0, 2.5
 # phase 4d (c): the small model's burst, in waves CLUSTER_WAVE_S apart,
 # and the chaos events' times from its start
 CLUSTER_BURST, CLUSTER_WAVES, CLUSTER_WAVE_S = 96, 8, 0.15
+# disaggregated serving (4e): the small f32 model's requests
+DISAGG_SMALL_REQ = 12
 CLUSTER_KILL_S, CLUSTER_CHAOS_STALL_S = 0.45, 0.75
 
 
@@ -4997,6 +5005,22 @@ def cluster_faults(G, PA, ServingEngine, ServingCluster, master, cfg, dev,
     return rep
 
 
+def submit_patiently(cl, prompt, n, overloaded, limit_s=60.0):
+    """``cl.submit`` as a client that honours backpressure: on
+    ``ClusterOverloaded`` (a chaos kill can leave no healthy replica
+    until the autoscaler heals the cluster) wait its ``retry_after_s``
+    and submit again, for ``limit_s`` at most."""
+    deadline = time.perf_counter() + limit_s
+    while True:
+        try:
+            return cl.submit(prompt, n)
+        except overloaded as e:
+            if time.perf_counter() > deadline:
+                raise
+            log("info: small cluster refused a submit (%s); retrying" % e)
+            time.sleep(e.retry_after_s or 0.05)
+
+
 def cluster_scaling(G, PA, E, S, dev, card, failures):
     """Phase 4d (c): the small f32 model of 4b from one replica under an
     autoscaler: a seeded burst in waves scales it up, a chaos ``kill``
@@ -5056,7 +5080,7 @@ def cluster_scaling(G, PA, E, S, dev, card, failures):
                 while time.perf_counter() - t0 < w * CLUSTER_WAVE_S:
                     drv.poll(time.perf_counter() - t0)
                     time.sleep(0.005)
-                rids += [cl.submit(p, n)
+                rids += [submit_patiently(cl, p, n, S.ClusterOverloaded)
                          for p, n in burst[w * per:(w + 1) * per]]
             while not drv.done():
                 drv.poll(time.perf_counter() - t0)
@@ -5155,6 +5179,435 @@ def cluster_path(G, PA, FA, E, ServingEngine, params, master, cfg, dev,
                          "path" % k)
     log("serving cluster phase: %.1f s" % (time.perf_counter() - t0))
     return rep, launches
+
+
+# ------------------------------------------------ disaggregated serving --
+def disagg_stats(cl):
+    """Every live worker's stats, with its launch counters."""
+    return cl.cluster_stats(timeout=60.0)
+
+
+def worker_deltas(before, after):
+    """Each worker's paged launches, steps and device ms over a run
+    (the counts of its process from 0 at the run's start)."""
+    out = {}
+    for name, a in after.items():
+        b = before.get(name, {"launches": {"paged_attention": 0,
+                                           "flash_fwd": 0},
+                              "steps": 0, "device_ms": 0.0,
+                              "device_steps": 0, "step_wall_ms": 0.0})
+        steps = a["steps"] - b["steps"]
+        dsteps = a["device_steps"] - b["device_steps"]
+        out[name] = {
+            "paged_launches": a["launches"]["paged_attention"]
+            - b["launches"]["paged_attention"],
+            "steps": steps,
+            "device_ms_per_step": (a["device_ms"] - b["device_ms"])
+            / dsteps if dsteps else 0.0,
+            "step_wall_ms_per_step": (a["step_wall_ms"]
+                                      - b["step_wall_ms"]) / steps
+            if steps else 0.0}
+    return out
+
+
+def disagg_leaks(name, cl, failures):
+    """No surviving worker holds a page beyond its prefix cache's, a
+    ref, a staged stream, a request or a mapped put segment (the
+    reference test's ``_leak_check``)."""
+    bad = {}
+    for w, st in disagg_stats(cl).items():
+        held = (st["pages_in_use"] - st["prefix_cached_pages"],
+                st["prefix_refs"], st["staged_rids"],
+                st["active_requests"],
+                st["put_opens"] - st["put_releases"])
+        if any(held):
+            bad[w] = held
+    log("check leak %s: survivors %s  %s" % (
+        name, bad or "hold nothing", "FAIL" if bad else "ok"))
+    if bad:
+        failures.append("leak " + name)
+
+
+def check_worker_launches(name, deltas, failures):
+    """Each worker's paged launches over a run: above 0 and its steps x
+    layers (a replayed step launches the kernel once a layer)."""
+    ok = all(d["paged_launches"] > 0 and
+             d["paged_launches"] == d["steps"] * LAYERS_OF[name]
+             for d in deltas.values())
+    log("check %s: paged_attention launched in the worker processes %s "
+        "(steps x %d layers)  %s"
+        % (name, {w: (d["paged_launches"], d["steps"])
+                  for w, d in deltas.items()}, LAYERS_OF[name],
+           "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("%s: worker paged launches" % name)
+
+
+LAYERS_OF = {}
+
+
+def disagg_full(S, ServingEngine, params, cfg, dev, card, failures):
+    """Phase 4e (a) and (b): the ``full`` preset bf16/w8 through
+    ``DisaggServingCluster(prefill=2, decode=1)`` on serve_bench's
+    ``run_disagg`` mix (the shared-prefix Poisson mix, frac 0.8, 64
+    requests at 100/s, the warm request with the shared prefix first),
+    the prefilled-once check as the reference raises it, the outputs
+    counted against one in-process engine; then ``run_gate_disagg``'s
+    cold against remote-hit TTFT on three prompts, on the same
+    cluster."""
+    name = "full shared-prefix mix, disaggregated (2 prefill, 1 decode)"
+    LAYERS_OF[name] = LAYERS
+    reqs = workload(0, shared_prefix_frac=CLUSTER_FRAC, timed=True)
+    single, _ = serve_mix(ServingEngine, params, cfg,
+                          [(p, n) for _, p, n in reqs], dev, failures,
+                          "full shared-prefix mix, one engine",
+                          prefix_cache=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cl = S.DisaggServingCluster(
+        params, cfg, prefill=2, decode=1, num_slots=SLOTS, page_size=PAGE,
+        prefill_chunk=CHUNK, metrics=True, watchdog_s=60.0, device=dev,
+        ready_timeout=300)
+    rep = {"card": card, "startup_s": time.perf_counter() - t0}
+    try:
+        pre = shared_prefix(0).astype(np.int32)
+        cl.result(cl.submit(np.concatenate([pre, np.ones(1, np.int32)]),
+                            1), timeout=600)
+        before = disagg_stats(cl)
+        useful = sum(n for _, _, n in reqs)
+        rids = []
+        t0 = time.perf_counter()
+        for at, prompt, n in reqs:
+            now = time.perf_counter() - t0
+            if now < at:
+                time.sleep(at - now)
+            rids.append((cl.submit(prompt, n), at))
+        outs = [cl.result(rid, timeout=600) for rid, _ in rids]
+        wall = time.perf_counter() - t0
+        after = disagg_stats(cl)
+        snap = cl.registry.snapshot()["counters"]
+        ttft = [(cl.requests[rid].first_token_t - t0 - at) * 1e3
+                for rid, at in rids]
+        depths = []
+        for _, prompt, _ in reqs:
+            head = min(prompt.size - 1, pre.size)
+            d = 0
+            if head >= PAGE and np.array_equal(prompt[:PAGE], pre[:PAGE]):
+                d = int(np.cumprod(prompt[:head] == pre[:head]).sum()
+                        // PAGE)
+            depths.append(d)
+        must_skip = sum(depths) * PAGE
+        skipped = sum(v["prefix_hit_tokens"] for v in after.values())
+        if skipped < must_skip:
+            raise Failed(
+                "disaggregated serving: prefilled-once violated — the "
+                "shared prefix accounts for %d skippable tokens but only "
+                "%d were served from the (local+remote) prefix caches"
+                % (must_skip, skipped))
+        same = sum(np.array_equal(o, s) for o, s in zip(outs, single))
+        deltas = worker_deltas(before, after)
+        rep["mix"] = {
+            "tok_s": useful / wall, "wall_s": wall, "tokens": useful,
+            "ttft_p50_ms": float(np.percentile(ttft, 50)),
+            "ttft_p99_ms": float(np.percentile(ttft, 99)),
+            "completed": int(snap["cluster_requests_completed_total"]) - 1,
+            "failovers": int(snap["cluster_failovers_total"]),
+            "page_bytes_streamed": int(
+                snap["cluster_page_bytes_streamed_total"]),
+            "pages_streamed": int(snap["cluster_pages_streamed_total"]),
+            "prefix_remote_hits": int(
+                snap["serving_prefix_remote_hits_total"]),
+            "prefix_remote_hit_tokens": int(
+                snap["serving_prefix_remote_hit_tokens_total"]),
+            "prefix_hit_tokens": int(skipped),
+            "prefilled_once_margin_tokens": int(skipped - must_skip),
+            "pages_put": sum(v["pages_put"] for v in after.values()),
+            "equal_to_one_engine": int(same), "requests": len(reqs),
+            "workers": deltas}
+        m = rep["mix"]
+        log("serve %s [%s]: %.1f tok/s (%d tokens in %.3f s), TTFT p50 "
+            "%.1f ms p99 %.1f ms, %d pages (%d bytes) streamed, %d by shm "
+            "puts, %d remote hits (%d tokens), prefilled-once margin %d "
+            "tokens; %d of %d outputs equal one in-process engine's; "
+            "workers (paged launches, steps, device ms a step, host-clock "
+            "ms inside a step, run wall ms over its steps): %s; cluster up "
+            "in %.1f s"
+            % (name, card, m["tok_s"], useful, wall, m["ttft_p50_ms"],
+               m["ttft_p99_ms"], m["pages_streamed"],
+               m["page_bytes_streamed"], m["pages_put"],
+               m["prefix_remote_hits"], m["prefix_remote_hit_tokens"],
+               m["prefilled_once_margin_tokens"], same, len(reqs),
+               {w: (d["paged_launches"], d["steps"],
+                    round(d["device_ms_per_step"], 3),
+                    round(d["step_wall_ms_per_step"], 3),
+                    round(wall * 1e3 / max(d["steps"], 1), 3))
+                for w, d in deltas.items()}, rep["startup_s"]))
+        if m["completed"] != len(reqs):
+            raise Failed("disaggregated serving: %d of %d requests "
+                         "completed" % (m["completed"], len(reqs)))
+        bad = [i for i, ((_, p, n), o) in enumerate(zip(reqs, outs))
+               if o.size != p.size + n or int(o.min()) < 0
+               or int(o.max()) >= VOCAB]
+        if bad:
+            failures.append("%s: outputs of the wrong shape or range %s"
+                            % (name, bad[:8]))
+        check_worker_launches(name, deltas, failures)
+        disagg_leaks(name, cl, failures)
+        rep["gate"] = disagg_gate(cl, card, failures)
+    finally:
+        cl.close()
+    return rep
+
+
+def disagg_gate(cl, card, failures):
+    """``run_gate_disagg``: three fresh prompts of the longest prompt
+    length on the page grid, each sent twice in a row; the first is
+    prefilled cold by one prefill worker, the second fetched by the other
+    (a remote hit).  Best of three each; fewer than 3 remote hits fail.
+    The prompts are drawn from seed 1: seed 0's first draw (the
+    reference gate's, on a cluster of its own) is the mix's shared
+    prefix, cached on both prefill workers here.  Each request's spans
+    (the workers' and the transport's, on the router's clock) are
+    logged: where its TTFT went."""
+    rng = np.random.RandomState(1)
+    P = (max(PROMPT_LENS) // PAGE) * PAGE
+    hits0 = sum(v["remote_hits"] for v in disagg_stats(cl).values())
+
+    rids = []
+
+    def ttft_ms(prompt):
+        rid = cl.submit(prompt, 4)
+        cl.result(rid, timeout=600)
+        rids.append(rid)
+        cr = cl.requests[rid]
+        return (cr.first_token_t - cr.submit_t) * 1e3
+
+    cold, remote = [], []
+    for _ in range(3):
+        shared = rng.randint(1, VOCAB, P).astype(np.int32)
+        cold.append(ttft_ms(shared))
+        remote.append(ttft_ms(shared))
+    hits = sum(v["remote_hits"] for v in disagg_stats(cl).values()) - hits0
+    time.sleep(0.6)                       # the workers' span ticks
+    for i, rid in enumerate(rids):
+        tr = cl.request_trace(rid)
+        t0 = tr["router"]["submit_t"]
+        log("info: disaggregated gate request %d (%s) on %s: TTFT %.2f ms; "
+            "spans (ms from submit, ms long): %s"
+            % (i, "remote" if i % 2 else "cold", tr["router"]["prefill"],
+               (tr["router"]["first_token_t"] - t0) * 1e3,
+               " ".join("%s@%s:%.2f+%.2f%s" % (
+                   sp.get("name"), sp.get("worker"),
+                   (sp.get("t0", sp.get("t", t0)) - sp["offset_s"] - t0)
+                   * 1e3, (sp.get("t1", sp.get("t0", 0.0))
+                           - sp.get("t0", 0.0)) * 1e3,
+                   "".join("(%s %.2f)" % (k, v) for k, v in
+                           sorted((sp.get("args") or {}).items())
+                           if k.endswith("_ms")))
+                   for sp in sorted(tr["spans"], key=lambda sp: sp.get(
+                       "t0", sp.get("t", 0.0)) - sp["offset_s"]))))
+    out = {"ttft_cold_ms": min(cold), "ttft_remote_hit_ms": min(remote),
+           "cold_ms": cold, "remote_ms": remote,
+           "speedup": min(cold) / max(min(remote), 1e-9),
+           "prompt_len": P, "remote_hits": hits}
+    log("check disaggregated remote-hit gate [%s]: TTFT of a %d-token "
+        "prompt cold %s ms, fetched from the other prefill worker %s ms "
+        "(best %.2f vs %.2f, %.2fx), %d remote hits (need 3)  %s"
+        % (card, P, " ".join("%.2f" % x for x in cold),
+           " ".join("%.2f" % x for x in remote), min(cold), min(remote),
+           out["speedup"], hits, "ok" if hits >= 3 else "FAIL"))
+    if hits < 3:
+        failures.append("disaggregated remote-hit gate: %d remote hits"
+                        % hits)
+    return out
+
+
+def disagg_small(G, S, ServingEngine, dev, card, failures):
+    """Phase 4e (c): a small f32 model, every output held to ``generate``
+    on the card: one prefill and one decode worker over the shm put
+    transport and over the socket, bit for bit; a prefill worker
+    SIGKILLed mid-stream; the decode worker SIGKILLed mid-decode (one of
+    two); int8 KV pages against one int8 engine; the survivors leak
+    nothing; each worker's paged launches = its steps x layers."""
+    tiny = G.gpt_tiny(dtype="float32", vocab_size=128, max_len=128,
+                      d_model=128, n_heads=2, d_ff=256, dropout=0.0)
+    tp = G.init_params(4, tiny, device="cpu")
+    rng = np.random.RandomState(31)
+    reqs = [(rng.randint(1, 120, int(rng.randint(3, 48))).astype(np.int32),
+             int(rng.randint(8, 72))) for _ in range(DISAGG_SMALL_REQ)]
+    want = [G.generate(tp, tiny, p[None], n, device=dev)[0].cpu().numpy()
+            for p, n in reqs]
+    kw = dict(num_slots=4, page_size=4, prefill_chunk=4, metrics=True,
+              watchdog_s=60.0, device=dev, ready_timeout=300)
+    rep = {"card": card}
+
+    def run(label, transport=None, kill=None, check_launches=True,
+            **more):
+        name = "small f32 disaggregated, " + label
+        LAYERS_OF[name] = tiny.n_layers
+        old = os.environ.get("MXNET_SERVE_TRANSPORT")
+        if transport is not None:
+            os.environ["MXNET_SERVE_TRANSPORT"] = transport
+        t0 = time.perf_counter()
+        try:
+            cl = S.DisaggServingCluster(tp, tiny, **{**kw, **more})
+        finally:
+            if old is None:
+                os.environ.pop("MXNET_SERVE_TRANSPORT", None)
+            else:
+                os.environ["MXNET_SERVE_TRANSPORT"] = old
+        try:
+            before = disagg_stats(cl)
+            rids = [cl.submit(p, n) for p, n in reqs]
+            victim = kill(cl) if kill is not None else None
+            outs = [cl.result(r, timeout=600) for r in rids]
+            after = disagg_stats(cl)
+            snap = cl.registry.snapshot()["counters"]
+            disagg_leaks(name, cl, failures)
+        finally:
+            cl.close()
+        deltas = worker_deltas(before, after)
+        r = {"seconds": time.perf_counter() - t0, "victim": victim,
+             "failovers": int(snap["cluster_failovers_total"]),
+             "resubmitted": int(snap["cluster_requests_resubmitted_total"]),
+             "pages_streamed": sum(v["pages_streamed"]
+                                   for v in after.values()),
+             "pages_put": sum(v["pages_put"] for v in after.values()),
+             "bytes_streamed": sum(v["bytes_streamed"]
+                                   for v in after.values()),
+             "workers": deltas}
+        log("serve %s [%s]: %.2f s, victim %s, %d failovers, %d "
+            "resubmitted, %d pages streamed (%d by shm puts), workers "
+            "(paged launches, steps): %s"
+            % (name, card, r["seconds"], victim, r["failovers"],
+               r["resubmitted"], r["pages_streamed"], r["pages_put"],
+               {w: (d["paged_launches"], d["steps"])
+                for w, d in deltas.items()}))
+        # a killed worker's launches died with it: the survivors' are
+        # held to their steps
+        check_worker_launches(name, deltas, failures)
+        if r["failovers"] != (victim is not None):
+            failures.append("%s: %d failovers" % (name, r["failovers"]))
+        rep[label] = r
+        return outs, r
+
+    def mid(cl, phase):
+        """The worker of a request in ``phase`` once the stream is under
+        way: in prefill, once some other request was handed off (its
+        worker has been streaming pages); in decode, with some tokens
+        committed and more to come."""
+        deadline = time.perf_counter() + 60
+        while time.perf_counter() < deadline:
+            with cl._lock:
+                live = [cr for cr in cl.requests.values()
+                        if cr.state == "running"]
+                if phase == "prefill" and any(cr.phase == "decode"
+                                              for cr in live):
+                    for cr in live:
+                        if cr.phase == "prefill":
+                            return cr.prefill
+                for cr in live:
+                    if phase == "decode" and cr.phase == "decode" and \
+                            0 < len(cr.committed) < cr.max_new_tokens:
+                        return cr.decode
+            time.sleep(0.0005)
+        raise Failed("disaggregated serving: no request caught in %s"
+                     % phase)
+
+    def kill_prefill(cl):
+        victim = mid(cl, "prefill")
+        cl.kill_worker(victim)
+        return victim
+
+    def kill_decode(cl):
+        victim = mid(cl, "decode")
+        cl.kill_worker(victim)
+        return victim
+
+    outs_put, rput = run("1 prefill + 1 decode, shm puts", "put",
+                         prefill=1, decode=1)
+    same_tokens("small f32 disaggregated (puts) vs generate",
+                dict(enumerate(outs_put)), dict(enumerate(want)), failures)
+    outs_sock, rsock = run("1 prefill + 1 decode, socket", "socket",
+                           prefill=1, decode=1)
+    same_tokens("small f32 disaggregated, socket vs shm puts, bit for bit",
+                dict(enumerate(outs_sock)), dict(enumerate(outs_put)),
+                failures)
+    ok = rput["pages_put"] == rput["pages_streamed"] > 0 and \
+        rsock["pages_put"] == 0 and \
+        rsock["bytes_streamed"] == rput["bytes_streamed"]
+    log("check small f32 disaggregated transports: puts carried %d of %d "
+        "pages, the socket %d puts; bytes streamed %d and %d  %s"
+        % (rput["pages_put"], rput["pages_streamed"], rsock["pages_put"],
+           rput["bytes_streamed"], rsock["bytes_streamed"],
+           "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("small f32 disaggregated transports")
+    outs, _ = run("SIGKILL of a prefill worker mid-stream",
+                  kill=kill_prefill, prefill=2, decode=1)
+    same_tokens("small f32 disaggregated, prefill worker killed, vs "
+                "generate", dict(enumerate(outs)), dict(enumerate(want)),
+                failures)
+    outs, _ = run("SIGKILL of a decode worker mid-decode",
+                  kill=kill_decode, prefill=1, decode=2)
+    same_tokens("small f32 disaggregated, decode worker killed, vs "
+                "generate", dict(enumerate(outs)), dict(enumerate(want)),
+                failures)
+    eng = ServingEngine(tp, tiny, num_slots=4, page_size=4,
+                        prefill_chunk=4, kv_int8=True, device=dev)
+    rids = [eng.submit(p, n) for p, n in reqs]
+    got = eng.run()
+    eng.close()
+    int8_want = {i: got[r] for i, r in enumerate(rids)}
+    outs, r8 = run("int8 KV", kv_int8=True, prefill=1, decode=1)
+    same_tokens("small f32 disaggregated, int8 KV pages, vs one int8 "
+                "engine", dict(enumerate(outs)), int8_want, failures)
+    from mxnet_tpu_torch.serving.paged_kv import PagedKVCache
+    per_page = PagedKVCache(tiny, 2, 4, kv_int8=True,
+                            device="cpu").bytes_per_page
+    ok = r8["bytes_streamed"] == r8["pages_streamed"] * per_page
+    log("check small f32 disaggregated int8 KV: %d bytes streamed for %d "
+        "pages of %d bytes  %s" % (r8["bytes_streamed"],
+                                    r8["pages_streamed"], per_page,
+                                    "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("small f32 disaggregated int8 KV bytes")
+    return rep
+
+
+def disagg_path(G, PA, FA, ServingEngine, params, cfg, dev, card,
+                failures):
+    """Phase 4e, disaggregated serving: worker processes on one card,
+    each with its own engine, weights and captured step.  Returns
+    (report, the workers' paged launches by part, the oracle's flash
+    launches in this process)."""
+    from mxnet_tpu_torch import serving as S
+    t0 = time.perf_counter()
+    FA.flash_fwd.launches = 0
+    rep = {"full": disagg_full(S, ServingEngine, params, cfg, dev, card,
+                               failures)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep["small"] = disagg_small(G, S, ServingEngine, dev, card, failures)
+    flash = FA.flash_fwd.launches
+    workers = {"disaggregated serving (full, workers)": sum(
+        d["paged_launches"] for d in rep["full"]["mix"]["workers"]
+        .values())}
+    workers["disaggregated serving (small f32, workers)"] = sum(
+        d["paged_launches"] for k, r in rep["small"].items()
+        if k != "card" for d in r["workers"].values())
+    log("disaggregated serving launches: workers' paged_attention %s, "
+        "the oracle's flash_fwd %d" % (json.dumps(workers), flash))
+    for k, n in workers.items():
+        if n <= 0:
+            raise Failed("%s: paged_attention never launched" % k)
+    if flash <= 0:
+        raise Failed("disaggregated serving: the generate oracle never "
+                     "launched flash_fwd")
+    rep["seconds"] = time.perf_counter() - t0
+    log("disaggregated serving phase: %.1f s" % rep["seconds"])
+    return rep, workers, flash
 
 
 def shared_prefix(seed):
@@ -7660,8 +8113,10 @@ def full_path(mx, rec, idx, tr, resident, failures, window="stopped"):
     starts; "alive" takes it inside the window, the worker's thread
     still alive; None profiles nothing.  With the worker alive under
     torch.profiler the process aborts now and then inside the window
-    (``free(): invalid pointer`` off the Python threads, the worker
-    parked): ``--image-profile-probe`` repeats the path in one mode."""
+    (``free(): invalid pointer``): the profiler stopping while nvJPEG
+    decodes on the worker's thread, which ``--decode-profile-probe N
+    raw`` reproduces with no code of the port (ROADMAP.md §C.5);
+    ``--image-profile-probe`` repeats the path in one mode."""
     n = (1 + IMG_DRAIN + IMG_SUPERS + 1) * BENCH_STEPS
     it = mx.io.DevicePrefetchIter(
         mx.io.ResizeIter(image_iter(mx, rec, idx, mx.gpu(0)), n),
@@ -8136,12 +8591,61 @@ def kvstore_path(mx, card, failures):
 
 
 
-def image_profile_probe(mode, runs):
-    """``--image-profile-probe MODE RUNS``: the image phase's full path
-    (bench.py's s2d AMP trainer, the phase's records) ``runs`` times in
-    this process, profiled as ``full_path``'s ``window`` MODE says
-    ("stopped", "alive" or "none"); a run that aborts ends the
-    process."""
+class ResidentBatches:
+    """A base iterator for the profile probe: ``n`` batches cycled from
+    ``batches`` (DataBatches already on the card), each handed out after
+    ``delay_s`` on the host, so a DevicePrefetchIter worker over it stays
+    busy as long as one decoding records, without nvJPEG."""
+
+    def __init__(self, batches, n, delay_s):
+        self.batches, self.n, self.delay_s = batches, n, delay_s
+        self.batch_size = IMG_B
+        self.i = 0
+
+    def reset(self):
+        self.i = 0
+
+    def next(self):
+        if self.i >= self.n:
+            raise StopIteration
+        time.sleep(self.delay_s)
+        b = self.batches[self.i % len(self.batches)]
+        self.i += 1
+        return b
+
+
+def probe_windows(mx, make_base, tr, supers):
+    """One epoch of ``supers`` superbatches through DevicePrefetchIter into
+    the s2d trainer, each taken and trained inside its own torch.profiler
+    window while the worker is alive (decoding the next one).  Returns
+    the windows' device event counts."""
+    from torch.profiler import ProfilerActivity, profile
+    it = mx.io.DevicePrefetchIter(make_base(supers * BENCH_STEPS),
+                                  super_size=BENCH_STEPS, ctx=mx.gpu(0))
+    events = []
+    try:
+        for _ in range(supers):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                b = it.next()
+                tr.run_steps(b.data[0], b.label[0]).asnumpy()
+            events.append(len(device_work(prof)[0]))
+    finally:
+        it.close()
+    return events
+
+
+def image_profile_probe(mode, runs, source="nvjpeg"):
+    """``--image-profile-probe MODE RUNS [SOURCE]``: the image phase's full
+    path (bench.py's s2d AMP trainer, the phase's records) ``runs`` times
+    in this process, profiled as ``full_path``'s ``window`` MODE says
+    ("stopped", "alive" or "none"), or, MODE "every", ``runs`` epochs of
+    IMG_PROBE_SUPERS superbatches with every superbatch in a window of its
+    own, the worker alive (``probe_windows``).  SOURCE feeds the worker
+    under "every": "nvjpeg" (ImageRecordIter on the card), "host" (the
+    CPU ImageRecordIter: host decode, pinned copies) or "resident"
+    (batches decoded once before the loop, handed out at the card
+    route's pace).  A run that aborts ends the process."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.image import _nvjpeg
     from mxnet_tpu_torch.kernels import _build
@@ -8154,34 +8658,298 @@ def image_profile_probe(mode, runs):
         bench_dispatch(tr, x, y)
     codec = _nvjpeg.decoder(torch.device("cuda", 0))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_probe_")
+    tag = mode if mode != "every" else "every, %s" % source
     try:
         rec, idx = image_records(mx, codec, torch.device("cuda", 0),
                                  tmp)[:2]
         tr._eager = False
+        if source == "resident":
+            it = image_iter(mx, rec, idx, mx.gpu(0))
+            kept = [it.next() for _ in range(8)]
+            torch.cuda.synchronize()
+
+            def make_base(n):
+                return ResidentBatches(kept, n, IMG_PROBE_DELAY_S)
+        else:
+            ctx = mx.cpu() if source == "host" else mx.gpu(0)
+
+            def make_base(n):
+                return mx.io.ResizeIter(image_iter(
+                    mx, rec, idx, ctx, preprocess_threads=os.cpu_count()
+                    or 1) if source == "host" else image_iter(
+                        mx, rec, idx, ctx), n)
         t0 = time.perf_counter()
         for i in range(runs):
-            full_path(mx, rec, idx, tr, 0.0, failures,
-                      window=None if mode == "none" else mode)
-            log("image profile probe, window %s: run %d of %d ended at "
-                "%.1f s [%s]" % (mode, i + 1, runs,
+            if mode == "every":
+                ev = probe_windows(mx, make_base, tr, IMG_PROBE_SUPERS)
+                if min(ev) == 0:
+                    failures.append("a window recorded no device event")
+                what = "%d windows, device events %s" % (len(ev), ev)
+            else:
+                full_path(mx, rec, idx, tr, 0.0, failures,
+                          window=None if mode == "none" else mode)
+                what = "one path"
+            log("image profile probe, window %s: run %d of %d (%s) ended at "
+                "%.1f s [%s]" % (tag, i + 1, runs, what,
                                  time.perf_counter() - t0, card_line()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log("image profile probe, window %s: %d runs, failures %s"
-        % (mode, runs, failures))
+        % (tag, runs, failures))
     return 1 if failures else 0
+
+
+def thread_profile_probe(windows):
+    """``--thread-profile-probe WINDOWS``: torch alone, no code of the
+    port.  The main thread replays a captured CUDA graph (a chain of bf16
+    matmuls) inside ``windows`` torch.profiler windows of about 0.3 s
+    each, while a second thread keeps making batches on a CUDA stream of
+    its own (random fills, a stack, a pinned host copy back, an event),
+    handed over through a queue of one as DevicePrefetchIter does.  A
+    window that aborts ends the process."""
+    import queue
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda", 0)
+    w = torch.randn(2048, 2048, device=dev, dtype=torch.bfloat16)
+    x = torch.randn(4096, 2048, device=dev, dtype=torch.bfloat16)
+
+    def body():
+        y = x
+        for _ in range(8):
+            y = torch.relu(y @ w)
+        return y
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        body()
+    q, stop = queue.Queue(maxsize=1), threading.Event()
+
+    def worker():
+        torch.cuda.set_device(dev)
+        s = torch.cuda.Stream(dev)
+        while not stop.is_set():
+            with torch.cuda.stream(s):
+                parts = [torch.rand(128, 3, 224, 224, device=dev)
+                         for _ in range(4)]
+                batch = torch.stack(parts)
+                host = torch.empty(batch.shape, pin_memory=True)
+                host.copy_(batch, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(s)
+            while not stop.is_set():
+                try:
+                    q.put((batch, host, ev), timeout=0.05)
+                    break
+                except queue.Full:
+                    continue
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    cur = torch.cuda.current_stream(dev)
+    t0 = time.perf_counter()
+    counts = []
+    try:
+        for i in range(windows):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                batch, host, ev = q.get()
+                cur.wait_event(ev)
+                batch.record_stream(cur)
+                for _ in range(12):
+                    g.replay()
+                torch.cuda.synchronize()
+            counts.append(len(device_work(prof)[0]))
+            if (i + 1) % 25 == 0:
+                log("thread profile probe: %d of %d windows at %.1f s, "
+                    "device events of the last %d: %s [%s]"
+                    % (i + 1, windows, time.perf_counter() - t0, 25,
+                       counts[-25:], card_line()))
+    finally:
+        stop.set()
+        t.join(timeout=5)
+    log("thread profile probe: %d windows, none aborted, windows with no "
+        "device event %d" % (windows, sum(c == 0 for c in counts)))
+    return 0
+
+
+class RawNvjpeg:
+    """libnvjpeg of the CUDA toolkit through ctypes, with no code of the
+    port: the GPU hybrid backend's batched decode to YUV planes (the
+    port's route on a machine without the hardware decoders)."""
+
+    class Image(ctypes.Structure):
+        _fields_ = [("channel", ctypes.c_void_p * 4),
+                    ("pitch", ctypes.c_size_t * 4)]
+
+    def __init__(self, n):
+        import glob
+        found = sorted(glob.glob("/usr/local/cuda/lib64/libnvjpeg.so*") +
+                       glob.glob("/usr/local/cuda/targets/x86_64-linux/"
+                                 "lib/libnvjpeg.so*"))
+        if not found:
+            raise Failed("libnvjpeg not found under /usr/local/cuda")
+        self.lib = lib = ctypes.CDLL(found[0])
+        p = ctypes.c_void_p
+        self.h, self.st = p(), p()
+        self._ok(lib.nvjpegCreateEx(2, None, None, 0, ctypes.byref(self.h)),
+                 "create")
+        self._ok(lib.nvjpegJpegStateCreate(self.h, ctypes.byref(self.st)),
+                 "state")
+        self._ok(lib.nvjpegDecodeBatchedInitialize(self.h, self.st, n, 1, 1),
+                 "batched init")
+
+    @staticmethod
+    def _ok(err, what):
+        if err != 0:
+            raise Failed("nvjpeg %s: status %d" % (what, err))
+
+    def planes(self, blob):
+        """[(h, w)] of each component."""
+        nc, ss = ctypes.c_int(), ctypes.c_int()
+        ws, hs = (ctypes.c_int * 4)(), (ctypes.c_int * 4)()
+        self._ok(self.lib.nvjpegGetImageInfo(
+            self.h, blob, ctypes.c_size_t(len(blob)), ctypes.byref(nc),
+            ctypes.byref(ss), ws, hs), "info")
+        return [(hs[k], ws[k]) for k in range(nc.value)]
+
+    def decode(self, blobs, shapes, out, stream):
+        """Decode ``blobs`` into ``out`` (a flat uint8 CUDA tensor holding
+        every plane) on ``stream``."""
+        n = len(blobs)
+        imgs = (self.Image * n)()
+        off, base = 0, out.data_ptr()
+        for i, planes in enumerate(shapes):
+            for k, (h, w) in enumerate(planes[:3]):
+                imgs[i].channel[k] = base + off
+                imgs[i].pitch[k] = w
+                off += h * w
+        data = (ctypes.c_char_p * n)(*blobs)
+        lens = (ctypes.c_size_t * n)(*[len(b) for b in blobs])
+        self._ok(self.lib.nvjpegDecodeBatched(
+            self.h, self.st, data, lens, imgs,
+            ctypes.c_void_p(stream.cuda_stream)), "decode")
+
+
+def probe_jpegs(n, seed=0):
+    """``n`` JPEGs (quality IMG_Q, OpenCV's 4:2:0) of smooth synthetic
+    photos of IMG_SHORT x IMG_LONG."""
+    import cv2
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:IMG_SHORT, :IMG_LONG].astype(np.float32)
+    out = []
+    for _ in range(n):
+        f = rng.uniform(0.004, 0.04, (3, 2))
+        img = np.stack([128 + 80 * np.sin(xx * a + rng.uniform(0, 6))
+                        * np.cos(yy * b) for a, b in f], -1)
+        img += rng.randn(*img.shape) * 3.0
+        ok, enc = cv2.imencode(".jpg", img.clip(0, 255).astype(np.uint8),
+                               [cv2.IMWRITE_JPEG_QUALITY, IMG_Q])
+        out.append(enc.tobytes())
+    return out
+
+
+def decode_profile_probe(windows, route):
+    """``--decode-profile-probe WINDOWS raw|port``: a second thread decodes
+    a batch of 64 JPEGs after another with nvJPEG on a CUDA stream of its
+    own while the main thread replays a captured CUDA graph inside
+    ``windows`` torch.profiler windows.  ``raw``: libnvjpeg through
+    ctypes, no code of the port (torch, numpy and OpenCV only);
+    ``port``: the port's ``image._nvjpeg`` codec (``decode_batch``: nvJPEG
+    and the ``jpeg_color`` kernel).  A window that aborts ends the
+    process."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda", 0)
+    blobs = probe_jpegs(64)
+    if route == "raw":
+        codec = RawNvjpeg(len(blobs))
+        shapes = [codec.planes(b) for b in blobs]
+        out = torch.empty(sum(h * w for s in shapes for h, w in s[:3]),
+                          dtype=torch.uint8, device=dev)
+
+        def decode(stream):
+            codec.decode(blobs, shapes, out, stream)
+    else:
+        from mxnet_tpu_torch.image import _nvjpeg
+        from mxnet_tpu_torch.kernels import _build
+        _build.load("jpeg_color")
+        codec = _nvjpeg.decoder(dev)
+
+        def decode(stream):
+            codec.decode_batch(blobs)
+    w = torch.randn(2048, 2048, device=dev, dtype=torch.bfloat16)
+    x = torch.randn(4096, 2048, device=dev, dtype=torch.bfloat16)
+
+    def body():
+        y = x
+        for _ in range(8):
+            y = torch.relu(y @ w)
+        return y
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        body()
+    stop, done = threading.Event(), [0]
+
+    def worker():
+        torch.cuda.set_device(dev)
+        s = torch.cuda.Stream(dev)
+        while not stop.is_set():
+            with torch.cuda.stream(s):
+                decode(s)
+            s.synchronize()
+            done[0] += 1
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    t0 = time.perf_counter()
+    try:
+        for i in range(windows):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]):
+                for _ in range(4):
+                    g.replay()
+                torch.cuda.synchronize()
+            if (i + 1) % 250 == 0:
+                log("decode profile probe, %s: %d of %d windows at %.1f s, "
+                    "%d batches decoded [%s]" % (route, i + 1, windows,
+                                                 time.perf_counter() - t0,
+                                                 done[0], card_line()))
+    finally:
+        stop.set()
+        t.join(timeout=10)
+    log("decode profile probe, %s: %d windows, none aborted, %d batches "
+        "decoded" % (route, windows, done[0]))
+    return 0
 
 
 def main(argv):
     parent = None
     if argv[:1] == ["--parent"] and len(argv) == 2:
         parent = argv[1]
-    elif argv[:1] == ["--image-profile-probe"] and len(argv) == 3 \
-            and argv[1] in ("stopped", "alive", "none"):
+    elif argv[:1] == ["--image-profile-probe"] and len(argv) in (3, 4) \
+            and argv[1] in ("stopped", "alive", "none", "every") \
+            and argv[3:] in ([], ["nvjpeg"], ["host"], ["resident"]):
+        pass
+    elif argv[:1] == ["--thread-profile-probe"] and len(argv) == 2:
+        pass
+    elif argv[:1] == ["--decode-profile-probe"] and len(argv) == 3 \
+            and argv[2] in ("raw", "port"):
         pass
     elif argv:
         print("usage: chip_smoke.py [--parent DIR | --image-profile-probe "
-              "stopped|alive|none RUNS]", file=sys.stderr)
+              "stopped|alive|none|every RUNS [nvjpeg|host|resident] | "
+              "--thread-profile-probe WINDOWS | --decode-profile-probe "
+              "WINDOWS raw|port]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -8191,7 +8959,11 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if argv[:1] == ["--image-profile-probe"]:
-        return image_profile_probe(argv[1], int(argv[2]))
+        return image_profile_probe(argv[1], int(argv[2]), *argv[3:])
+    if argv[:1] == ["--thread-profile-probe"]:
+        return thread_profile_probe(int(argv[1]))
+    if argv[:1] == ["--decode-profile-probe"]:
+        return decode_profile_probe(int(argv[1]), argv[2])
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.kernels import _build
     from mxnet_tpu_torch.kernels import flash_attention as FA
@@ -8760,6 +9532,27 @@ def main(argv):
     same_tokens("full-width f32 engine (captured) vs generate", runs[1],
                 want, failures)
     phase("small models")
+    # ---- 4e. disaggregated serving, last: prefill and decode worker
+    # processes on the card, KV pages streamed between them; the
+    # workers' paged launches from their stats, the oracle's flash
+    # launches from 0.  (Run after every profiled phase: in the two
+    # whole runs that ran it right after the serving cluster, the
+    # profiler later recorded none of the grouped SGD kernel's launches,
+    # ROADMAP.md §C.6.)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["disaggregated_serving"], disagg_launches, disagg_flash = \
+        disagg_path(G, PA, FA, ServingEngine, params, cfg, dev, card,
+                    failures)
+    for row in kernels:
+        if row["name"] == "paged_attention":
+            row["launches_by_path"].update(disagg_launches)
+        elif row["name"] == "flash_fwd":
+            row["launches_by_path"][
+                "disaggregated serving (generate oracle)"] = disagg_flash
+            row["launches"] += disagg_flash
+    phase("disaggregated serving")
     log("info: compiled steps: %s" % json.dumps(report))
 
     log("chip_smoke: %.1f s in all" % (time.perf_counter() - t_start))

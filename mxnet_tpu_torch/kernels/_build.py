@@ -7,7 +7,8 @@ included, so a build takes seconds rather than minutes.  Libraries are
 named by a hash of their source and flags, so an edited source builds
 anew.  :func:`load` builds one source if needed; each source has its
 own lock, so loads of different sources from several threads run their
-``nvcc`` at once.  The hash covers every header of ``csrc/`` that a
+``nvcc`` at once, and a file lock per library keeps several processes
+from building the same one at once.  The hash covers every header of ``csrc/`` that a
 source includes (``#include "x.cuh"``, followed transitively), so an
 edited header builds anew too.  ``nvcc`` runs with ``-Xptxas -v``, and
 its report (registers, spills and shared memory per kernel) is kept
@@ -19,6 +20,7 @@ this machine may have no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -116,11 +118,21 @@ def library_path(name):
 
 def _compile(name):
     """Path of the library for ``csrc/<name>.cu``, built unless it
-    exists."""
+    exists.  A file lock beside the library makes a second process
+    that needs it at the same time (a serving cluster's workers) wait
+    for the first one's build instead of building it again."""
     so = library_path(name)
     if os.path.exists(so):
         return so
     os.makedirs(_OUT, exist_ok=True)
+    with open(so + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(so):
+            return so
+        return _nvcc_build(name, so)
+
+
+def _nvcc_build(name, so):
     tmp = "%s.%d.tmp" % (so, os.getpid())
     out = subprocess.run([_nvcc(), *FLAGS, "-o", tmp,
                           os.path.join(_CSRC, name + ".cu"),

@@ -9,11 +9,13 @@ actuation goes through the cluster's own paths,
 :meth:`ServingCluster.add_replica` and
 :meth:`~ServingCluster.remove_replica` (thread replicas, a graceful
 drain with a checked zero-leak contract), through the actuation
-protocol ``scale_up()``/``scale_down()``/``slots_per_replica``.  The
-scaler never reaches into request tables or engines: what the operator
-can see on the scrape, the scaler acts on, and nothing else.  (The
-reference's disaggregated cluster, whose workers are processes, speaks
-the same protocol; it is not ported yet.)
+protocol ``scale_up()``/``scale_down()``/``slots_per_replica``, and
+:meth:`DisaggServingCluster.add_worker` /
+:meth:`~DisaggServingCluster.drain_worker` (worker processes by role,
+spawned here or joined from ``tools.launch --launcher serve
+--workers-only``) through the same protocol.  The scaler never reaches
+into request tables or engines: what the operator can see on the
+scrape, the scaler acts on, and nothing else.
 
 Policy:
 
@@ -92,8 +94,8 @@ class Autoscaler:
 
     ``cluster`` must expose the actuation protocol (``scale_up()`` /
     ``scale_down()`` / ``slots_per_replica``) and a live metrics
-    ``registry``: a ``ServingCluster`` built with ``metrics=True``
-    does.
+    ``registry``: a ``ServingCluster`` or ``DisaggServingCluster``
+    built with ``metrics=True`` does.
     """
 
     def __init__(self, cluster, *, min_size=1, max_size=4,

@@ -6,29 +6,34 @@ draws the same events as the reference's for the same arguments, and
 events fire at times relative to the replay loop's own clock, so a
 scenario replays from its seed alone.
 
-Event kinds, for the in-process ``ServingCluster``:
+Event kinds, in process (``ServingCluster``) and over worker processes
+(``DisaggServingCluster``):
 
 * ``kill``: an injected raise in the victim replica's next ``step()``
-  (the worker-raise failover path);
+  (the worker-raise failover path); a real ``SIGKILL`` of the victim
+  worker process;
 * ``stall``: an injected sleep of 1.5 watchdog periods before the
   victim's next step (the monitor's stall failover; the late step that
-  follows is fenced);
+  follows is fenced); ``SIGSTOP`` of the worker process (alive and
+  silent, the watchdog's case);
 * ``cancel``: ``cluster.cancel(rid)`` on a seeded live request (a
-  client's disconnect);
-* ``reset`` has nothing to act on in process and fires no fault.
+  client's disconnect), in both;
+* ``reset`` has nothing to act on in process and fires no fault; over
+  worker processes the router closes the victim's control connection.
 
-The reference's disaggregated cluster takes ``kill``/``stall``/
-``reset`` as signals to worker processes; that cluster is not ported
-yet, and a driver over a cluster with worker processes raises.
+A stalled worker process cannot run signal handlers; ``close()``
+SIGKILLs every pid still stopped, so a chaos run leaves no stopped
+process behind.
 
 The driver is POLLED from the replay loop (``poll(now_rel)``), not
 threaded: the application point is a deterministic place in the
 caller's own sequence, and the only draw left is the victim's, taken
 from the driver's seeded ``random.Random`` over the eligible victims
-sorted by index (requests by rid).
+sorted by index or name (requests by rid).
 """
 from __future__ import annotations
 
+import os
 import random
 import time
 from typing import List
@@ -81,6 +86,7 @@ class ChaosDriver:
         self.rng = random.Random(seed)
         self._next = 0
         self.applied: List[dict] = []
+        self._stopped_pids: List[int] = []
         # the disaggregated cluster is the one with worker PROCESSES
         self._disagg = hasattr(cluster, "kill_worker")
 
@@ -133,6 +139,16 @@ class ChaosDriver:
         # cancels stay exact
         return rid if took else None
 
+    def _pick_worker(self, ev):
+        ws = [w for w in self.cluster.workers.values()
+              if w.alive and not w.draining]
+        if isinstance(ev.target, str):
+            exact = [w for w in ws if w.name == ev.target]
+            ws = exact or [w for w in ws if w.role == ev.target]
+        if not ws:
+            return None
+        return self.rng.choice(sorted(ws, key=lambda w: w.name))
+
     def _pick_replica(self, ev):
         reps = [r for r in self.cluster.replicas
                 if r.alive and not r.dead and not r.draining
@@ -174,11 +190,31 @@ class ChaosDriver:
 
     # ---------------------------------------------------- disagg arm --
     def _apply_disagg(self, ev):
-        from ..base import NotPorted
-        raise NotPorted(
-            "ChaosDriver: the disaggregated cluster's worker processes "
-            "are not ported to mxnet_tpu_torch yet (ROADMAP.md item 8b)")
+        import signal
+        wh = self._pick_worker(ev)
+        if wh is None:
+            return None
+        if ev.kind == "kill":
+            self.cluster.kill_worker(wh.name)
+        elif ev.kind == "stall":
+            if wh.proc is None:
+                return None
+            self._stopped_pids.append(wh.proc.pid)
+            self.cluster.kill_worker(wh.name, sig=signal.SIGSTOP)
+        else:                             # reset: drop the control conn
+            try:
+                wh.conn.close()
+            except Exception:
+                pass
+        return wh.name
 
     def close(self):
-        """Nothing to reap in process (the reference's disaggregated arm
-        kills the worker processes it stopped)."""
+        """Reap the worker processes a stall stopped (a SIGSTOPped
+        process cannot take SIGTERM)."""
+        import signal
+        for pid in self._stopped_pids:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+        self._stopped_pids = []

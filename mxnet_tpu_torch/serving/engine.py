@@ -745,6 +745,12 @@ class ServingEngine:
         self._planner_ctl = None
         self._finalizer = None
         self._obs = _EngineObs(registry) if metrics else None
+        # retire hook (the disaggregated prefill worker): called with a
+        # finishing request while its pages are still assigned, since
+        # the step frees them before it returns; freed pages keep their
+        # bytes until a later allocation, so an export of the ids taken
+        # here right after the step reads the request's content
+        self.retire_cb = None
 
     # ------------------------------------------------------- intake --
     def submit(self, prompt, max_new_tokens, eos_id=None, trace_id=None):
@@ -775,6 +781,69 @@ class ServingEngine:
                 self._obs.submitted.inc()
                 self._obs.g_queued.set(len(self._queue))
             return req.rid
+
+    def admit_prefilled(self, prompt, generated, pages, *,
+                        max_new_tokens, eos_id=None, rid=None):
+        """Adopt a request prefilled elsewhere (disaggregated serving):
+        ``pages`` were allocated from THIS engine's cache and hold the
+        k/v of positions ``[0, P + len(generated) - 1)`` (P the prompt
+        length), the prefill worker's exact pool bytes, their installs
+        queued on the cache.  ``generated`` holds at least the prefill
+        side's sampled token; the request resumes where one engine
+        would be after committing those tokens (``pending`` the last
+        one, ``n_cached = P + len(generated) - 1``), so under f32 greedy
+        the continuation is bit-identical to an undisturbed run.  The
+        slot's block-table row is set here, so the next step (a replay
+        of the captured one on the card, after the queued installs run)
+        reads the adopted pages.  Raises when no slot is free: the
+        caller checks ``free_slots`` first."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        generated = [int(t) for t in generated]
+        if not generated:
+            raise ValueError("admit_prefilled: needs >= 1 committed "
+                             "token (the prefill side samples the "
+                             "first before handoff)")
+        if prompt.size < 1:
+            raise ValueError("admit_prefilled: empty prompt")
+        total = prompt.size + max_new_tokens
+        if total > self.max_seq or total > self.cfg.max_len:
+            raise ValueError(
+                "admit_prefilled: %d tokens > max_seq %d / max_len %d"
+                % (total, self.max_seq, self.cfg.max_len))
+        with self._mu:
+            free = [i for i, r in enumerate(self._slots) if r is None]
+            if not free:
+                raise RuntimeError("admit_prefilled: no free slot")
+            n_cached = prompt.size + len(generated) - 1
+            need = -(-n_cached // self.page_size) if n_cached else 0
+            if len(pages) < need:
+                raise ValueError(
+                    "admit_prefilled: %d pages cannot cover %d cached"
+                    " positions" % (len(pages), n_cached))
+            now = time.perf_counter()
+            if rid is None:
+                rid = self._next_rid
+                self._next_rid += 1
+            req = Request(rid=rid, prompt=prompt,
+                          max_new_tokens=int(max_new_tokens),
+                          eos_id=eos_id, submit_t=now, wait_start=now)
+            req.generated = generated
+            req.pending = generated[-1]
+            req.n_cached = n_cached
+            req.n_prefilled = n_cached
+            req.pages = list(pages)
+            req.slot = free[0]
+            req.state = "running"
+            self.requests[rid] = req
+            self._slots[req.slot] = req
+            self._bt_set(req.slot, req.pages)
+            self.stats["admitted"] += 1
+            if self._obs is not None:
+                self._obs.submitted.inc()
+                self._obs.admitted.inc()
+                self._obs.g_running.set(
+                    sum(r is not None for r in self._slots))
+            return rid
 
     def cancel(self, rid):
         """Force-retire a request, freeing its slot and pages now; a
@@ -1550,6 +1619,8 @@ class ServingEngine:
                     break
             if done:
                 req.state = "done"
+                if self.retire_cb is not None:
+                    self.retire_cb(req)
                 self._release(req)
                 finished.append(req.rid)
                 if obs is not None:

@@ -1,7 +1,7 @@
 """Refcounted shared-prefix KV page reuse for ``PagedKVCache``, with
 the host-DRAM tier.  Port of ``mxnet_tpu/serving/prefix_cache.py``
-(pure Python and numpy; the port keeps its own copy) without its
-``ClusterPrefixIndex``.
+(pure Python and numpy; the port keeps its own copy), with the
+router's ``ClusterPrefixIndex`` of the disaggregated cluster.
 
 Real serving traffic shares prompt prefixes (system prompts, few-shot
 headers).  The k/v content of a page is a function of the token prefix
@@ -61,11 +61,12 @@ Telemetry is plain ints bumped on the host path (``hit_tokens_total``
 from __future__ import annotations
 
 import itertools
+import threading
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
-__all__ = ["PrefixCache", "chain_keys"]
+__all__ = ["PrefixCache", "ClusterPrefixIndex", "chain_keys"]
 
 _ROOT_ID = 0
 
@@ -633,3 +634,94 @@ class PrefixCache:
             if self.evict_cb is not None:
                 self.evict_cb(key)
         self._spilled_children.clear()
+
+
+class ClusterPrefixIndex:
+    """The disaggregated router's cluster-level prefix index: which
+    worker holds the pages of each content chain key.
+
+    First inserter wins: a key's owner is the worker that computed the
+    chain (later workers fetch copies; the index keeps pointing at one
+    source, so "prefilled once per cluster" is a claim the counters can
+    check).  An eviction removes a key only when its reporter owns it; a
+    dead worker's keys drop at once.  Each key carries the tier of the
+    owner's copy: ``"hbm"`` in its device pool, ``"host"`` spilled to
+    its host-DRAM tier (still fetchable, served without device work).
+    Thread-safe: the router's receive threads all report here."""
+
+    def __init__(self, capacity: int = 65536):
+        self._mu = threading.Lock()
+        self._owner: Dict[bytes, str] = {}
+        self._by_owner: Dict[str, Set[bytes]] = {}
+        self._tier: Dict[bytes, str] = {}
+        self._cap = int(capacity)
+        self.keys_inserted_total = 0
+        self.keys_evicted_total = 0
+        self.keys_retagged_total = 0
+        self.hints_total = 0
+
+    def __len__(self):
+        with self._mu:
+            return len(self._owner)
+
+    def match(self, keys: List[bytes]) -> Tuple[Optional[str], int,
+                                                Optional[str]]:
+        """The longest head of ``keys`` held by ONE worker: ``(owner,
+        depth_pages, tier)``, or ``(None, 0, None)`` on a cold prefix.
+        ``tier`` is ``"hbm"`` when every matched key is in the owner's
+        pool, ``"host"`` when any page comes off its host tier."""
+        with self._mu:
+            owner = self._owner.get(keys[0]) if keys else None
+            if owner is None:
+                return None, 0, None
+            tier = self._tier.get(keys[0], "hbm")
+            d = 1
+            while d < len(keys) and self._owner.get(keys[d]) == owner:
+                if self._tier.get(keys[d], "hbm") == "host":
+                    tier = "host"
+                d += 1
+            self.hints_total += 1
+            return owner, d, tier
+
+    def report_insert(self, owner: str, keys: List[bytes]):
+        with self._mu:
+            mine = self._by_owner.setdefault(owner, set())
+            for k in keys:
+                if k not in self._owner:
+                    if len(self._owner) >= self._cap:
+                        break             # bounded: stop indexing
+                    self._owner[k] = owner
+                    self._tier[k] = "hbm"   # a fresh insert was computed
+                    mine.add(k)
+                    self.keys_inserted_total += 1
+
+    def report_tier(self, owner: str, keys: List[bytes], tier: str):
+        """A worker moved chains between its tiers (spill: hbm → host;
+        warm restore: host → hbm).  Only the owner re-tags."""
+        if tier not in ("hbm", "host"):
+            raise ValueError("report_tier: tier must be 'hbm' or "
+                             "'host', got %r" % (tier,))
+        with self._mu:
+            for k in keys:
+                if self._owner.get(k) == owner \
+                        and self._tier.get(k) != tier:
+                    self._tier[k] = tier
+                    self.keys_retagged_total += 1
+
+    def report_evict(self, owner: str, keys: List[bytes]):
+        with self._mu:
+            mine = self._by_owner.get(owner, set())
+            for k in keys:
+                if self._owner.get(k) == owner:
+                    del self._owner[k]
+                    self._tier.pop(k, None)
+                    mine.discard(k)
+                    self.keys_evicted_total += 1
+
+    def drop_owner(self, owner: str):
+        """A worker died or was drained: none of its pages exist."""
+        with self._mu:
+            for k in self._by_owner.pop(owner, set()):
+                if self._owner.get(k) == owner:
+                    del self._owner[k]
+                    self._tier.pop(k, None)

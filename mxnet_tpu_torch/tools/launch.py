@@ -19,8 +19,9 @@ worker a host of ``-H hostfile``, the servers on the first host),
 ``mpi`` and ``slurm`` (``mpirun``/``srun`` place the ranks; each rank
 takes its role from its MPI or slurm rank through a small shim), and
 ``sge`` (a ``qsub`` job array).  ``yarn`` is refused, as in the
-reference; ``serve`` and ``http`` belong to the serving cluster, which
-is not ported (``ROADMAP.md`` item 8).
+reference.  ``serve`` starts a disaggregated serving cluster's router
+command and its prefill and decode workers (:func:`launch_serve`);
+``http``, the HTTP front door, is not ported (``ROADMAP.md`` item 8c).
 
 The local launcher stops the servers when the workers are done, and
 stops every process when one worker fails.
@@ -228,10 +229,59 @@ def launch_sge(args, command):
         return 127
 
 
+_WORKER = ("from mxnet_tpu_torch.serving import run_worker; "
+           "run_worker()")
+
+
 def launch_serve(args, command):
-    from ..base import not_ported
-    raise not_ported("the serve launcher (ROADMAP.md item 8)",
-                     "tools/launch.py launch_serve")
+    """The disaggregated serving launcher: ``--prefill`` + ``--decode``
+    worker processes running ``mxnet_tpu_torch.serving.run_worker``, and
+    ``command`` as the router process, wired through the
+    ``MXNET_SERVE_*`` environment.  The router script builds
+    ``DisaggServingCluster(..., spawn=False, prefill=<n>, decode=<m>,
+    port=int(os.environ["MXNET_SERVE_ROUTER_PORT"]))``; the workers
+    connect to it as spawned ones do.  ``--workers-only`` starts only
+    workers, named from ``--worker-start``, against a live router at
+    ``--router-host:-p`` (its ``add_worker(role, spawn=False)`` waits
+    for exactly those names).  The workers are stopped when the router
+    exits."""
+    if args.workers_only and not args.port:
+        sys.stderr.write(
+            "--workers-only: -p/--port must name the live router's "
+            "control port\n")
+        return 2
+    port = args.port or _free_port()
+    base_env = _with_root(dict(os.environ))
+    base_env.update({
+        "MXNET_SERVE_ROUTER_HOST": args.router_host,
+        "MXNET_SERVE_ROUTER_PORT": str(port),
+        "MXNET_SERVE_PREFILL": str(args.prefill),
+        "MXNET_SERVE_DECODE": str(args.decode),
+    })
+    router = None
+    if not args.workers_only:
+        router = subprocess.Popen(command, env=base_env)
+    workers = []
+    for role, n in (("prefill", args.prefill), ("decode", args.decode)):
+        for i in range(n):
+            env = dict(base_env, MXNET_SERVE_ROLE=role,
+                       MXNET_SERVE_WORKER="%s%d" % (role,
+                                                    args.worker_start + i))
+            workers.append(subprocess.Popen(
+                [sys.executable, "-c", _WORKER], env=env))
+    try:
+        if router is not None:
+            code = router.wait()
+        else:
+            code = 0
+            for p in workers:
+                p.wait()
+                code = code or p.returncode
+    finally:
+        # the workers go with the router, and on an abnormal exit of a
+        # --workers-only launcher
+        _stop(workers)
+    return code
 
 
 def launch_http(args, command):
@@ -251,6 +301,19 @@ def main(argv=None):
                                            "slurm", "sge", "yarn",
                                            "serve", "http"],
                     default="local")
+    ap.add_argument("--prefill", type=int, default=1,
+                    help="serve launcher: prefill worker processes")
+    ap.add_argument("--decode", type=int, default=1,
+                    help="serve launcher: decode worker processes")
+    ap.add_argument("--workers-only", action="store_true",
+                    help="serve launcher: start only workers against a "
+                         "live router at --router-host:-p; no router "
+                         "command runs")
+    ap.add_argument("--router-host", default="127.0.0.1",
+                    help="serve launcher: the router's control host")
+    ap.add_argument("--worker-start", type=int, default=0,
+                    help="serve launcher: the first worker index of "
+                         "each role")
     ap.add_argument("-H", "--hostfile", default=None)
     ap.add_argument("-p", "--port", type=int, default=None)
     ap.add_argument("command", nargs=argparse.REMAINDER)
@@ -258,6 +321,8 @@ def main(argv=None):
     if args.launcher == "http":
         return launch_http(args, args.command)
     if args.launcher == "serve":
+        if not args.command and not args.workers_only:
+            ap.error("no command given")
         return launch_serve(args, args.command)
     if not args.command:
         ap.error("no command given")

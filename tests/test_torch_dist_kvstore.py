@@ -456,9 +456,8 @@ def test_launcher_stops_the_job_when_a_worker_fails():
 def test_launcher_modes_not_ported_and_missing_runner(capsys):
     import argparse
     from mxnet_tpu_torch.tools import launch
-    for mode in ("serve", "http"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            launch.main(["--launcher", mode, "python", "x.py"])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        launch.main(["--launcher", "http", "python", "x.py"])
     assert launch.main(["-n", "1", "--launcher", "yarn", "x"]) == 2
     args = argparse.Namespace(num_workers=2, num_servers=1, port=None,
                               launcher="mpi")

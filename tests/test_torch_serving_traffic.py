@@ -13,7 +13,8 @@ one-replica cluster up, a chaos ``kill`` fires on a seeded victim, idling
 drains it back to one through the checked zero-leak drain, and every
 output equals the reference's ``generate``; the self-heal of a total
 loss parks requests and serves them exactly; a chaos ``cancel`` frees
-its request."""
+its request; over worker processes a chaos ``kill`` SIGKILLs a decode
+worker and the outputs stay exact."""
 import time
 
 import numpy as np
@@ -179,18 +180,52 @@ def test_chaos_schedule_is_the_reference_s_for_the_same_seed():
         PS.ChaosEvent(0.0, "explode")
 
 
-def test_chaos_over_worker_processes_is_not_ported():
-    from mxnet_tpu_torch.base import NotPorted
-    from mxnet_tpu_torch.serving import ChaosDriver, ChaosEvent
-
-    class Disagg:
-        def kill_worker(self, name):
-            raise AssertionError("not reached")
-
-    drv = ChaosDriver(Disagg(), [ChaosEvent(0.0, "kill")])
-    with pytest.raises(NotPorted, match="8b"):
-        drv.poll(1.0)
-    drv.close()
+def test_chaos_kills_a_worker_process_and_outputs_stay_exact():
+    """The disaggregated arm: a chaos ``kill`` aimed at the decode role
+    SIGKILLs a seeded decode worker process mid-decode; its requests
+    resume on the survivor and every output equals the reference's
+    ``generate``; a ``stall`` stops a process that ``close()`` reaps."""
+    import signal
+    from mxnet_tpu_torch.serving import (ChaosDriver, ChaosEvent,
+                                         DisaggServingCluster)
+    jcfg, tcfg, tree = _setup()
+    rng = np.random.RandomState(5)
+    wl = [(rng.randint(1, 90, int(P)).astype(np.int32), 32)
+          for P in (6, 11, 17, 9)]
+    want = [_ref(tree, jcfg, p, n) for p, n in wl]
+    cl = DisaggServingCluster(to_port(tree), tcfg, prefill=1, decode=2,
+                              num_slots=4, page_size=4, metrics=True,
+                              watchdog_s=60.0, device="cpu",
+                              ready_timeout=TIMEOUT)
+    drv = ChaosDriver(cl, [ChaosEvent(0.0, "kill", target="decode")],
+                      seed=1)
+    try:
+        rids = [cl.submit(p, n) for p, n in wl]
+        _wait(lambda: any(r.state == "running" and r.phase == "decode"
+                          and 0 < len(r.committed) < r.max_new_tokens
+                          for r in list(cl.requests.values())),
+              "no request caught mid-decode", TIMEOUT)
+        assert drv.poll(1.0) == 1
+        victim = drv.applied[0]["victim"]
+        assert victim in ("decode0", "decode1")
+        for rid, w in zip(rids, want):
+            np.testing.assert_array_equal(cl.result(rid, timeout=TIMEOUT),
+                                          w)
+        _wait(lambda: cl.workers[victim].dead, "the kill was not seen")
+        assert cl.registry.snapshot()["counters"][
+            "cluster_failovers_total"] == 1
+        stall = ChaosDriver(cl, [ChaosEvent(0.0, "stall",
+                                            target="prefill0")])
+        assert stall.poll(0.0) == 1 and stall._stopped_pids
+        pid = stall._stopped_pids[0]
+        stall.close()
+        _wait(lambda: not cl.workers["prefill0"].proc.is_alive(),
+              "the stopped worker was not reaped")
+        with pytest.raises(ProcessLookupError):
+            __import__("os").kill(pid, signal.SIGCONT)
+    finally:
+        drv.close()
+        cl.close()
 
 
 # --- live, on the tiny GPT --------------------------------------------------

@@ -47,8 +47,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _QUANT = ["dequantize", "quantize", "quantize_v2", "quantized_act",
           "quantized_conv", "quantized_flatten", "quantized_fully_connected",
           "quantized_pooling", "requantize"]
-_CLUSTER = ["ApiKeyTable", "ClusterPrefixIndex", "DisaggServingCluster",
-            "HttpFrontend", "run_worker"]
+_CLUSTER = ["ApiKeyTable", "HttpFrontend"]
 _DIST = ["init_moe_ffn", "latest_step", "moe_ffn", "moe_param_shardings",
          "pipeline_apply", "restore_sharded", "ring_attention",
          "save_sharded",
@@ -64,15 +63,10 @@ DEFERRED.update({"mxnet_tpu.parallel.mesh:init_sharded_opt_state": "A.7b",
                  "mxnet_tpu.parallel.mesh:zero1_sharding": "A.7b",
                  "mxnet_tpu.parallel.multihost:global_mesh": "A.7b",
                  "mxnet_tpu.parallel.multihost:host_staged_put": "A.7b",
-                 "mxnet_tpu.serving.engine:ServingEngine.admit_prefilled":
-                     "A.8",
-                 "mxnet_tpu.serving.prefix_cache:ClusterPrefixIndex": "A.8",
                  "mxnet_tpu.callback:MetricsCallback": "A.9",
                  "mxnet_tpu.callback:ProgressBar": "A.9"})
 DEFERRED.update({"mxnet_tpu.parallel:%s" % n: "A.7b" for n in _DIST})
 DEFERRED.update({"mxnet_tpu.serving:%s" % n: "A.8" for n in _CLUSTER})
-DEFERRED.update({"mxnet_tpu.serving.cluster:%s" % n: "A.8" for n in (
-    "DisaggRequest", "DisaggServingCluster", "run_worker")})
 DEFERRED["mxnet_tpu:Monitor"] = "A.9"
 
 _SPECS = "a jax.sharding PartitionSpec table; the port's counterpart, if " \
