@@ -96,6 +96,31 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    ``ChaosDriver`` kill and stall fire during it, idling drains it back
    to one, every output equal to ``generate`` on the card, and a
    scale-up's capture overlaps another replica's replays;
+4f. drives the HTTP front door (``serving/http_frontend.py``, the
+   ``http front door`` phase, after ``serving cluster``): the ``full``
+   preset behind ``HttpFrontend`` over ``ServingCluster(replicas=2)``
+   under ``benchmark/http_bench.py``'s load proof, re-implemented here
+   (the seeded burst10x trace at 48 req/s for 4 s, 467 requests; an
+   open-loop asyncio client on loopback sockets; every 7th client
+   reading slowly, every 12th in JSON mode, a capped tenant (token
+   bucket rate 0, burst 8) sending every 8th request; at 200 open
+   connections a storm resets every odd-indexed one): at least 200
+   connections open at once, every completed stream token-identical to
+   one captured engine's output, every victim's partial stream a
+   prefix of it, every request done or cancelled, no page or ref left,
+   the capped tenant's 429s exactly max(0, K - 8) and equal to
+   ``http_rejected_quota_total``; tok/s and TTFT p50/p99 through the
+   edge beside the same trace by direct ``submit``; ``run_gate_ttfb``
+   (one replica, the trace's longest prompt hot in its prefix cache,
+   best of 5, and cold prompts); each cluster's paged counter from 0
+   once warm, held to its steps x layers, and ``generate`` beside the
+   oracle (flash); the disaggregated phase (last) adds HTTP over a
+   one-prefill, one-decode cluster of the small f32 model (streams
+   equal to ``generate``; a client reset reaching both workers as the
+   generation-fenced ``cancel``, nothing left on them) and ``python3 -m
+   mxnet_tpu_torch.tools.launch --launcher http`` on the card (its
+   listening line, one stream equal to ``generate`` of the CLI's
+   seeded model, a clean SIGTERM);
 5. holds the paged kernel against its plain version on the inputs kept
    from the live engine (its real pools, block table and positions);
 6. drives the training paths, each with the counters set to 0 just
@@ -119,7 +144,7 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
 7. drives the Gluon path as an MXNet user writes it (``import
    mxnet_tpu_torch as mx``): ResNet-50 v1 (7x7/s2 stem, 1000 classes,
    f32, NCHW) on ``mx.gpu(0)`` with Xavier init from
-   ``np.random.seed(0)``, 20 ``gluon.Trainer`` steps (SGD lr 0.1,
+   ``np.random.seed(0)``, 15 ``gluon.Trainer`` steps (SGD lr 0.1,
    momentum 0.9) on one synthetic 64 x 3 x 224 x 224 batch, TF32
    convolutions (PyTorch's default, printed); then, on one step's
    gradients and from one state, the Trainer's per-tensor update
@@ -127,7 +152,7 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    ``nd.multi_sgd_update``) over the whole group, bit for bit, each
    grouped call one kernel launch; a thumbnail ResNet-18 trains 3 steps
    on the card (TF32 off) and on the CPU from the same weights, losses
-   compared; then 20 more steps of the same net after
+   compared; then 15 more steps of the same net after
    ``net.hybridize()`` (forward and backward as CUDA graphs, the
    Trainer's update per tensor as before), images/s beside the eager
    loop's;
@@ -139,7 +164,7 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    its CUDA graphs against 3 with ``_eager`` bit for bit (outputs,
    parameters, running statistics, momentum; deterministic cuDNN); then,
    with every launch counter from 0 (all stay 0: no hand-written kernel
-   is on this path), 20 steps of each, and of a captured module at wd 0
+   is on this path), 12 steps of each, and of a captured module at wd 0
    (the Gluon step's settings), in turns beside the hybridized Gluon
    step, and a profiled window each; ``Module.fit`` over an
    ``NDArrayIter`` of 4 batches with ``Speedometer`` and
@@ -148,7 +173,7 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    against the Gluon net's eval output (f32, plain and hybridized) and
    ``amp.convert_model(..., "bfloat16")`` against f32, with ms per batch
    of both; examples/nmt_bucketing.py's ``BucketingModule`` (buckets
-   8/16/24, vocab 32, 60 batches of 32) captured, ``_eager`` and on the
+   8/16/24, vocab 32, 40 batches of 32) captured, ``_eager`` and on the
    CPU (parameters bit for bit, accuracy within 0.02 of the CPU's); a
    ResNet-18 Module on the card and on the CPU from one ``.params``
    file, losses compared;
@@ -163,7 +188,7 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    standard errors) and a hybridized block drawing ``F.random_uniform``
    through its CUDA graph (new values each replay, repeated after a
    re-seed); ResNet-50 v1 (bs 64 x 224^2, f32) through ``gluon.Trainer``
-   with Adam under a ``CosineScheduler``, 20 steps eager and 20
+   with Adam under a ``CosineScheduler``, 10 steps eager and 10
    hybridized (finite, falling loss; the rate each step equal to a
    scheduler stepped on the host), then the eager and hybridized Adam
    steps and the hybridized SGD step timed in turns, a profiled window
@@ -172,7 +197,21 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    nag, adam and lamb) training a thumbnail ResNet-18 3 steps on the
    card and on the CPU within FAMILY_LOSS_TOL; ``save_states`` /
    ``load_states`` resuming bit for bit; ``SequentialModule`` with Adam
-   on the card past the reference test's accuracy;
+   on the card past the reference test's accuracy (the ``_np_*`` and
+   INT8 cases run in their own phases);
+7d2. ``test_utils.check_consistency`` with its default contexts
+   ([cpu(0), gpu(0)]) on seven ops of the sweep, forward and gradients
+   (the ``test_utils`` phase);
+7d3. ``mx.np`` (the ``mx.np`` phase): every ``_np_*`` case card vs CPU
+   within ``CARD_TOL``, every name run, and examples/mnist_mlp.py's MLP
+   hybridized, 5 steps on ``mx.np`` arrays under ``set_np``, bit for
+   bit against the classic-NDArray run;
+7d4. INT8 quantization (the ``int8 quantization`` phase): the INT8 op
+   cases card vs CPU; ResNet-50 v1 exported from Gluon through
+   ``quantize_model`` with naive and entropy calibration (4 seeded
+   batches of 16): every quantized node of the card's forward (batch
+   8) replayed on the CPU bit for bit, the logits at batch 64 against
+   the float graph's, ms a batch int8 and f32 in turns;
 7e. drives recurrent networks (the ``rnn`` phase, after ``library``),
    every launch counter from 0 (all stay 0: no hand-written kernel is
    on this path): the fused ``RNN`` op for each mode, 1 and 2 layers,
@@ -183,8 +222,8 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    block op by op; ``mx.sym.RNN`` through a bound executor, card against
    CPU; MXNet's word language model at full width (WLM_*: 2-layer LSTM
    650, vocabulary 33,278, tied, dropout 0.5, bs 32 x bptt 35, SGD lr
-   20, ``clip_global_norm``) built from the public API, 20 steps op by
-   op then 20 hybridized (finite loss, the median of the last 5 below
+   20, ``clip_global_norm``) built from the public API, 12 steps op by
+   op then 12 hybridized (finite loss, the median of the last 5 below
    the first), 3 captured
    steps bit for bit against op by op at dropout 0, then the eager and
    hybridized steps timed in turns with tokens/s, a profiled window each
@@ -233,7 +272,7 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    workers, pinned batches) with a ``CheckpointHandler``: first the 4
    workers' batches against the in-process loader's on a deterministic
    pipeline and 3 Estimator steps hybridized against op by op, bit for
-   bit; then 150 batches (images/s, the consumer's wait on the loader,
+   bit; then 100 batches (images/s, the consumer's wait on the loader,
    the train accuracy, which must beat chance), the checkpoint reloaded
    to the same outputs, the same step fed from batches on the card and
    from a loader with no workers; matrix factorization (apache/mxnet
@@ -276,7 +315,7 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    replayed each step): 3 steps replayed against 3 run with ``_eager``
    from the same weights, bit for bit under deterministic cuDNN; then,
    with every launch counter from 0 (all stay 0: no hand-written kernel
-   is on this path), one warm and two timed ``run_steps(20)``
+   is on this path), one warm and two timed ``run_steps(12)``
    dispatches in turns with the 7x7 stem, a profiled window captured
    and op by op, and ``BENCH_AMP=0`` (f32, bs 64) beside the Gluon
    Trainer's hybridized figure; a ResNet-18 with the stem trains 3
@@ -330,13 +369,21 @@ runs the image phase's full path RUNS times in one process, its
 profiled superbatch taken with the prefetch worker stopped (as the
 smoke run does), with it alive, or unprofiled: with the worker alive
 under torch.profiler the process aborts now and then.
+
+``python3 chip_smoke.py --sgd-profile-probe`` (ROADMAP.md §C.6) runs
+the script with the disaggregated phase right after the HTTP front
+door's and, after every later phase, a profiler window of the grouped
+SGD kernel's 20 calls beside paged, flash and torch's own kernels,
+logging what the window recorded and the state of the suspects.
 """
+import asyncio
 import ctypes
 import dataclasses
 import faulthandler
 import gc
 import itertools
 import json
+import math
 import os
 import random
 import shutil
@@ -355,6 +402,7 @@ import torch.nn.functional as F
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
+DEV = torch.device("cuda", 0)  # the card (no CUDA call until used)
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3, bytes/s
 PEAK_BF16 = 989e12            # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12              # f32 FLOP/s outside the tensor cores
@@ -399,8 +447,8 @@ PAGED_TOL_TEXT = "1e-5 + 8e-3 * (plain version on |v|)"
 BERT = dict(vocab_size=30522, max_len=512, d_model=768, n_heads=12,
             n_layers=12, d_ff=3072, dropout=0.1, dtype="bfloat16",
             param_dtype="float32", remat=False, use_flash=True)
-BERT_B, BERT_T, BERT_STEPS, BERT_WARM, BERT_PROFILE = 16, 512, 20, 5, 8
-GPT_B, GPT_STEPS, GPT_WARM, GPT_PROFILE = 8, 12, 2, 6
+BERT_B, BERT_T, BERT_STEPS, BERT_WARM, BERT_PROFILE = 16, 512, 20, 5, 5
+GPT_B, GPT_STEPS, GPT_WARM, GPT_PROFILE = 8, 12, 2, 4
 # training kernels against their plain versions: f32 differs by
 # summation order only, 1e-4 on dQ/dK/dV at unit-scale inputs (the JAX
 # tests' bar, tests/test_flash_backward.py:47; the forward keeps 1e-5).
@@ -448,8 +496,8 @@ DH256_TIME = dict(B=16, H=3)
 # :46): batch 64 x 3 x 224 x 224, 1000 classes, f32 NCHW, SGD lr 0.1
 # momentum 0.9, the literal 7x7/s2 stem; depth not cut
 RESNET_B, RESNET_HW, RESNET_CLASSES = 64, 224, 1000
-RESNET_STEPS, RESNET_WARM, RESNET_PROFILE = 20, 5, 8
-RESNET_WINDOW = 5               # steps 6-20 timed in three windows
+RESNET_STEPS, RESNET_WARM, RESNET_PROFILE = 15, 5, 8
+RESNET_WINDOW = 5               # steps 6-15 timed in two windows
 RESNET_LR, RESNET_MOM = 0.1, 0.9
 # the thumbnail ResNet-18 trained 3 steps on the card and on the CPU
 # (f32, TF32 off, lr 0.01): a ReLU network's gradient jumps where a
@@ -468,7 +516,7 @@ SMALL_RESNET_LOSS_TOL = (1e-5, 2e-4)
 # hybridized; then windows of LIB_WINDOW steps of each, and of the
 # hybridized SGD step (the Gluon cell's), in turns
 LIB_LR, LIB_WD, LIB_MAX_UPDATE, LIB_WARMUP = 1e-3, 1e-4, 40, 5
-LIB_STEPS, LIB_WINDOW, LIB_TURNS, LIB_PROFILE = 20, 5, 2, 5
+LIB_STEPS, LIB_WINDOW, LIB_TURNS, LIB_PROFILE = 6, 3, 2, 3
 # the optimizer family: each optimizer of the reference's registry trains
 # the thumbnail ResNet-18 3 steps on the card and on the CPU (f32, TF32
 # off, 32 x 32, batch 4) from the same weights, at its own default rate
@@ -511,7 +559,7 @@ FAMILY_LOSS_TOL = {"sgd": SMALL_RESNET_LOSS_TOL,
 # parameter vector takes no Xavier (ndim 1), in the reference too.
 WLM_VOCAB, WLM_WIDTH, WLM_LAYERS, WLM_DROPOUT = 33278, 650, 2, 0.5
 WLM_BPTT, WLM_B, WLM_LR, WLM_CLIP = 35, 32, 20.0, 0.25
-WLM_STEPS, WLM_CHECK, WLM_WINDOW, WLM_TURNS, WLM_PROFILE = 20, 3, 10, 2, 5
+WLM_STEPS, WLM_CHECK, WLM_WINDOW, WLM_TURNS, WLM_PROFILE = 12, 3, 6, 2, 5
 # the small card-vs-CPU checks (T, N, input width, hidden): outputs and
 # gradients within RNN_TOL x (1 + |CPU|) (cuBLAS's f32 sums in another
 # order over 5 steps), the cells against the fused layer too
@@ -535,7 +583,7 @@ YARD_TOL = 1e-4
 ZOO = (("alexnet", 224), ("vgg16", 224), ("densenet121", 224),
        ("squeezenet1.0", 224), ("inceptionv3", 299),
        ("mobilenetv2_1.0", 224))
-ZOO_B, ZOO_LR, ZOO_CHECK, ZOO_WINDOW, ZOO_PROFILE = 64, 0.01, 3, 5, 3
+ZOO_B, ZOO_LR, ZOO_CHECK, ZOO_WINDOW, ZOO_PROFILE = 64, 0.01, 2, 2, 3
 ZOO_PROFILED = ("mobilenetv2_1.0", "inceptionv3")
 
 # bench.py's workload (bench.py:27-52): ResNet-50 v1 with the
@@ -545,7 +593,7 @@ ZOO_PROFILED = ("mobilenetv2_1.0", "inceptionv3")
 # depth not cut.  One run_steps dispatch is BENCH_STEPS steps (bench.py
 # takes 150; 20 keep the phase near a minute)
 BENCH_B, BENCH_F32_B = 128, 64
-BENCH_STEPS, BENCH_CHECK, BENCH_PROFILE = 20, 3, 5
+BENCH_STEPS, BENCH_CHECK, BENCH_PROFILE = 12, 3, 5
 # the small DataParallelTrainer runs on the card and on the CPU from the
 # same weights: ResNet-18 v1 with the stem at 64 x 64, batch 8 (the last
 # stage's BatchNorm then normalises 32 values a channel; with fewer, or a
@@ -564,7 +612,7 @@ BENCH_SMALL = {"f32": (8, 1e-3), "amp": (8, 1e-4)}
 # wd 0, as the Gluon step runs); MODULE_CHECK steps captured vs eager
 # bit for bit, MODULE_STEPS timed steps of each in windows of
 # MODULE_WINDOW in turns, MODULE_FIT batches through fit
-MODULE_WD, MODULE_CHECK, MODULE_STEPS, MODULE_WINDOW = 1e-4, 3, 20, 10
+MODULE_WD, MODULE_CHECK, MODULE_STEPS, MODULE_WINDOW = 1e-4, 3, 12, 6
 MODULE_FIT, SERVE_CALLS = 4, 10
 # SymbolBlock serving of the export, TF32 off: the f32 graph against the
 # Gluon net's eval output, max |diff| <= SERVE_F32_TOL x (1 + max |gluon|)
@@ -579,7 +627,7 @@ SERVE_F32_TOL, SERVE_BF16_TOL = 1e-4, 5e-2
 # its seeded BucketIter, SGD lr 0.5; the card's accuracy within
 # NMT_ACC_TOL of the same run on the CPU
 NMT_BUCKETS, NMT_VOCAB, NMT_EMB = (8, 16, 24), 32, 16
-NMT_BATCHES, NMT_B, NMT_LR, NMT_ACC_TOL = 60, 32, 0.5, 0.02
+NMT_BATCHES, NMT_B, NMT_LR, NMT_ACC_TOL = 40, 32, 0.5, 0.02
 AMP_LOSS_TOL = (1e-2, 2e-2)
 
 
@@ -597,8 +645,8 @@ IMG_MEAN, IMG_STD = (123.68, 116.78, 103.94), (58.4, 57.12, 57.38)
 # batches timed alone and profiled alone; the full path's superbatches
 # timed, after a warm one and IMG_DRAIN more (DevicePrefetchIter's queue
 # of one and the one its worker holds, filled while the warm one trained)
-IMG_ALONE, IMG_PROFILE = 12, 4
-IMG_SUPERS, IMG_DRAIN = 3, 2
+IMG_ALONE, IMG_PROFILE = 8, 4
+IMG_SUPERS, IMG_DRAIN = 2, 2
 # --image-profile-probe every: superbatches an epoch, and the resident
 # source's host delay a batch (about the card route's pace)
 IMG_PROBE_SUPERS, IMG_PROBE_DELAY_S = 6, 0.04
@@ -621,7 +669,7 @@ class Failed(Exception):
     pass
 
 
-_PHASE = {"start": None, "last": None}
+_PHASE = {"start": None, "last": None, "hook": None}
 
 
 def phase(name):
@@ -631,7 +679,9 @@ def phase(name):
         _PHASE["start"] = _PHASE["last"] = now
     log("phase %s: %.1f s (%.1f s since start)"
         % (name, now - _PHASE["last"], now - _PHASE["start"]))
-    _PHASE["last"] = now
+    if _PHASE["hook"] is not None:          # --sgd-profile-probe's window
+        _PHASE["hook"](name)
+    _PHASE["last"] = time.perf_counter()
 
 
 def card_line():
@@ -904,6 +954,12 @@ DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 # the device's idle time on each side of a profiled window's steps, and
 # the name of the host span around them (profile_window)
 PROFILE_MARGIN_S = 0.05
+# torch.profiler on the card records no device activity for a while
+# after a session opens (ROADMAP.md §C.6: 17 ms to over 80 ms, longer in
+# some states of the process): a window idles PROFILE_LEAD_S after it
+# opens, before the work it holds, and a window of ``device_kernels`` or
+# ``device_time`` that records nothing is taken again idling 4x longer
+PROFILE_LEAD_S = PROFILE_MARGIN_S
 PROFILE_SPAN = "chip_smoke.profiled_steps"
 
 
@@ -965,12 +1021,11 @@ def profile_window(step, n, what, top=8, kernels=()):
     taken again, and the run fails after three that disagree (a replay
     that ran other kernels disagrees every time).
 
-    The profiler there also loses, now and then, the first device
-    events of its session (seen on the card in the kernel timings: the
-    first step's layer-1 ``paged_split`` missing, its ``paged_combine``
-    the window's first device event).  So a checked window opens with one
-    call of ``step`` that is neither timed nor held to the counters
-    (its counts are logged); then the device idles PROFILE_MARGIN_S, the
+    The profiler there also drops the first device events of its
+    session, more the older the process (``PROFILE_LEAD_S``).  So a
+    checked window opens with one call of ``step`` that is neither timed
+    nor held to the counters (its counts are logged); then the device
+    idles PROFILE_MARGIN_S, the
     ``n`` calls run inside a ``record_function`` span, and the device
     idles PROFILE_MARGIN_S again.  Only device events inside that span,
     widened by half the margin each side, count, are timed and are held
@@ -1568,15 +1623,17 @@ def device_time(fn, flush, match=None, calls=20):
     flush's own kernel left out), for the operations whose name contains
     ``match`` (every operation with ``match`` None, and then the flush
     must be told apart: about one a call).  A window that records none
-    is taken again; after three, CUDA events around ``fn`` stand in, and
+    is taken again after a longer idle (``PROFILE_LEAD_S``); after three,
+    CUDA events around ``fn`` stand in, and
     the log says so.  Only device work counts (``device_work``)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):   # a window can come back with no device events
+    for attempt in range(3):   # a window can come back with no events
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_LEAD_S * 4 ** attempt)
             for _ in range(calls):
                 flush.add_(1)
                 fn()
@@ -2123,16 +2180,21 @@ def check_sgd_kernels(FO, dev, resnet_shapes, failures):
 def device_kernels(fn, name="", calls=1):
     """(device operations, device ms) per call of ``fn``, counting the
     operations whose name contains ``name``, over ``calls`` calls under
-    torch.profiler (no L2 flush); (None, None) when it records no device
-    time.  Only device work counts (``device_work``)."""
+    torch.profiler (no L2 flush), a window that records none taken again
+    after a longer idle (``PROFILE_LEAD_S``); (None, None) when three
+    record no device time.  Only device work counts (``device_work``)."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for attempt in range(3):
         torch.cuda.synchronize()
-    evs = [ev for ev in device_work(prof)[0] if name in ev.name]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_LEAD_S * 4 ** attempt)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in device_work(prof)[0] if name in ev.name]
+        if evs:
+            break
     if not evs:
         return None, None
     # the profiler can miss a few events of a window: the mean of those
@@ -2246,6 +2308,11 @@ def compare_update_routes(mx, FO, trainer, params, failures):
     return out
 
 
+# ``--sgd-profile-probe`` (ROADMAP.md §C.6): a window of the grouped SGD
+# kernel that records none of its events is logged, not fatal
+SGD_PROBE = {"on": False}
+
+
 def time_sgd_kernels(FO, params, flush):
     """Times of both grouped SGD kernels on ResNet-50's group (copies of
     its real weights, its gradients), updating in place as
@@ -2272,7 +2339,11 @@ def time_sgd_kernels(FO, params, flush):
 
         wrapper_ms = cuda_ms(kern, flush=flush)
         ms_ = device_kernels(kern, "fused_sgd_kernel", calls=20)[1]
-        if ms_ is None:
+        if ms_ is None and SGD_PROBE["on"]:
+            log("probe C.6: %s: the profiler recorded no fused_sgd_kernel "
+                "time in time_sgd_kernels's window" % name)
+            ms_ = float("nan")
+        elif ms_ is None:
             raise Failed("%s: the profiler recorded no fused_sgd_kernel "
                          "time" % name)
         plain = cuda_ms(lambda: FO.fused_multi_sgd_reference(ws, gs, ms,
@@ -4640,7 +4711,7 @@ CLUSTER_F32_REQ, CLUSTER_WATCHDOG_S, CLUSTER_STALL_S = 16, 1.0, 2.5
 # and the chaos events' times from its start
 CLUSTER_BURST, CLUSTER_WAVES, CLUSTER_WAVE_S = 96, 8, 0.15
 # disaggregated serving (4e): the small f32 model's requests
-DISAGG_SMALL_REQ = 12
+DISAGG_SMALL_REQ = 8
 CLUSTER_KILL_S, CLUSTER_CHAOS_STALL_S = 0.45, 0.75
 
 
@@ -4779,6 +4850,7 @@ def cluster_profile(cl, reqs, what):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_LEAD_S)
         with record_function(PROFILE_SPAN):
             t0 = time.perf_counter()
             rids = [cl.submit(p, n) for p, n in reqs]
@@ -5610,6 +5682,1206 @@ def disagg_path(G, PA, FA, ServingEngine, params, cfg, dev, card,
     return rep, workers, flash
 
 
+# --------------------------------------------------------- http front door --
+# the HTTP phase: benchmark/http_bench.py's load proof on the `full`
+# preset (run_load, :283) re-implemented here: the seeded burst10x trace
+# (benchmark/traffic_trace.py burst10x_spec at base rate HTTP_RATE for
+# HTTP_DURATION_S), an open-loop asyncio client over loopback sockets,
+# every HTTP_TRICKLE_EVERY-th client reading slowly, every
+# HTTP_JSON_EVERY-th in JSON mode, a capped tenant (token bucket rate 0,
+# burst HTTP_CAPPED_BURST) sending every HTTP_CAPPED_EVERY-th request,
+# and a storm closing every odd-indexed open connection once
+# HTTP_MIN_CONCURRENT are open; run_gate_ttfb (:492)'s best-of-5
+# hot-prefix TTFB on one replica, with the cold one beside it
+HTTP_SEED, HTTP_RATE, HTTP_DURATION_S = 0, 48.0, 4.0
+HTTP_MIN_CONCURRENT, HTTP_CAPPED_BURST = 200, 8
+HTTP_CAPPED_EVERY, HTTP_TRICKLE_EVERY, HTTP_JSON_EVERY = 8, 7, 12
+HTTP_TTFB_REPS, HTTP_TTFB_NEW = 5, 8
+KEY_OPEN, KEY_CAPPED = "sk-open", "sk-capped"
+# the launcher's server: http_frontend's CLI defaults, on the card
+HTTP_CLI = dict(vocab_size=4096, max_len=256, d_model=256, n_heads=4,
+                n_layers=4, d_ff=1024)
+
+
+def burst10x_trace(seed, vocab, max_total, base_rate, duration_s):
+    """benchmark/traffic_trace.py's ``generate_trace(burst10x_spec(...))``
+    drawn the same way (one diurnal cycle, a 10x burst from 40% of the
+    run for 12.5% of it, Poisson thinning, lognormal prompt lengths
+    snapped to a doubling ladder): [(arrival s, prompt, n_new)]."""
+    prompt_max, out_max = max_total // 2, max_total // 4
+    grid, g = [], max(4, prompt_max // 16)
+    while g <= prompt_max:
+        grid.append(int(g))
+        g *= 2
+    amp, mult = 0.4, 10.0
+    burst_at, burst_dur = 0.4 * duration_s, 0.125 * duration_s
+    p_mu, p_sigma = math.log(max(grid[0] * 2, 8)), 0.8
+    o_mu, o_sigma, o_min = math.log(max(out_max // 4, 4)), 0.9, 2
+
+    def rate(t):
+        r = base_rate * (1.0 + amp * math.sin(2.0 * math.pi * t
+                                              / duration_s))
+        return r * mult if burst_at <= t < burst_at + burst_dur else r
+
+    def lognormal(mu, sigma, lo, hi):
+        return int(min(hi, max(lo, round(float(rng.lognormal(mu,
+                                                             sigma))))))
+
+    rng = np.random.RandomState(seed)
+    peak = base_rate * (1.0 + amp) * mult
+    events, t = [], 0.0
+    while True:
+        t += float(rng.exponential(1.0 / peak))
+        if t >= duration_s:
+            break
+        if float(rng.rand()) * peak > rate(t):
+            continue
+        P = lognormal(p_mu, p_sigma, grid[0], prompt_max)
+        P = min(grid, key=lambda v: (abs(v - P), v))
+        N = lognormal(o_mu, o_sigma, o_min, out_max)
+        if P + N > max_total:
+            N = max(1, max_total - P)
+        events.append((round(t, 6),
+                       rng.randint(1, vocab, P).astype(np.int32), int(N)))
+    return events
+
+
+class _Conns:
+    """The load client's accounting (one event loop, no locks)."""
+
+    def __init__(self, trigger_open):
+        self.open = self.peak = 0
+        self.trigger_open = trigger_open
+        self.trigger = asyncio.Event()
+        self.tokens, self.ttfb_s = {}, {}
+        self.done, self.json = set(), set()
+        self.rejected = {KEY_OPEN: 0, KEY_CAPPED: 0}
+        self.writers, self.errors = {}, []
+        self.storm_hits, self.storm_t = 0, None
+
+    def connected(self, idx, writer):
+        self.open += 1
+        self.peak = max(self.peak, self.open)
+        self.writers[idx] = writer
+        if self.open >= self.trigger_open:
+            self.trigger.set()
+
+    def closed(self, idx):
+        self.open -= 1
+        self.writers.pop(idx, None)
+
+
+def _sse_tokens(buf, st, idx, t0):
+    """Consume the complete chunks of ``buf`` (chunked SSE): token events
+    into ``st.tokens[idx]``, the first one's latency into ``st.ttfb_s``;
+    returns the rest."""
+    out = st.tokens.setdefault(idx, [])
+    while True:
+        nl = buf.find(b"\r\n")
+        if nl < 0:
+            return buf
+        n = int(buf[:nl], 16)
+        if n == 0:
+            return b""
+        if len(buf) < nl + 4 + n:
+            return buf
+        payload, buf = buf[nl + 2:nl + 2 + n], buf[nl + 4 + n:]
+        for block in payload.split(b"\n\n"):
+            if not block.strip():
+                continue
+            ev = data = None
+            for ln in block.split(b"\n"):
+                if ln.startswith(b"event: "):
+                    ev = ln[7:].decode()
+                elif ln.startswith(b"data: "):
+                    data = json.loads(ln[6:])
+            if ev == "token":
+                st.ttfb_s.setdefault(idx, time.perf_counter() - t0)
+                out.append(int(data["t"]))
+            elif ev == "done":
+                st.done.add(idx)
+            elif ev == "error":
+                st.errors.append((idx, data))
+
+
+def _request_bytes(prompt, n, key, stream):
+    body = json.dumps({"prompt": [int(x) for x in prompt],
+                       "max_new_tokens": int(n),
+                       "stream": bool(stream)}).encode()
+    return (b"POST /v1/generate HTTP/1.1\r\nHost: chip\r\n"
+            b"Authorization: Bearer " + key.encode() + b"\r\n"
+            b"Content-Type: application/json\r\n"
+            b"Content-Length: %d\r\n\r\n" % len(body)) + body
+
+
+async def _client(idx, at, prompt, n, host, port, key, st, t0, trickle,
+                  stream):
+    """One open-loop client: sleep to its arrival, connect, send, read
+    its stream to the end (or until the storm aborts it)."""
+    now = time.perf_counter() - t0
+    if at > now:
+        await asyncio.sleep(at - now)
+    req = _request_bytes(prompt, n, key, stream)
+    t_req = time.perf_counter()
+    try:
+        reader, writer = await asyncio.open_connection(host, port)
+    except OSError as e:
+        st.errors.append((idx, repr(e)))
+        return
+    st.connected(idx, writer)
+    try:
+        writer.write(req)
+        await writer.drain()
+        head = await reader.readuntil(b"\r\n\r\n")
+        status = int(head.split(b" ", 2)[1])
+        if status == 429:
+            st.rejected[key] += 1
+            return
+        if status != 200:
+            st.errors.append((idx, head.decode("latin-1")))
+            return
+        if not stream:
+            clen = int([ln.split(b":", 1)[1] for ln in
+                        head.lower().split(b"\r\n")
+                        if ln.startswith(b"content-length:")][0])
+            obj = json.loads(await reader.readexactly(clen))
+            st.tokens[idx] = [int(t) for t in obj["tokens"]]
+            st.done.add(idx)
+            st.json.add(idx)
+            return
+        buf = b""
+        while True:
+            data = await reader.read(256 if trickle else 65536)
+            if not data:
+                break
+            buf = _sse_tokens(buf + data, st, idx, t_req)
+            if idx in st.done:
+                break
+            if trickle:
+                await asyncio.sleep(0.02)
+    except (ConnectionResetError, BrokenPipeError,
+            asyncio.IncompleteReadError, OSError):
+        pass                                   # the storm's victims
+    finally:
+        st.closed(idx)
+        try:
+            writer.close()
+        except Exception:                      # noqa: BLE001
+            pass
+
+
+async def _storm(t_deadline, victims, st, t0):
+    """Once HTTP_MIN_CONCURRENT connections are open (or at the
+    deadline), abort every open victim at once (RST)."""
+    try:
+        await asyncio.wait_for(st.trigger.wait(), max(
+            0.0, t_deadline - (time.perf_counter() - t0)))
+    except asyncio.TimeoutError:
+        pass
+    for idx in victims:
+        w = st.writers.get(idx)
+        if w is not None:
+            w.transport.abort()
+            st.storm_hits += 1
+    st.storm_t = time.perf_counter() - t0
+
+
+async def _drive(wl, host, port, victims, t_deadline):
+    st = _Conns(HTTP_MIN_CONCURRENT)
+    t0 = time.perf_counter()
+    tasks = []
+    for idx, (at, prompt, n) in enumerate(wl):
+        key = KEY_CAPPED if idx % HTTP_CAPPED_EVERY == 1 else KEY_OPEN
+        trickle = idx % HTTP_TRICKLE_EVERY == 3 and idx not in victims
+        stream = not (idx % HTTP_JSON_EVERY == 5 and idx not in victims)
+        tasks.append(asyncio.ensure_future(_client(
+            idx, at, prompt, n, host, port, key, st, t0, trickle, stream)))
+    storm = asyncio.ensure_future(_storm(t_deadline, victims, st, t0))
+    await asyncio.gather(*tasks)
+    await storm
+    st.wall = time.perf_counter() - t0
+    return st
+
+
+def _http_keys():
+    return {KEY_OPEN: {"tenant": "open"},
+            KEY_CAPPED: {"tenant": "capped", "rate": 0,
+                         "burst": HTTP_CAPPED_BURST}}
+
+
+def wait_terminal(cl, skip=(), timeout=600):
+    """Wait until every request of ``cl`` but ``skip`` is terminal;
+    returns {state: count}."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        with cl._lock:
+            states = [r.state for r in cl.requests.values()
+                      if r.rid not in skip]
+        if not any(s in ("queued", "running") for s in states) or \
+                time.perf_counter() > deadline:
+            return {s: states.count(s) for s in sorted(set(states))}
+        time.sleep(0.05)
+
+
+def cluster_steps(cl):
+    return {r.idx: r.engine.stats["steps"] for r in cl.replicas
+            if r.engine is not None}
+
+
+def percentiles(ms):
+    if not ms:
+        return None, None
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def http_load(S, PA, params, cfg, wl, oracle, card, failures):
+    """The load proof through ``HttpFrontend`` over a two-replica cluster
+    of the preset; then the same trace by direct ``submit``."""
+    from mxnet_tpu_torch.serving import HttpFrontend
+    cl = S.ServingCluster(params, cfg, replicas=2, num_slots=SLOTS,
+                          page_size=PAGE, prefill_chunk=CHUNK, metrics=True,
+                          watchdog_s=120.0, max_queue=10 ** 6, device=DEV)
+    fe = None
+    rep = {"card": card, "arrivals": len(wl)}
+    try:
+        warm = cl.submit(wl[0][1], wl[0][2])
+        cl.result(warm, timeout=600)
+        base = cluster_steps(cl)
+        PA.paged_attention.launches = 0
+        fe = HttpFrontend(cl, keys=_http_keys(), max_connections=4096)
+        fe.start()
+        victims = {i for i in range(len(wl)) if i % 2 == 1
+                   and i % HTTP_CAPPED_EVERY != 1}
+        st = asyncio.run(_drive(wl, fe.host, fe.port, victims,
+                                HTTP_DURATION_S + 30.0))
+        states = wait_terminal(cl, skip={warm})
+        fe.close()
+        fe = None
+        steps = sum(cluster_steps(cl)[k] - base[k] for k in base)
+        launches = PA.paged_attention.launches
+        snap = cl.registry.snapshot()["counters"]
+        K = sum(1 for i in range(len(wl)) if i % HTTP_CAPPED_EVERY == 1)
+        want_429 = max(0, K - HTTP_CAPPED_BURST)
+        got_429 = st.rejected[KEY_CAPPED]
+        same = prefix = 0
+        bad = []
+        for idx, (_, prompt, n) in enumerate(wl):
+            gen = [int(t) for t in oracle[idx][prompt.size:]]
+            got = st.tokens.get(idx)
+            if idx in st.done and got is not None:
+                same += got == gen
+                if got != gen:
+                    bad.append(idx)
+            elif got:
+                prefix += got == gen[:len(got)]
+                if got != gen[:len(got)]:
+                    bad.append(idx)
+        leaks = []
+        for r in cl.replicas:
+            eng = r.engine
+            if eng is None or r.dead:
+                continue
+            refs = 0 if eng.prefix is None else eng.prefix.refs_total
+            cached = 0 if eng.prefix is None else eng.prefix.cached_pages
+            if refs or eng.cache.pages_in_use != cached:
+                leaks.append((r.idx, refs, eng.cache.pages_in_use, cached))
+        ttfb = [st.ttfb_s[i] * 1e3 for i in st.done
+                if i in st.ttfb_s and i not in st.json]
+        toks = sum(len(st.tokens.get(i, ())) for i in st.done)
+        p50, p99 = percentiles(ttfb)
+        rep["edge"] = {
+            "peak_concurrent": st.peak, "storm_aborts": st.storm_hits,
+            "storm_at_s": st.storm_t, "states": states,
+            "completed": len(st.done), "json_mode": len(st.json),
+            "identical": same, "victim_prefixes": prefix,
+            "capped_requests": K, "edge_429": got_429,
+            "expected_429": want_429,
+            "http_rejected_quota_total": int(snap.get(
+                "http_rejected_quota_total", 0)),
+            "open_429": st.rejected[KEY_OPEN],
+            "disconnects_counted": int(snap.get(
+                "http_client_disconnects_total", 0)),
+            "cancelled_counted": int(snap.get("cluster_cancelled_total",
+                                              0)),
+            "tokens": toks, "wall_s": st.wall, "tokens_per_s": toks / st.wall,
+            "ttft_ms_p50": p50, "ttft_ms_p99": p99,
+            "errors": st.errors[:4], "steps": steps,
+            "paged_launches": launches}
+        e = rep["edge"]
+        log("serve HTTP load [%s]: %d arrivals over %.1f s, peak %d "
+            "connections open, storm aborted %d at %.2f s; %d streams "
+            "completed (%d JSON), %d tokens, %.1f tok/s through the edge, "
+            "TTFT (client, to the first token event) p50 %.1f ms p99 %.1f "
+            "ms; states %s" % (card, len(wl), HTTP_DURATION_S, st.peak,
+                               st.storm_hits, st.storm_t or -1.0,
+                               len(st.done), len(st.json), toks,
+                               e["tokens_per_s"], p50 or -1.0, p99 or -1.0,
+                               json.dumps(states)))
+        checks = [
+            ("peak open connections %d >= %d" % (st.peak,
+                                                  HTTP_MIN_CONCURRENT),
+             st.peak >= HTTP_MIN_CONCURRENT),
+            ("capped tenant's 429s %d == max(0, K - %d) = %d (K = %d), "
+             "http_rejected_quota_total %d, open tenant's 429s %d"
+             % (got_429, HTTP_CAPPED_BURST, want_429, K,
+                e["http_rejected_quota_total"], st.rejected[KEY_OPEN]),
+             got_429 == want_429 == e["http_rejected_quota_total"]
+             and st.rejected[KEY_OPEN] == 0),
+            ("%d completed streams token-identical to one engine, %d storm "
+             "victims' partial streams prefixes of it, %d wrong"
+             % (same, prefix, len(bad)), not bad and same > 0),
+            ("every request done or cancelled (%s), no client error"
+             % json.dumps(states),
+             set(states) <= {"done", "cancelled"} and not st.errors),
+            ("no page or prefix ref left on a replica %s" % leaks,
+             not leaks),
+            ("paged_attention counted %d launches, steps x layers = %d"
+             % (launches, steps * LAYERS), launches == steps * LAYERS)]
+        for what, ok in checks:
+            log("check HTTP load: %s  %s" % (what, "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("HTTP load: " + what.split(" %")[0][:40])
+
+        # the same trace by direct submit, open loop, on the same cluster
+        base = cluster_steps(cl)
+        PA.paged_attention.launches = 0
+        t0 = time.perf_counter()
+        rids = []
+        for at, prompt, n in wl:
+            d = at - (time.perf_counter() - t0)
+            if d > 0:
+                time.sleep(d)
+            rids.append(cl.submit(prompt, n))
+        outs = [cl.result(r, timeout=600) for r in rids]
+        wall = time.perf_counter() - t0
+        crs = [cl.requests[r] for r in rids]
+        ttft = [(cr.first_token_t - cr.submit_t) * 1e3 for cr in crs]
+        toks = sum(n for _, _, n in wl)
+        p50, p99 = percentiles(ttft)
+        dsteps = sum(cluster_steps(cl)[k] - base[k] for k in base)
+        rep["direct"] = {"tokens": toks, "wall_s": wall,
+                         "tokens_per_s": toks / wall, "ttft_ms_p50": p50,
+                         "ttft_ms_p99": p99, "steps": dsteps,
+                         "paged_launches": PA.paged_attention.launches}
+        log("serve HTTP trace by direct submit [%s]: %d requests, %d "
+            "tokens, %.1f tok/s, TTFT (cluster, submit to first token) "
+            "p50 %.1f ms p99 %.1f ms" % (card, len(wl), toks,
+                                          toks / wall, p50, p99))
+        same_tokens("HTTP trace by direct submit vs one engine",
+                    dict(enumerate(outs)), dict(enumerate(oracle)),
+                    failures)
+        if PA.paged_attention.launches != dsteps * LAYERS:
+            failures.append("HTTP direct submit: paged launches")
+        cluster_leaks("HTTP trace by direct submit", cl, failures)
+    finally:
+        if fe is not None:
+            fe.close()
+        cl.close(timeout=120)
+    return rep
+
+
+async def _ttfb_once(host, port, prompt, n):
+    req = _request_bytes(prompt, n, KEY_OPEN, True)
+    t0 = time.perf_counter()
+    reader, writer = await asyncio.open_connection(host, port)
+    writer.write(req)
+    await writer.drain()
+    buf, ttfb = b"", None
+    try:
+        while True:
+            data = await reader.read(65536)
+            if not data:
+                break
+            buf += data
+            if ttfb is None and b"event: token" in buf:
+                ttfb = time.perf_counter() - t0
+            if b"event: done" in buf or b"event: error" in buf:
+                break
+    finally:
+        writer.close()
+    if ttfb is None:
+        raise Failed("HTTP TTFB: the stream closed before its first token "
+                     "(%r)" % buf[:200])
+    return ttfb * 1e3
+
+
+def http_ttfb(S, PA, params, cfg, wl, card, failures):
+    """run_gate_ttfb: one replica, its prefix cache seeded with the
+    trace's longest prompt; best of HTTP_TTFB_REPS first-token times of
+    that prompt (hot) and of distinct prompts (cold)."""
+    from mxnet_tpu_torch.serving import HttpFrontend
+    _, prompt, n = max(wl, key=lambda e: e[1].size)
+    n = min(n, HTTP_TTFB_NEW)
+    cl = S.ServingCluster(params, cfg, replicas=1, num_slots=SLOTS,
+                          page_size=PAGE, prefill_chunk=CHUNK, metrics=True,
+                          max_queue=10 ** 6, device=DEV)
+    fe = None
+    try:
+        cl.result(cl.submit(prompt, n), timeout=600)
+        base = cluster_steps(cl)
+        PA.paged_attention.launches = 0
+        fe = HttpFrontend(cl, keys=_http_keys()).start()
+        warm = [asyncio.run(_ttfb_once(fe.host, fe.port, prompt, n))
+                for _ in range(HTTP_TTFB_REPS)]
+        cold = [asyncio.run(_ttfb_once(fe.host, fe.port, p,
+                                       min(nn, HTTP_TTFB_NEW)))
+                for _, p, nn in wl[1:HTTP_TTFB_REPS + 1]
+                if not np.array_equal(p, prompt)]
+        # cold at the hot prompt's length: seeded prompts no cache holds
+        rng = np.random.RandomState(HTTP_SEED + 7)
+        cold_same = [asyncio.run(_ttfb_once(
+            fe.host, fe.port, rng.randint(1, VOCAB, prompt.size)
+            .astype(np.int32), n)) for _ in range(HTTP_TTFB_REPS)]
+        fe.close()
+        fe = None
+        wait_terminal(cl)
+        steps = sum(cluster_steps(cl)[k] - base[k] for k in base)
+        launches = PA.paged_attention.launches
+        hits = cl.replicas[0].engine.stats["prefix_hit_tokens"]
+    finally:
+        if fe is not None:
+            fe.close()
+        cl.close(timeout=120)
+    row = {"card": card, "prompt_len": int(prompt.size), "reps": len(warm),
+           "ttfb_warm_ms": min(warm), "ttfb_warm_all_ms": warm,
+           "ttfb_cold_ms": min(cold), "ttfb_cold_all_ms": cold,
+           "ttfb_cold_same_len_ms": min(cold_same),
+           "ttfb_cold_same_len_all_ms": cold_same,
+           "prefix_hit_tokens": hits, "steps": steps,
+           "paged_launches": launches}
+    ok = launches == steps * LAYERS and min(warm) < min(cold_same) and \
+        hits > 0
+    log("check HTTP TTFB gate [%s]: hot %d-token prompt best of %d %.2f "
+        "ms (all %s); cold at its length best %.2f ms (all %s); the "
+        "trace's next prompts cold best %.2f ms (all %s); %d prefix hit "
+        "tokens; paged launches %d = steps x layers %d  %s"
+        % (card, prompt.size, len(warm), min(warm),
+           " ".join("%.2f" % v for v in warm), min(cold_same),
+           " ".join("%.2f" % v for v in cold_same), min(cold),
+           " ".join("%.2f" % v for v in cold), hits, launches,
+           steps * LAYERS, "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("HTTP TTFB gate")
+    return row
+
+
+def http_path(G, PA, FA, ServingEngine, params, cfg, card, failures):
+    """The HTTP front door at full width: the load proof and the TTFB
+    gate (each cluster's paged counter from 0 once warm), with one
+    captured engine's outputs as the oracle and ``generate`` on a few
+    prompts beside it (its flash launches from 0).  Returns (report,
+    {path: paged launches}, flash launches)."""
+    from mxnet_tpu_torch import serving as S
+    t0 = time.perf_counter()
+    wl = burst10x_trace(HTTP_SEED, VOCAB,
+                        min(MAX_LEN, max(PROMPT_LENS) + max(OUT_LENS)),
+                        HTTP_RATE, HTTP_DURATION_S)
+    reqs = [(p, n) for _, p, n in wl]
+    oracle, orun = serve_mix(ServingEngine, params, cfg, reqs, DEV,
+                             failures, "HTTP trace, one engine",
+                             prefix_cache=True)
+    log("serve HTTP trace (burst10x, seed %d, %d requests, %d tokens), one "
+        "captured engine [%s]: %.1f tok/s" % (HTTP_SEED, len(wl),
+                                              orun["tokens"], card,
+                                              orun["tokens_per_s"]))
+    FA.flash_fwd.launches = 0
+    few = sorted(range(len(wl)), key=lambda i: -wl[i][1].size)[:4]
+    agree = []
+    for i in few:
+        _, p, n = wl[i]
+        g = G.generate(params, cfg, p[None], n, device=DEV)[0].cpu().numpy()
+        agree.append(float(np.mean(g[p.size:] == oracle[i][p.size:])))
+    flash = FA.flash_fwd.launches
+    log("info: bf16/w8 engine vs generate on the trace's 4 longest prompts: "
+        "%.3f agreement (flash_fwd launches %d)" % (np.mean(agree), flash))
+    rep = {"trace": {"seed": HTTP_SEED, "base_rate": HTTP_RATE,
+                     "duration_s": HTTP_DURATION_S, "requests": len(wl),
+                     "tokens": orun["tokens"]},
+           "one_engine_tokens_per_s": orun["tokens_per_s"]}
+    rep["load"] = http_load(S, PA, params, cfg, wl, oracle, card, failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep["ttfb"] = http_ttfb(S, PA, params, cfg, wl, card, failures)
+    e, d = rep["load"]["edge"], rep["load"]["direct"]
+    log("HTTP edge vs direct submit [%s]: %.1f vs %.1f tok/s, TTFT p50 %.1f "
+        "vs %.1f ms, p99 %.1f vs %.1f ms (the edge's from the client, "
+        "storm-cancelled and 429 requests out)"
+        % (card, e["tokens_per_s"], d["tokens_per_s"], e["ttft_ms_p50"],
+           d["ttft_ms_p50"], e["ttft_ms_p99"], d["ttft_ms_p99"]))
+    launches = {"http front door (load)": e["paged_launches"],
+                "http front door (direct submit)": d["paged_launches"],
+                "http front door (TTFB gate)": rep["ttfb"]["paged_launches"]}
+    for k, n in launches.items():
+        if n <= 0:
+            raise Failed("%s: paged_attention never launched" % k)
+    if flash <= 0:
+        raise Failed("http front door: generate never launched flash_fwd")
+    rep["seconds"] = time.perf_counter() - t0
+    log("http front door phase: %.1f s" % rep["seconds"])
+    return rep, launches, flash
+
+
+def _sse_request(host, port, prompt, n, stream=True, abort_after=None):
+    """One request over a blocking socket: the generated tokens (SSE or
+    JSON); with ``abort_after`` the socket is reset (RST) once that many
+    token events arrived, and the tokens so far are returned."""
+    import socket
+    s = socket.create_connection((host, port), timeout=120)
+    try:
+        s.sendall(_request_bytes(prompt, n, KEY_OPEN, stream))
+        buf = b""
+        while b"\r\n\r\n" not in buf:
+            data = s.recv(65536)
+            if not data:
+                raise Failed("HTTP: EOF before the response head")
+            buf += data
+        head, rest = buf.split(b"\r\n\r\n", 1)
+        if int(head.split(b" ", 2)[1]) != 200:
+            raise Failed("HTTP: %r" % head[:200])
+        if not stream:
+            clen = int([ln.split(b":", 1)[1] for ln in
+                        head.lower().split(b"\r\n")
+                        if ln.startswith(b"content-length:")][0])
+            while len(rest) < clen:
+                rest += s.recv(65536)
+            return json.loads(rest[:clen])["tokens"]
+        st = _Conns(1 << 30)
+        buf = _sse_tokens(rest, st, 0, time.perf_counter())
+        while 0 not in st.done:
+            if abort_after is not None and \
+                    len(st.tokens.get(0, ())) >= abort_after:
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                             b"\x01\x00\x00\x00\x00\x00\x00\x00")
+                break
+            data = s.recv(65536)
+            if not data:
+                break
+            buf = _sse_tokens(buf + data, st, 0, time.perf_counter())
+        return st.tokens.get(0, [])
+    finally:
+        s.close()
+
+
+def disagg_http(G, S, card, failures):
+    """HTTP over the disaggregated cluster (one prefill, one decode
+    worker) on the small f32 model: SSE and JSON streams equal
+    ``generate`` on the card; a client reset mid-stream reaches both
+    workers as the generation-fenced ``cancel`` (the frames the router
+    sends are recorded) and leaves nothing on them; a late cancel is a
+    no-op.  Returns the numbers (the workers' paged launches among
+    them)."""
+    from mxnet_tpu_torch.serving import HttpFrontend
+    tiny = G.gpt_tiny(dtype="float32", vocab_size=128, max_len=128,
+                      d_model=128, n_heads=2, d_ff=256, dropout=0.0)
+    tp = G.init_params(4, tiny, device="cpu")
+    rng = np.random.RandomState(41)
+    reqs = [(rng.randint(1, 120, int(rng.randint(3, 40))).astype(np.int32),
+             int(rng.randint(8, 40))) for _ in range(4)]
+    long_p = rng.randint(1, 120, 12).astype(np.int32)
+    want = [G.generate(tp, tiny, p[None], n, device=DEV)[0].cpu().numpy()
+            for p, n in reqs + [(long_p, 100)]]
+    cl = S.DisaggServingCluster(tp, tiny, prefill=1, decode=1, num_slots=4,
+                                page_size=4, prefill_chunk=4, metrics=True,
+                                watchdog_s=60.0, device=DEV,
+                                ready_timeout=300)
+    fe = None
+    sent = []
+    do_sends = cl._do_sends
+
+    def recording(sends):
+        for conn, (kind, meta, _) in sends:
+            if kind == "cancel":
+                sent.append((conn, meta["rid"], meta["below_gen"]))
+        return do_sends(sends)
+
+    cl._do_sends = recording
+    rep = {"card": card}
+    try:
+        before = disagg_stats(cl)
+        fe = HttpFrontend(cl).start()
+        got = [_sse_request(fe.host, fe.port, p, n, stream=i % 2 == 0)
+               for i, (p, n) in enumerate(reqs)]
+        same = sum(g == [int(t) for t in w[p.size:]]
+                   for g, w, (p, _) in zip(got, want, reqs))
+        part = _sse_request(fe.host, fe.port, long_p, 100, abort_after=3)
+        deadline = time.perf_counter() + 60
+        rid = None
+        while time.perf_counter() < deadline:
+            with cl._lock:
+                cancelled = [r for r, cr in cl.requests.items()
+                             if cr.state == "cancelled"]
+            if cancelled:
+                rid = cancelled[0]
+                break
+            time.sleep(0.01)
+        clean = None
+        while rid is not None and time.perf_counter() < deadline:
+            stats = disagg_stats(cl)
+            if all(not s.get("active_requests") and not s.get("staged_rids")
+                   and not s.get("prefix_refs")
+                   and s.get("pages_in_use", 0) ==
+                   s.get("prefix_cached_pages", 0) for s in stats.values()):
+                clean = stats
+                break
+            time.sleep(0.02)
+        late = cl.cancel(rid) if rid is not None else None
+        with cl._lock:
+            cr = cl.requests.get(rid)
+            sides = set() if cr is None else {cr.prefill, cr.decode}
+            gen = None if cr is None else cr.gen
+        after = disagg_stats(cl)
+        snap = cl.registry.snapshot()["counters"]
+        fe.close()
+        fe = None
+        disagg_leaks("HTTP over the disaggregated cluster", cl, failures)
+    finally:
+        if fe is not None:
+            fe.close()
+        cl.close()
+    deltas = worker_deltas(before, after)
+    prefix_ok = part == [int(t) for t in want[-1][long_p.size:]][:len(part)]
+    fenced = [s for s in sent if s[1] == rid]
+    rep.update({"identical": same, "requests": len(reqs),
+                "aborted_tokens": len(part), "cancelled_rid": rid,
+                "cancel_frames": len(fenced),
+                "cancel_below_gen": sorted({g for _, _, g in fenced}),
+                "request_gen": gen, "workers_clean": clean is not None,
+                "late_cancel": late,
+                "disconnects_counted": int(snap.get(
+                    "http_client_disconnects_total", 0)),
+                "cancelled_counted": int(snap.get("cluster_cancelled_total",
+                                                  0)),
+                "workers": deltas})
+    checks = [
+        ("%d of %d streams (SSE and JSON) equal generate on the card"
+         % (same, len(reqs)), same == len(reqs)),
+        ("the reset stream's %d tokens a prefix of generate" % len(part),
+         prefix_ok and len(part) >= 3),
+        ("the disconnect cancelled rid %s: %d fenced cancel frames sent "
+         "(below_gen %s, the request's gen %s) for its %d workers, the "
+         "workers clean %s, a late cancel %s, disconnects %d, cancels %d"
+         % (rid, len(fenced), rep["cancel_below_gen"], gen, len(sides),
+            clean is not None, late, rep["disconnects_counted"],
+            rep["cancelled_counted"]),
+         rid is not None and len(fenced) == len(sides) == 2
+         and rep["cancel_below_gen"] == [gen] and clean is not None
+         and late is False and rep["disconnects_counted"] == 1
+         and rep["cancelled_counted"] == 1)]
+    for what, ok in checks:
+        log("check HTTP over the disaggregated cluster [%s]: %s  %s"
+            % (card, what, "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("HTTP disaggregated: " + what[:40])
+    name = "HTTP over the disaggregated cluster"
+    LAYERS_OF[name] = tiny.n_layers
+    check_worker_launches(name, deltas, failures)
+    return rep
+
+
+def _readline(proc, timeout):
+    """A line of ``proc``'s stdout within ``timeout`` seconds, else
+    None."""
+    import select
+    r, _, _ = select.select([proc.stdout], [], [], timeout)
+    return proc.stdout.readline() if r else None
+
+
+def start_http_launcher():
+    """Start ``python3 -m mxnet_tpu_torch.tools.launch --launcher http``
+    on the card (the server takes ~20 s to listen: the disaggregated
+    phase runs meanwhile).  Returns (process, its start time)."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.Popen(
+        [sys.executable, "-m", "mxnet_tpu_torch.tools.launch",
+         "--launcher", "http", "--", "--device", "cuda"], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, text=True), time.perf_counter()
+
+
+def http_launcher(G, card, failures, started):
+    """The launcher's server started by ``start_http_launcher``: its
+    ``listening`` line, one streamed request equal to ``generate`` of the
+    CLI's model (``init_params(0, cfg)``, drawn from a seeded
+    ``torch.Generator``), then SIGTERM: exit 0 after ``{"closed":
+    true}``."""
+    import signal
+    proc, t0 = started
+    cfg = G.gpt_config(dropout=0.0, use_flash=False, remat=False,
+                       dtype="float32", **HTTP_CLI)
+    prompt = np.random.RandomState(5).randint(
+        1, HTTP_CLI["vocab_size"], 20).astype(np.int32)
+    want = G.generate(G.init_params(0, cfg, device=DEV), cfg, prompt[None],
+                      16, device=DEV)[0].cpu().numpy()
+    rep = {"card": card}
+    try:
+        line = _readline(proc, 300)
+        if not line:
+            raise Failed("http launcher: no listening line (exit %s)"
+                         % proc.poll())
+        host, port = json.loads(line)["listening"].rsplit(":", 1)
+        rep["listening_after_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        got = _sse_request(host, int(port), prompt, 16)
+        rep["request_s"] = time.perf_counter() - t1
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(120)
+        closed = _readline(proc, 5)
+        rep.update({"exit": code, "closed": closed and json.loads(closed)})
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    same = got == [int(t) for t in want[prompt.size:]]
+    ok = same and code == 0 and rep["closed"] == {"closed": True}
+    log("check http launcher on the card [%s]: listening %.1f s after its "
+        "start, one 16-token stream %s generate of init_params(0) in %.2f "
+        "s, SIGTERM: exit %s, %s  %s"
+        % (card, rep["listening_after_s"],
+           "equal to" if same else "NOT equal to", rep["request_s"], code,
+           rep["closed"], "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("http launcher")
+    return rep
+
+
+# ------------------------------------------------------- test_utils, mx.np --
+# (name, fn, input shapes, the op sweep's family): each checked within
+# CARD_TOL[family] x GRAD_FACTOR (check_consistency holds the forward and
+# the gradients to one limit; the op sweep gives gradients that factor)
+TU_OPS = [
+    ("tanh", lambda nd, a: nd.tanh(a), [(64, 256)], "transc"),
+    ("dot", lambda nd, a, b: nd.dot(a, b), [(128, 256), (256, 64)],
+     "reduce"),
+    ("softmax", lambda nd, a: nd.softmax(a, axis=-1), [(32, 1000)],
+     "transc"),
+    ("LayerNorm", lambda nd, a, g, b: nd.LayerNorm(a, g, b),
+     [(64, 768), (768,), (768,)], "reduce"),
+    ("Convolution", lambda nd, x, w: nd.Convolution(
+        x, w, kernel=(3, 3), num_filter=32, no_bias=True, pad=(1, 1)),
+     [(8, 16, 28, 28), (32, 16, 3, 3)], "linalg"),
+    ("BatchNorm (train)", lambda nd, x, g, b, m, v: nd.BatchNorm(
+        x, g, b, m, v, fix_gamma=False),
+     [(8, 16, 14, 14), (16,), (16,), (16,), (16,)], "reduce"),
+    ("broadcast_mul", lambda nd, a, b: nd.broadcast_mul(a, b),
+     [(64, 128), (1, 128)], "arith"),
+]
+
+
+def test_utils_on_card(mx, card, failures):
+    """``test_utils.check_consistency`` with its default contexts, which
+    are [cpu(), gpu(0)] where a card is present: a handful of the op
+    sweep's ops at model widths, forward and input gradients, float32
+    (TF32 off), each within its family's card limit times the gradient
+    factor."""
+    from mxnet_tpu_torch import test_utils as tu
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(3)
+    rows = {}
+    try:
+        TP = op_cases()
+        for name, fn, shapes, fam in TU_OPS:
+            inputs = [rng.randn(*s).astype(np.float32) for s in shapes]
+            if name.startswith("BatchNorm"):
+                inputs[4] = np.abs(inputs[4]) + 0.5
+            rtol, atol = TP.grad_tol(fam, TP.CARD_TOL)
+            try:
+                runs = tu.check_consistency(
+                    lambda *xs, fn=fn: fn(mx.nd, *xs), inputs, rtol=rtol,
+                    atol=atol)
+                err = max([float(np.abs(runs[1][1] - runs[0][1]).max())]
+                          + [float(np.abs(g - h).max()) for g, h in
+                             zip(runs[1][2], runs[0][2])
+                             if g is not None])
+                ok = len(runs) == 2
+            except AssertionError as e:
+                err, ok = str(e)[:200], False
+            rows[name] = err
+            log("check test_utils.check_consistency %s over [cpu(0), "
+                "gpu(0)], forward and gradients [%s]: max |card - CPU| %s "
+                "(rtol %g, atol %g: %s x %g)  %s"
+                % (name, card, err, rtol, atol, fam, TP.GRAD_FACTOR,
+                   "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("check_consistency " + name)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return rows
+
+
+def mlp_np_run(mx, as_np, steps, seed=0):
+    """examples/mnist_mlp.py's MLP (784-128-64-10, relu) hybridized on
+    the card, ``steps`` SGD-momentum steps (lr 0.05, 0.9) at batch 64 on
+    seeded synthetic batches, fed as ``mx.np`` arrays under ``set_np``
+    (``as_np``) or as classic NDArrays: losses and weights, numpy."""
+    from mxnet_tpu_torch import util
+    from mxnet_tpu_torch.gluon import nn
+    ctx = mx.gpu(0)
+    mx.random.seed(seed)
+    np.random.seed(seed)
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(128, activation="relu"),
+                nn.Dense(64, activation="relu"), nn.Dense(10))
+    net.initialize(mx.initializer.Xavier(), ctx=ctx)
+    net.hybridize()
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": 0.05, "momentum": 0.9})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    rng = np.random.RandomState(seed + 1)
+    centers = rng.randn(10, 784).astype(np.float32) * 2
+    make = (lambda a: mx.np.array(a, ctx=ctx)) if as_np else \
+        (lambda a: mx.nd.array(a, ctx=ctx))
+    losses = []
+    with util.np_array(as_np):
+        for _ in range(steps):
+            y = rng.randint(0, 10, 64)
+            x = centers[y] + rng.randn(64, 784).astype(np.float32)
+            xd, yd = make(x), make(y.astype(np.float32))
+            with mx.autograd.record():
+                L = loss_fn(net(xd), yd)
+            L.backward()
+            tr.step(64)
+            losses.append(L.asnumpy())
+    return losses, [p.data().asnumpy() for _, p in
+                    sorted(net.collect_params().items())]
+
+
+def np_path(mx, card, failures):
+    """``mx.np`` on the card: every ``_np_*`` case of the op table on the
+    card against the CPU (``CARD_TOL`` by family, as the op sweep), and
+    the MLP hybridized under ``set_np`` on ``mx.np`` arrays bit for bit
+    against the classic-NDArray run."""
+    checked = set()
+    sweep = op_sweep(mx, failures, checked, modules=("_np_ops",))
+    names = {n for n in checked if n.startswith("_np_")}
+    TP = op_cases()
+    want = {sp.name for sp in TP.OP_SPECS["_np_ops"]}
+    ok = names == want
+    log("check mx.np sweep [%s]: %d cases, %d of %d _np_* names run on the "
+        "card  %s" % (card, sweep["cases"], len(names), len(want),
+                      "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("mx.np sweep: names")
+    runs = [mlp_np_run(mx, as_np, 5) for as_np in (True, False)]
+    same = all(np.array_equal(a, b) for a, b in zip(runs[0][0] + runs[0][1],
+                                                     runs[1][0] + runs[1][1]))
+    log("check MLP (784-128-64-10, bs 64, 5 SGD steps, hybridized) on "
+        "mx.np arrays under set_np vs classic NDArrays [%s]: losses %s; "
+        "losses and weights bit for bit %s  %s"
+        % (card, " ".join("%.4f" % float(np.mean(v)) for v in runs[0][0]),
+           same, "ok" if same else "FAIL"))
+    if not same or not np.isfinite(runs[0][0][-1]).all():
+        failures.append("mx.np MLP bit identity")
+    return {"sweep": sweep, "names": len(names), "mlp_bit_identical": same}
+
+
+# ------------------------------------------------------ INT8 quantization --
+# ResNet-50 v1 exported from Gluon (Xavier from np.random.seed(0)),
+# predict mode, f32; calibrated on INT8_CALIB_BATCHES seeded synthetic
+# batches of INT8_CALIB_B (the entropy collector reads every calibrated
+# output on the host: 64 images keep it near half a minute), then run at
+# batch INT8_B; the card's quantized nodes replayed on the CPU at batch
+# INT8_CHECK_B
+INT8_B, INT8_CALIB_B, INT8_CALIB_BATCHES, INT8_CHECK_B = 64, 8, 4, 2
+INT8_TIMED = 10
+
+
+def replay_on_cpu(mx, qsym, vals):
+    """Each ``_contrib_*`` node of ``qsym`` run by the port's op on the
+    CPU, on the values the card gave its inputs (``vals``: (node name,
+    slot) -> numpy): (nodes run, int8/int32 values compared, the node
+    outputs that differ)."""
+    from mxnet_tpu_torch.ops import registry as reg
+    ran, n_int, bad = 0, 0, []
+    with mx.cpu():
+        for node in qsym._nodes():
+            if node.is_var or not node.op.name.startswith("_contrib_"):
+                continue
+            ins = [mx.nd.array(vals[(n.name, s)], ctx=mx.cpu(),
+                               dtype=vals[(n.name, s)].dtype)
+                   for n, s in node.inputs]
+            outs = reg.invoke(node.op, ins, node.pos_attrs,
+                              dict(node.attrs))
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            ran += 1
+            for k, o in enumerate(outs):
+                want, got = vals[(node.name, k)], o.asnumpy()
+                if want.dtype.kind in "iu":
+                    n_int += want.size
+                if got.dtype != want.dtype or not np.array_equal(got, want):
+                    bad.append("%s[%d]" % (node.name, k))
+    return ran, n_int, bad
+
+
+def internals_on(mx, sym, args, aux, x, ctx):
+    """Every output of ``sym`` at input ``x`` on ``ctx``, numpy, by
+    (node name, slot)."""
+    inner = sym.get_internals()
+    a = {k: v.as_in_context(ctx) for k, v in args.items()}
+    a["data"] = mx.nd.array(x, ctx=ctx)
+    exe = inner.bind(ctx=ctx, args=a, grad_req="null",
+                     aux_states={k: v.as_in_context(ctx)
+                                 for k, v in aux.items()})
+    outs = exe.forward(is_train=False)
+    return {(n.name, s): o.asnumpy() for (n, s), o in zip(inner._outputs,
+                                                           outs)}
+
+
+def int8_path(mx, card, failures):
+    """INT8 post-training quantization of ResNet-50 v1 on the card:
+    ``quantize_model`` with naive and entropy calibration; each
+    quantized graph's nodes on the card replayed on the CPU bit for bit
+    (their int8/int32 tensors and float ranges); its logits against the
+    float graph's; ms a batch int8 against f32 (CUDA events over captured
+    forwards, in turns); the quantization op cases card vs CPU."""
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+    ctx = mx.gpu(0)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_int8_")
+    rep = {"card": card}
+    t_all = time.perf_counter()
+    try:
+        checked = set()
+        rep["op_sweep"] = op_sweep(mx, failures, checked,
+                                   modules=("quantization",))
+        TP = op_cases()
+        want = {n for sp in TP.OP_SPECS["quantization"]
+                for n in TP.op_names_of(sp.name)}
+        ok = want <= checked and len(want) == 18
+        log("check INT8 op sweep [%s]: %d cases, %d of the %d names "
+            "(9 ops, each under two) run on the card  %s"
+            % (card, rep["op_sweep"]["cases"], len(want & checked),
+               len(want), "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("INT8 op sweep: names")
+        rng = np.random.RandomState(21)
+        xs = rng.randn(INT8_B, 3, RESNET_HW, RESNET_HW).astype(np.float32)
+        x = mx.nd.array(xs, ctx=ctx)
+        _, prefix = export_resnet(mx, tmp, "resnet50_v1", ctx, x[:1], 0)
+        sym = mx.sym.load(prefix + "-symbol.json")
+        args, aux = mx.model.load_params(prefix + "-0000.params")
+        args = {k: v.as_in_context(ctx) for k, v in args.items()}
+        aux = {k: v.as_in_context(ctx) for k, v in aux.items()}
+        calib = rng.randn(INT8_CALIB_B * INT8_CALIB_BATCHES, 3, RESNET_HW,
+                          RESNET_HW).astype(np.float32)
+        f32 = sym.bind(ctx=ctx, args=dict(args, data=x), aux_states=aux,
+                       grad_req="null")
+        ref = f32.forward(is_train=False)[0].asnumpy()
+        for mode in ("naive", "entropy"):
+            t0 = time.perf_counter()
+            it = mx.io.NDArrayIter(calib, np.zeros(len(calib), np.float32),
+                                   INT8_CALIB_B)
+            qsym, qargs, qaux = quantize_model(
+                sym, args, aux, ctx=ctx, calib_mode=mode, calib_data=it,
+                num_calib_examples=len(calib))
+            t_q = time.perf_counter() - t0
+            ops = [n.op.name for n in qsym._nodes() if not n.is_var]
+            qexe = qsym.bind(ctx=ctx, args=dict(qargs, data=x),
+                             aux_states=qaux, grad_req="null")
+            out = qexe.forward(is_train=False)[0].asnumpy()
+            err = float(np.abs(out - ref).max())
+            top1 = float(np.mean(out.argmax(1) == ref.argmax(1)))
+            # captured forwards, in turns f32, int8, int8, f32
+            times = {"f32": [], "int8": []}
+            for name in ("f32", "int8", "int8", "f32"):
+                exe = f32 if name == "f32" else qexe
+                times[name].append(cuda_ms(
+                    lambda exe=exe: exe.forward(is_train=False),
+                    iters=INT8_TIMED))
+            vals = internals_on(mx, qsym, qargs, qaux, xs[:INT8_CHECK_B],
+                                ctx)
+            ran, n_int, bad = replay_on_cpu(mx, qsym, vals)
+            del vals
+            row = {"calibration_s": t_q,
+                   "quantized_ops": {k: ops.count(k) for k in sorted(
+                       set(ops)) if k.startswith("_contrib_")},
+                   "max_abs_err_logits": err,
+                   "max_abs_logit": float(np.abs(ref).max()),
+                   "top1_agreement": top1,
+                   "ms_per_batch": times, "replayed_nodes": ran,
+                   "int_values_compared": n_int, "replay_mismatch": bad[:8]}
+            rep[mode] = row
+            log("int8 ResNet-50 v1 (%s calibration on %d x %d images, %.1f "
+                "s) [%s]: %s; logits vs f32 at batch %d: max |diff| %.4f "
+                "(max |logit| %.4f), top-1 agreement %.3f; ms a batch f32 "
+                "%s, int8 %s (CUDA events, captured forwards, in turns)"
+                % (mode, INT8_CALIB_BATCHES, INT8_CALIB_B, t_q, card,
+                   json.dumps(row["quantized_ops"]), INT8_B, err,
+                   row["max_abs_logit"], top1,
+                   " ".join("%.3f" % v for v in times["f32"]),
+                   " ".join("%.3f" % v for v in times["int8"])))
+            ok = not bad and ran > 100 and n_int > 0 and np.isfinite(
+                out).all() and out.shape == ref.shape
+            log("check int8 ResNet-50 (%s): %d quantized nodes of the card's "
+                "forward at batch %d replayed on the CPU, %d int8/int32 "
+                "values and the float ranges bit for bit, %d differ %s  %s"
+                % (mode, ran, INT8_CHECK_B, n_int, len(bad), bad[:4],
+                   "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("int8 ResNet-50 %s" % mode)
+            del qexe
+            gc.collect()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(tmp, ignore_errors=True)
+    rep["seconds"] = time.perf_counter() - t_all
+    log("int8 phase: %.1f s" % rep["seconds"])
+    return rep
+
+
+# -------------------------------------------------- ROADMAP §C.6 probe --
+class SgdProbe:
+    """``--sgd-profile-probe``: after a phase, a torch.profiler window
+    of the grouped SGD kernel's 20 calls on ResNet-50's parameter group
+    (as ``time_sgd_kernels``), with 5 paged-attention calls, 5 flash
+    forwards and 20 of torch's own adds in the same window; logs how
+    many events of each the window holds, and the suspects' state: the
+    loaded kernel libraries and their mappings, child processes,
+    threads, ``/dev/shm`` entries and the card's compute processes."""
+
+    def __init__(self, mx, FO, PA, FA):
+        self.FO, self.PA, self.FA = FO, PA, FA
+        shapes = resnet50_shapes(mx)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        self.ws = [torch.randn(s, device="cuda", generator=g)
+                   for s in shapes]
+        self.gs = [torch.randn(s, device="cuda", generator=g) * 1e-3
+                   for s in shapes]
+        self.ms = [torch.zeros_like(w) for w in self.ws]
+        self.paged = paged_inputs(torch.device("cuda"), "bfloat16", 90)
+        self.flash = flash_inputs(torch.device("cuda"), 192, torch.bfloat16,
+                                  False, 91)[:3]
+        self.flush = torch.zeros(1 << 20, dtype=torch.uint8, device="cuda")
+        self.rows = []
+
+    def _suspects(self):
+        from mxnet_tpu_torch.kernels import _build
+        import multiprocessing
+        maps = open("/proc/self/maps").read()
+        libs = {k: hex(getattr(v, "_handle", 0)) for k, v in
+                sorted(_build._libs.items())}
+        mapped = {k: len({ln.split()[-1] for ln in maps.splitlines()
+                          if "/%s-" % k in ln and ln.endswith(".so")})
+                  for k in _build._libs}
+        try:
+            shm = len(os.listdir("/dev/shm"))
+        except OSError:
+            shm = -1
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.split()
+        return {"libs": libs, "mapped_copies": mapped,
+                "children": len(multiprocessing.active_children()),
+                "threads": threading.active_count(), "dev_shm": shm,
+                "compute_apps": len(apps)}
+
+    def _window(self, lead):
+        """One window: (device events by name in ``device_work`` and in
+        every device event, the events left out and by which rule, the
+        first device event's start less the launch span's start in ms)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile, record_function
+        FO, PA, FA = self.FO, self.PA, self.FA
+        q, pool, s, bt, pos = self.paged
+        kw = dict(lrs=[RESNET_LR] * len(self.ws), wds=[0.0] * len(self.ws),
+                  momentum=RESNET_MOM, rescale_grad=1.0 / RESNET_B,
+                  out=self.ws)
+        counts = (FO.fused_multi_sgd.sgd_mom_launches,
+                  PA.paged_attention.launches, FA.flash_fwd.launches)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            if lead:
+                time.sleep(PROFILE_LEAD_S)
+            with record_function(PROFILE_SPAN):
+                for _ in range(20):
+                    FO.fused_multi_sgd(self.ws, self.gs, self.ms, **kw)
+                for _ in range(5):
+                    PA.paged_attention(q, pool, s, bt, pos, page_size=PAGE)
+                    FA.flash_fwd(*self.flash, causal=True)
+                for _ in range(20):
+                    self.flush.add_(1)
+                torch.cuda.synchronize()
+        (FO.fused_multi_sgd.sgd_mom_launches, PA.paged_attention.launches,
+         FA.flash_fwd.launches) = counts
+        evs, dropped, how = device_work(prof)
+        raw = [ev for ev in prof.events() if ev.device_type ==
+               DeviceType.CUDA]
+        span = [ev for ev in prof.events() if ev.name == PROFILE_SPAN
+                and ev.device_type == DeviceType.CPU]
+        names = ("fused_sgd_kernel", "paged_split", "flash_fwd", FLUSH_OP)
+        offset = None
+        if raw and len(span) == 1:
+            offset = (min(ev.time_range.start for ev in raw)
+                      - span[0].time_range.start) / 1e3
+        return ({k: sum(k in ev.name for ev in evs) for k in names},
+                {k: sum(k in ev.name for ev in raw) for k in names},
+                len(dropped), how, offset)
+
+    def window(self, after):
+        """The window as ``time_sgd_kernels``'s opens (at once) and as
+        every window of the script now opens (``PROFILE_LEAD_S`` idle
+        first); logs both and the suspects."""
+        rows = {}
+        for tag, lead in (("at once", False), ("after the lead-in", True)):
+            n, n_raw, left, how, offset = self._window(lead)
+            rows[tag] = {"events": n, "raw_device_events": n_raw,
+                         "left_out": left, "rule": how,
+                         "first_device_event_minus_span_ms": offset}
+        sus = self._suspects()
+        row = {"after": after, "age_s": time.perf_counter()
+               - _PHASE["start"], **rows, **sus}
+        self.rows.append(row)
+        for tag, r in rows.items():
+            n = r["events"]
+            log("probe C.6 after %s (%.1f s), window opened %s: "
+                "fused_sgd_kernel %d of 20, paged_split %d of 5, flash_fwd "
+                "%d of 5, %s %d of 20 (every device event %s; left out %d "
+                "by %s); the first device event %s ms from the launch "
+                "span's start  %s"
+                % (after, row["age_s"], tag, n["fused_sgd_kernel"],
+                   n["paged_split"], n["flash_fwd"], FLUSH_OP, n[FLUSH_OP],
+                   json.dumps(r["raw_device_events"]), r["left_out"],
+                   r["rule"], "%.3f" % r["first_device_event_minus_span_ms"]
+                   if r["first_device_event_minus_span_ms"] is not None
+                   else "n/a",
+                   "seen" if n["fused_sgd_kernel"] >= 19 else "BLIND"))
+        log("probe C.6 suspects after %s: %s" % (after, json.dumps(sus)))
+        return row
+
+
+def disaggregated_phase(G, PA, FA, ServingEngine, params, cfg, card,
+                        failures):
+    """Phase 4e: the disaggregated cluster (``disagg_path``), then HTTP
+    over one (``disagg_http``) and the http launcher on the card
+    (``http_launcher``).  Returns (report, the workers' paged launches
+    by part, the oracle's flash launches)."""
+    from mxnet_tpu_torch import serving as S
+    started = start_http_launcher()
+    try:
+        rep, workers, flash = disagg_path(G, PA, FA, ServingEngine, params,
+                                          cfg, DEV, card, failures)
+        t0 = time.perf_counter()
+        FA.flash_fwd.launches = 0
+        rep["http"] = disagg_http(G, S, card, failures)
+        flash += FA.flash_fwd.launches
+    except BaseException:
+        started[0].kill()
+        started[0].wait()
+        raise
+    workers["HTTP over the disaggregated cluster (small f32, workers)"] = \
+        sum(d["paged_launches"] for d in rep["http"]["workers"].values())
+    rep["http_launcher"] = http_launcher(G, card, failures, started)
+    log("disaggregated HTTP and the launcher: %.1f s"
+        % (time.perf_counter() - t0))
+    return rep, workers, flash
+
+
 def shared_prefix(seed):
     """The shared prefix of ``workload(seed, F)``: the seeded
     generator's first draw."""
@@ -5677,11 +6949,12 @@ def op_cases():
     return _torch_port
 
 
-def op_sweep(mx, failures, checked):
-    """Every case of ``OP_SPECS`` through the port on the card and on the
-    CPU from the same inputs, forward and (where differentiable)
-    backward, TF32 off, within ``CARD_TOL`` of its family; each alias
-    of an op runs the op's first case under that name.  The grouped SGD
+def op_sweep(mx, failures, checked, modules=None, skip=()):
+    """Every case of ``OP_SPECS`` (of ``modules``, else all but ``skip``)
+    through the port on the card and on the CPU from the same inputs,
+    forward and (where differentiable) backward, TF32 off, within
+    ``CARD_TOL`` of its family; each alias of an op runs the op's first
+    case under that name.  The grouped SGD
     ops take their per-tensor loop (``MXNET_FUSED_OPTIMIZER=0``): their
     kernel is held in the kernel checks.  Returns the count of cases
     run and the worst error of each family."""
@@ -5691,6 +6964,9 @@ def op_sweep(mx, failures, checked):
     os.environ["MXNET_FUSED_OPTIMIZER"] = "0"
     try:
         for module, specs in TP.OP_SPECS.items():
+            if (modules is not None and module not in modules) or \
+                    module in skip:
+                continue
             seen = set()
             for spec in specs:
                 names = [spec.name]
@@ -6096,6 +7372,10 @@ def sequential_on_card(mx, failures):
     return acc
 
 
+# op families whose card-vs-CPU cases run in a phase of their own
+OWN_SWEEPS = ("_np_ops", "quantization")
+
+
 def library_path(mx, failures):
     """The ``library`` phase, every registered launch counter from 0 (all
     but ``nms_keep``, which the vision ops' cases launch, stay 0): the op
@@ -6111,13 +7391,18 @@ def library_path(mx, failures):
         for h, a in counters:
             setattr(h, a, 0)
         t0 = time.perf_counter()
-        nums["sweep"] = op_sweep(mx, failures, checked)
+        # the _np_* and INT8 ops' cases run in their own phases
+        nums["sweep"] = op_sweep(mx, failures, checked, skip=OWN_SWEEPS)
         nums["random"] = random_on_card(mx, failures, checked)
         t_sweep = time.perf_counter() - t0
-        missed = sorted(set(reg.list_ops()) - checked - {"Custom"})
+        TP = op_cases()
+        own = {n for m in OWN_SWEEPS for sp in TP.OP_SPECS[m]
+               for n in TP.op_names_of(sp.name)}
+        missed = sorted(set(reg.list_ops()) - checked - {"Custom"} - own)
         log("check op sweep coverage: %d of %d registered op names run on "
-            "the card (Custom aside); missed %s  %s"
-            % (len(checked), len(reg.list_ops()), missed,
+            "the card (Custom and the %d names of %s aside); missed %s  %s"
+            % (len(checked), len(reg.list_ops()), len(own),
+               "/".join(OWN_SWEEPS), missed,
                "ok" if not missed else "FAIL"))
         if missed:
             failures.append("op sweep missed %s" % missed)
@@ -7236,7 +8521,7 @@ def detection_path(mx, failures, flush):
 # stem, CIFAR-10's train size drawn by the synthetic dataset (the files
 # are not fetched), bs 128, SGD lr 0.1 momentum 0.9 wd 5e-4, f32
 DATA_N, DATA_B, DATA_WORKERS = 50000, 128, 4
-DATA_BATCHES = 150          # the main fit, 4 workers
+DATA_BATCHES = 100          # the main fit, 4 workers
 DATA_VAL = 3                # validation batches, run once after the fit's last
 DATA_CEILING = 60           # the same step fed from batches on the card
 DATA_W0 = 30                # the same step from a loader with no workers
@@ -8353,7 +9638,7 @@ def time_image_aug(IA, buf, table, sizes, flush):
 # the kvstore phase: two worker processes and one server on the card,
 # started by the port's launcher (tests/_torch_dist_worker.py --resnet),
 # held to a replay in this process; then the in-process stores
-KV_STEPS, KV_COMPRESSED_STEPS = 4, 2
+KV_STEPS, KV_COMPRESSED_STEPS = 3, 2
 KV_TIMEOUT = 300                # seconds a launcher run may take
 KV_SPLIT_BYTES = 512 << 10      # an ici bucket size that splits buckets
 
@@ -8945,11 +10230,13 @@ def main(argv):
     elif argv[:1] == ["--decode-profile-probe"] and len(argv) == 3 \
             and argv[2] in ("raw", "port"):
         pass
+    elif argv == ["--sgd-profile-probe"]:
+        SGD_PROBE["on"] = True
     elif argv:
         print("usage: chip_smoke.py [--parent DIR | --image-profile-probe "
               "stopped|alive|none|every RUNS [nvjpeg|host|resident] | "
               "--thread-profile-probe WINDOWS | --decode-profile-probe "
-              "WINDOWS raw|port]", file=sys.stderr)
+              "WINDOWS raw|port | --sgd-profile-probe]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -9164,6 +10451,27 @@ def main(argv):
     torch.cuda.empty_cache()
 
     phase("serving cluster")
+    # ---- 4f. the HTTP front door at full width: the load proof over a
+    # two-replica cluster, the same trace by direct submit, the TTFB gate;
+    # each cluster's paged counter from 0 once warm
+    report["http"], http_launches, http_flash = http_path(
+        G, PA, FA, ServingEngine, params, cfg, card, failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("http front door")
+    probe = None
+    if SGD_PROBE["on"]:
+        # ROADMAP.md §C.6: the disaggregated phase here, before the
+        # profiled phases, then the grouped SGD kernel's window after it
+        # and after every later phase
+        probe = SgdProbe(mx, FO, PA, FA)
+        probe.window("http front door (before disaggregated serving)")
+        disagg_rep = disaggregated_phase(G, PA, FA, ServingEngine, params,
+                                         cfg, card, failures)
+        phase("disaggregated serving")
+        probe.window("disaggregated serving")
+        _PHASE["hook"] = probe.window
     # ---- 6. the training paths, each with its own counters from 0
     bert_cfg = T_.bert_base(**BERT)
     init_state, step = T_.make_train_step(bert_cfg, learning_rate=1e-4,
@@ -9257,6 +10565,28 @@ def main(argv):
     report["library"] = library_path(mx, failures)
 
     phase("library")
+    # ---- 7d2. test_utils on the card: check_consistency over [cpu(0),
+    # gpu(0)] for a few ops of the sweep, forward and gradients
+    report["test_utils"] = test_utils_on_card(mx, card, failures)
+
+    phase("test_utils")
+    # ---- 7d3. mx.np on the card: every _np_* case card vs CPU, and the
+    # MLP on mx.np arrays under set_np bit for bit against NDArrays
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["np"] = np_path(mx, card, failures)
+
+    phase("mx.np")
+    # ---- 7d4. INT8 quantization: ResNet-50 v1 through quantize_model
+    # (naive and entropy), the card's quantized nodes replayed on the CPU
+    # bit for bit, logits against f32, ms a batch int8 against f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["int8"] = int8_path(mx, card, failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("int8 quantization")
     # ---- 7e. recurrent networks: the RNN op, gluon.rnn and the control
     # flow on the card against the CPU, MXNet's word language model at
     # full width, the LSTM beside cuDNN's; every launch counter from 0
@@ -9351,7 +10681,8 @@ def main(argv):
                 options_launches,
             "telemetry and tier": tier_launches["paged_attention"],
             **{k.rsplit(", ", 1)[0]: n for k, n in cluster_launches.items()
-               if k.endswith("paged_attention")}},
+               if k.endswith("paged_attention")},
+            **http_launches},
         "launches_note": "calls, two kernel launches each",
         "max_abs_err": errs["paged"], "tolerance": PAGED_TOL_TEXT,
         **time_paged(PA, q, pool, s, bt, pos, flush),
@@ -9372,6 +10703,8 @@ def main(argv):
                "serving cluster (generate oracle)": {
                    "flash_fwd": cluster_launches[
                        "serving cluster (generate oracle), flash_fwd"]},
+               "http front door (generate beside the oracle)": {
+                   "flash_fwd": http_flash},
                "bert": bert_launches, "gpt": gpt_launches,
                "bert remat dots": report["remat"]["dots"]["flash_launches"],
                "bert scan_steps=%d" % SCAN_K: scan_launches}
@@ -9533,18 +10866,20 @@ def main(argv):
                 want, failures)
     phase("small models")
     # ---- 4e. disaggregated serving, last: prefill and decode worker
-    # processes on the card, KV pages streamed between them; the
-    # workers' paged launches from their stats, the oracle's flash
-    # launches from 0.  (Run after every profiled phase: in the two
-    # whole runs that ran it right after the serving cluster, the
-    # profiler later recorded none of the grouped SGD kernel's launches,
-    # ROADMAP.md §C.6.)
+    # processes on the card, KV pages streamed between them, then HTTP
+    # over such a cluster and the http launcher; the workers' paged
+    # launches from their stats, the oracle's flash launches from 0.
+    # (Run after every profiled phase: in the two whole runs that ran it
+    # right after the serving cluster, the profiler later recorded none
+    # of the grouped SGD kernel's launches, ROADMAP.md §C.6.)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    if probe is None:
+        disagg_rep = disaggregated_phase(G, PA, FA, ServingEngine, params,
+                                         cfg, card, failures)
     report["disaggregated_serving"], disagg_launches, disagg_flash = \
-        disagg_path(G, PA, FA, ServingEngine, params, cfg, dev, card,
-                    failures)
+        disagg_rep
     for row in kernels:
         if row["name"] == "paged_attention":
             row["launches_by_path"].update(disagg_launches)
@@ -9552,7 +10887,10 @@ def main(argv):
             row["launches_by_path"][
                 "disaggregated serving (generate oracle)"] = disagg_flash
             row["launches"] += disagg_flash
-    phase("disaggregated serving")
+    if probe is None:
+        phase("disaggregated serving")
+    else:
+        log("probe C.6 windows: %s" % json.dumps(probe.rows))
     log("info: compiled steps: %s" % json.dumps(report))
 
     log("chip_smoke: %.1f s in all" % (time.perf_counter() - t_start))

@@ -20,9 +20,11 @@ the parameter server's ``dist_*`` among them),
 ``mx.library``, ``mx.contrib.amp``, ``mx.parallel``
 (``DataParallelTrainer``), the symbolic API (``mx.sym``/``mx.symbol``,
 ``mx.mod``, ``mx.io``, ``mx.metric``, ``mx.model``, ``mx.callback``,
-``mx.name``, ``mx.AttrScope``), ``mx.recordio``, ``mx.image`` (decode,
-resize, augmenters, ``ImageIter``, ``ImageDetIter``), ``mx.native`` (the
-host runtime in C++), ``mx.models`` (the transformer and GPT
+``mx.name``, ``mx.AttrScope``), ``mx.np`` and ``mx.npx`` (the NumPy
+API, ``mx.util``'s ``set_np`` switch), ``mx.test_utils``,
+``mx.recordio``, ``mx.image`` (decode, resize, augmenters,
+``ImageIter``, ``ImageDetIter``), ``mx.native`` (the host runtime in
+C++), ``mx.models`` (the transformer and GPT
 train steps), ``mx.profiler``, ``mx.obs``, ``mx.cpu()``,
 ``mx.cpu_pinned()``, ``mx.gpu(i)`` and ``mx.num_gpus()``; the default
 context is the card.  ``mx.tpu()`` refuses and ``mx.num_tpus()`` is 0.
@@ -84,3 +86,7 @@ from . import image, native  # noqa: E402
 from . import module  # noqa: E402
 from . import module as mod  # noqa: E402
 from . import models, profiler, obs  # noqa: E402,F401
+from . import util  # noqa: E402
+from . import numpy as np  # noqa: E402  (registers the _np_* ops)
+from . import numpy_extension as npx  # noqa: E402
+from . import test_utils  # noqa: E402

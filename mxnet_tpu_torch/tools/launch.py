@@ -21,7 +21,7 @@ takes its role from its MPI or slurm rank through a small shim), and
 ``sge`` (a ``qsub`` job array).  ``yarn`` is refused, as in the
 reference.  ``serve`` starts a disaggregated serving cluster's router
 command and its prefill and decode workers (:func:`launch_serve`);
-``http``, the HTTP front door, is not ported (``ROADMAP.md`` item 8c).
+``http`` runs the HTTP/SSE front door (:func:`launch_http`).
 
 The local launcher stops the servers when the workers are done, and
 stops every process when one worker fails.
@@ -284,10 +284,42 @@ def launch_serve(args, command):
     return code
 
 
+_HTTP = ("import sys; from mxnet_tpu_torch.serving.http_frontend import "
+         "main; sys.exit(main(sys.argv[1:]))")
+
+
 def launch_http(args, command):
-    from ..base import not_ported
-    raise not_ported("the http launcher (ROADMAP.md item 8)",
-                     "tools/launch.py launch_http")
+    """Run the streaming HTTP/SSE server
+    (``mxnet_tpu_torch.serving.http_frontend``) as the foreground process.
+    The command's tokens go to its CLI (``--disagg``, ``--replicas N``,
+    ``--keys FILE|JSON``, ``--device``, the model's shape); ``-p``
+    is its listening port (default: ``MXNET_SERVE_HTTP_PORT``, else one
+    the OS assigns, printed as JSON at startup).  The server serves a
+    GPT with seeded random weights; a deployment embeds
+    :class:`mxnet_tpu_torch.serving.HttpFrontend` over its own cluster
+    (``docs/http_api.md``)."""
+    command = list(command)
+    if command[:1] == ["--"]:              # argparse.REMAINDER keeps it
+        command = command[1:]
+    # a -c entry, not -m: the serving package imports http_frontend when
+    # it is imported, so runpy would warn about a second module object
+    cmd = [sys.executable, "-c", _HTTP]
+    if args.port:
+        cmd += ["--port", str(args.port)]
+    cmd += command
+    proc = subprocess.Popen(cmd, env=_with_root(dict(os.environ)))
+    # a SIGTERM to the launcher stops the server the way ^C does: it
+    # closes its front door and its cluster, and the launcher returns
+    # its exit code
+    prev = signal.signal(signal.SIGTERM,
+                         lambda *a: proc.send_signal(signal.SIGTERM))
+    try:
+        return proc.wait()
+    except KeyboardInterrupt:
+        proc.send_signal(signal.SIGTERM)
+        return proc.wait()
+    finally:
+        signal.signal(signal.SIGTERM, prev)
 
 
 def main(argv=None):

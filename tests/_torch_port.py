@@ -297,6 +297,9 @@ def _p(*s): return ("p", s)
 def _g(*s): return ("g", s)
 def _s(*s): return ("s", s)
 def _i(k, *s): return ("i", s, k)
+def _ii(k, *s, lo=0): return ("ii", s, k, lo)
+def _q8(*s): return ("q8", s)
+def _u8(*s): return ("u8", s)
 def _b(*s): return ("b", s)
 def _c(a, dtype="float32"): return ("c", np.asarray(a, dtype=dtype))
 def _h(*s): return ("n16", s)
@@ -375,6 +378,12 @@ def make_input(kind, rng):
                 + rng.uniform(0, 0.1, n)).reshape(shape).astype(np.float32)
     if k == "i":
         return rng.randint(0, kind[2], shape).astype(np.float32)
+    if k == "ii":
+        return rng.randint(kind[3], kind[2], shape).astype(np.int32)
+    if k == "q8":
+        return rng.randint(-127, 128, shape).astype(np.int8)
+    if k == "u8":
+        return rng.randint(0, 256, shape).astype(np.uint8)
     if k == "b":
         return (rng.rand(*shape) > 0.5).astype(np.float32)
     if k == "spd":
@@ -408,7 +417,7 @@ def run_case(mx, spec, arrays, ctx=None, name=None, head_seed=7):
     """``spec`` through package ``mx`` (either one) on ``arrays``:
     (outputs, the inputs after the call, gradients of the
     differentiated inputs or None), all numpy."""
-    fn = getattr(mx.nd, name or spec.name)
+    fn = op_function(mx, name or spec.name)
     kw = {} if ctx is None else {"ctx": ctx}
     creation = not arrays
     if creation and ctx is not None:
@@ -434,6 +443,20 @@ def run_case(mx, spec, arrays, ctx=None, name=None, head_seed=7):
         y.backward(mx.nd.array(head, **kw))
         grads = [xs[j].grad.asnumpy() for j in wrt]
     return outs, after, grads
+
+
+def op_function(mx, name):
+    """``mx.nd.<name>``; an ``_np_*`` op, which neither package puts in
+    ``nd``, through its registry's ``invoke`` (as ``mx.np`` calls it)."""
+    if not name.startswith("_np_"):
+        return getattr(mx.nd, name)
+    reg = __import__(mx.__name__ + ".ops.registry", fromlist=["registry"])
+    op = reg.get_op(name)
+
+    def fn(*xs, ctx=None, **attrs):
+        arrays = list(xs[0]) if op.variadic and xs else list(xs)
+        return reg.invoke(op, arrays, (), attrs, ctx=ctx)
+    return fn
 
 
 def op_no_grad(spec):
@@ -472,6 +495,16 @@ def canon(spec, outs):
         l, q = outs
         sgn = np.sign(np.diagonal(l, axis1=-2, axis2=-1))[..., None]
         return [l * np.swapaxes(sgn, -1, -2), q * sgn]
+    if spec.cmp == "npeig":             # (w, v), v's columns the vectors
+        w, v = outs
+        sgn = np.sign(np.take_along_axis(
+            v, np.abs(v).argmax(-2)[..., None, :], -2))
+        return [w, v * sgn]
+    if spec.cmp == "svd":               # (u, s, vh): u's columns, vh's rows
+        u, sv, vh = outs
+        sgn = np.sign(np.take_along_axis(
+            u, np.abs(u).argmax(-2)[..., None, :], -2))
+        return [u * sgn, sv, vh * np.swapaxes(sgn, -1, -2)]
     return outs
 
 
@@ -1196,18 +1229,365 @@ def _vision_ext_specs():
     ]
 
 
+def _srt(*vals):
+    return _c(np.sort(np.asarray(vals, dtype=np.float32)))
+
+
+def _np_specs():
+    """``mx.np``'s ``_np_*`` ops (``numpy/_np_ops.py``): every name, with
+    integer, bool and float inputs where the reference's dtypes differ
+    from torch's (sums of integers and bools are int32, means float32,
+    index outputs int32)."""
+    S = Spec
+    x34, x234 = _n(3, 4), _n(2, 3, 4)
+    specs = [
+        S("_np_reshape", [x234], {"newshape": (4, -1)}),
+        S("_np_reshape", [x234], {"newshape": (3, 8), "order": "F"}),
+        S("_np_transpose", [x234]),
+        S("_np_transpose", [x234], {"axes": (1, 2, 0)}),
+        S("_np_concatenate", [_n(2, 3), _n(1, 3)], variadic=True),
+        S("_np_concatenate", [_n(2, 3), _n(2, 1)], {"axis": 1},
+          variadic=True),
+        S("_np_concatenate", [_n(2, 3), _n(4)], {"axis": None},
+          variadic=True),
+        S("_np_stack", [x34, x34], {"axis": 1}, variadic=True),
+        S("_np_column_stack", [_n(3), _n(3, 2)], variadic=True),
+        S("_np_split", [_n(4, 3)], {"indices_or_sections": 2}),
+        S("_np_split", [_n(3, 5)], {"indices_or_sections": [1, 3],
+                                    "axis": 1}),
+        S("_np_pad", [x34], {"pad_width": ((1, 2), (0, 1))}),
+        S("_np_pad", [x34], {"pad_width": 1, "constant_values": 2.5}),
+        S("_np_pad", [x34], {"pad_width": ((1, 1), (2, 0)),
+                             "mode": "reflect"}),
+        S("_np_pad", [x34], {"pad_width": 2, "mode": "edge"}),
+        S("_np_pad", [x34], {"pad_width": ((0, 2), (1, 1)),
+                             "mode": "wrap"}),
+        S("_np_pad", [x34], {"pad_width": 1, "mode": "symmetric"}),
+        S("_np_moveaxis", [x234], {"source": 0, "destination": 2}),
+        S("_np_rollaxis", [x234], {"axis": 2, "start": 0}),
+        S("_np_rollaxis", [x234], {"axis": 0, "start": 3}),
+        S("_np_roll", [x34], {"shift": 2, "axis": 1}),
+        S("_np_roll", [x34], {"shift": -3}),
+        S("_np_rot90", [x234], {"k": 1, "axes": (1, 2)}),
+        S("_np_rot90", [x34], {"k": 3}),
+        S("_np_flip", [x234], {"axis": 1}),
+        S("_np_flip", [x34]),
+        S("_np_fliplr", [x34]),
+        S("_np_flipud", [x34]),
+        S("_np_trace", [_n(4, 4)], {"offset": 1}),
+        S("_np_trace", [_ii(9, 3, 4, 2)], {"axis1": 1, "axis2": 2},
+          fam="exact"),
+        S("_np_tril", [_n(4, 5)], {"k": -1}),
+        S("_np_triu", [_n(4, 5)], {"k": 1}),
+        S("_np_diag", [_n(4)], {"k": 1}),
+        S("_np_diag", [_n(4, 4)], {"k": -1}),
+        S("_np_diagonal", [x234], {"offset": 1, "axis1": 1, "axis2": 2}),
+        S("_np_broadcast_to", [_n(3, 1)], {"shape": (2, 3, 4)}),
+        S("_np_expand_dims", [x34], {"axis": 1}),
+        S("_np_expand_dims", [x34], {"axis": (0, 3)}),
+        S("_np_squeeze", [_n(3, 1, 4, 1)]),
+        S("_np_squeeze", [_n(3, 1, 4, 1)], {"axis": 1}),
+        S("_np_swapaxes", [x234], {"axis1": 0, "axis2": 2}),
+        S("_np_flatten", [x234]),
+        S("_np_repeat", [x34], {"repeats": 2, "axis": 1}),
+        S("_np_repeat", [x34], {"repeats": 3}),
+        S("_np_tile", [x34], {"reps": (2, 1, 2)}),
+        S("_np_tile", [_n(3)], {"reps": 2}),
+        S("_np_sort", [x34], {"axis": 0}),
+        S("_np_sort", [x34], {"axis": None}),
+        S("_np_argsort", [x34], fam="exact"),
+        S("_np_take", [_n(5, 3), _ii(8, 4, lo=-2)], {"axis": 0}),
+        S("_np_take", [_n(5, 3), _ii(20, 2, 2, lo=-3)],
+          {"mode": "wrap"}),
+        S("_np_take_along_axis", [x34, _ii(4, 3, 2)], {"axis": 1}),
+        S("_np_where", [_b(3, 4), x34, _n(4)]),
+        S("_np_meshgrid", [_n(3), _n(4)], variadic=True),
+        S("_np_meshgrid", [_n(3), _n(2)], {"indexing": "ij"},
+          variadic=True),
+        # products and linear algebra
+        S("_np_matmul", [x234, _n(4, 5)]),
+        S("_np_tensordot", [x234, _n(4, 3)], {"axes": ((1, 2), (1, 0))}),
+        S("_np_tensordot", [x34, _n(4, 2)], {"axes": 1}),
+        S("_np_einsum", [x34, _n(4, 5)], {"subscripts": "ij,jk->ik"},
+          variadic=True),
+        S("_np_einsum", [x234], {"subscripts": "bij->ji"},
+          variadic=True),
+        S("_np_outer", [_n(3), _n(2, 2)]),
+        S("_np_inner", [x34, _n(2, 4)]),
+        S("_np_kron", [_n(2, 3), _n(2, 2)]),
+        S("_np_vdot", [x34, x34]),
+        S("_np_cross", [_n(4, 3), _n(4, 3)]),
+        S("_np_linalg_norm", [x34], fam="linalg"),
+        S("_np_linalg_norm", [x34], {"ord": "fro", "axis": (0, 1)},
+          fam="linalg"),
+        S("_np_linalg_norm", [x234], {"ord": 1, "axis": 2,
+                                      "keepdims": True}, fam="linalg"),
+        S("_np_linalg_inv", [("spd", (4, 4))], fam="linalg"),
+        S("_np_linalg_det", [("spd", (2, 3, 3))], fam="linalg"),
+        S("_np_linalg_slogdet", [("spd", (4, 4))], fam="linalg",
+          grad_out=1),
+        S("_np_linalg_cholesky", [("spd", (4, 4))], fam="linalg",
+          fd_sym=True),
+        S("_np_linalg_qr", [_n(4, 3)], fam="linalg", grad_out=1),
+        S("_np_linalg_svd", [_n(4, 3)], fam="linalg", grad_out=1,
+          cmp="svd"),
+        S("_np_linalg_eigh", [("spd", (4, 4))], fam="linalg",
+          cmp="npeig", fd_sym=True),
+        S("_np_linalg_eigvalsh", [("spd", (4, 4))], fam="linalg",
+          fd_sym=True),
+        S("_np_linalg_solve", [("spd", (4, 4)), _n(4, 2)], fam="linalg"),
+        S("_np_linalg_lstsq", [_n(6, 3), _n(6, 2)], fam="linalg"),
+        S("_np_linalg_pinv", [_n(4, 3)], fam="linalg"),
+        S("_np_linalg_matrix_rank", [("spd", (4, 4))], fam="exact"),
+        S("_np_linalg_matrix_power", [_n(3, 3)], {"n": 3},
+          fam="linalg"),
+        # reductions
+        S("_np_sum", [x234], {"axis": (0, 2)}, fam="reduce"),
+        S("_np_sum", [_ii(9, 3, 4)], {"axis": 1}, fam="exact"),
+        S("_np_sum", [_c(np.array([[True, False], [True, True]]),
+                         dtype=bool)], fam="exact"),
+        S("_np_sum", [x34], {"dtype": "float32", "keepdims": True},
+          fam="reduce"),
+        S("_np_mean", [x234], {"axis": [1]}, fam="reduce"),
+        S("_np_mean", [_ii(9, 3, 4)], fam="reduce"),
+        S("_np_prod", [_p(3, 4)], {"axis": 1}, fam="reduce"),
+        S("_np_prod", [_ii(4, 2, 3, lo=1)], fam="exact"),
+        S("_np_max", [x234], {"axis": 0, "keepdims": True}),
+        S("_np_min", [x234], {"axis": (1, 2)}),
+        S("_np_std", [x234], {"axis": 2}, fam="reduce"),
+        S("_np_var", [x34], {"ddof": 1}, fam="reduce"),
+        S("_np_median", [x234], {"axis": 2}, fam="reduce"),
+        S("_np_median", [_n(3, 5)], fam="reduce"),
+        S("_np_all", [_b(3, 4)], {"axis": 1}, fam="exact"),
+        S("_np_any", [_b(3, 4)], {"axis": (0, 1)}, fam="exact"),
+        S("_np_nanmean", [x34], {"axis": 0}, fam="reduce"),
+        S("_np_nanmean", [_c([[1.0, np.nan, 3.0], [np.nan, 2.0, 4.0]])],
+          {"axis": 1}, fam="reduce", grad=False),
+        S("_np_average", [x34], {"axis": 1}, fam="reduce"),
+        S("_np_average", [x34, _p(4)], {"axis": 1}, fam="reduce"),
+        S("_np_cumsum", [x34], {"axis": 1}, fam="reduce"),
+        S("_np_cumsum", [_ii(9, 3, 4)], fam="exact"),
+        S("_np_cumprod", [_p(3, 4)], {"axis": 0}, fam="reduce"),
+        S("_np_ptp", [x34], {"axis": 1}),
+        # search and logic
+        S("_np_unique", [_i(4, 3, 5)], fam="exact"),
+        S("_np_nonzero", [_b(3, 4)], fam="exact"),
+        S("_np_bincount", [_ii(5, 10)], {"minlength": 7}, fam="exact"),
+        S("_np_searchsorted", [_srt(-1.0, 0.0, 0.5, 2.0), _n(3, 2)],
+          fam="exact"),
+        S("_np_searchsorted", [_srt(-1.0, 0.0, 0.5, 2.0),
+                               _c([0.0, 0.5, 3.0])], {"side": "right"},
+          fam="exact"),
+        S("_np_isclose", [x34, x34], fam="exact"),
+        S("_np_isclose", [_c([1.0, 1.0, np.nan]), _c([1.0 + 1e-6, 1.1,
+                                                     np.nan])],
+          {"equal_nan": True}, fam="exact"),
+        S("_np_allclose", [x34, x34], fam="exact"),
+        S("_np_array_equal", [x34, x34], fam="exact"),
+        S("_np_array_equal", [_n(3), _n(3)], fam="exact"),
+        # binary elementwise
+        S("_np_floor_divide", [_n(3, 4), _p(4)]),
+        S("_np_floor_divide", [_ii(20, 3, 4, lo=-20), _ii(5, 4, lo=1)],
+          fam="exact"),
+        S("_np_fmod", [_n(3, 4), _p(3, 4)]),
+        S("_np_arctan2", [x34, _n(4)], fam="transc"),
+        S("_np_hypot", [x34, _n(3, 1)], fam="transc"),
+        S("_np_copysign", [x34, _n(4)]),
+        S("_np_logaddexp", [x34, _n(3, 4)], fam="transc"),
+        S("_np_logaddexp2", [x34, _n(3, 4)], fam="transc"),
+        S("_np_heaviside", [_c([-1.5, 0.0, 2.0, 0.0]), _u(4)]),
+        S("_np_bitwise_and", [_ii(64, 3, 4), _ii(64, 4)], fam="exact"),
+        S("_np_bitwise_or", [_ii(64, 3, 4), _ii(64, 4)], fam="exact"),
+        S("_np_bitwise_xor", [_ii(64, 3, 4), _ii(64, 4)], fam="exact"),
+        S("_np_left_shift", [_ii(64, 3, 4), _ii(5, 4)], fam="exact"),
+        S("_np_right_shift", [_ii(64, 3, 4), _ii(5, 4)], fam="exact"),
+        S("_np_gcd", [_ii(40, 3, 4), _ii(40, 4)], fam="exact"),
+        S("_np_lcm", [_ii(12, 3, 4), _ii(12, 4)], fam="exact"),
+        S("_np_fmax", [x34, _n(4)]),
+        S("_np_fmin", [x34, _c([0.1, np.nan, -0.2, 0.3])], grad=False),
+        S("_np_float_power", [_p(3, 4), _n(4)], fam="transc"),
+        S("_np_ldexp", [x34, _ii(4, 4, lo=-3)], fam="exact"),
+        S("_np_nextafter", [x34, _n(3, 4)], fam="exact", grad=False),
+        S("_np_divmod", [_n(3, 4), _p(4)], grad_out=1),
+        S("_np_interp", [_n(6), _srt(-1.5, -0.5, 0.0, 1.0, 2.0),
+                         _n(5)]),
+        S("_np_polyval", [_n(4), _n(3, 2)]),
+        S("_np_convolve", [_n(5), _n(3)]),
+        S("_np_convolve", [_n(3), _n(6)], {"mode": "same"}),
+        S("_np_correlate", [_n(6), _n(3)]),
+        S("_np_correlate", [_n(3), _n(5)], {"mode": "full"}),
+        S("_np_isin", [_i(6, 3, 4), _c([1.0, 3.0])], fam="exact"),
+        S("_np_in1d", [_i(6, 3, 4), _c([0.0, 2.0, 5.0])], fam="exact"),
+        # unary and the rest of the generated long tail
+        S("_np_clip", [x34], {"a_min": -0.5, "a_max": 0.7}),
+        S("_np_clip", [x34], {"a_max": 0.2}),
+        S("_np_round", [_n(3, 4)], {"decimals": 0}),
+        S("_np_round", [_ii(50, 4, lo=-50)], fam="exact"),
+        S("_np_nan_to_num", [_c([1.0, np.nan, np.inf, -np.inf, -2.0])],
+          fam="exact"),
+        S("_np_nan_to_num", [_c([1.0, np.nan, np.inf, -np.inf])],
+          {"nan": 5.0, "posinf": 9.0, "neginf": -9.0}, fam="exact"),
+        S("_np_real", [x34]),
+        S("_np_imag", [x34]),
+        S("_np_conj", [x34]),
+        S("_np_angle", [_c([-1.0, 2.0, 0.0, -0.5])], fam="transc"),
+        S("_np_sinc", [x34], fam="transc"),
+        S("_np_i0", [x34], fam="special"),
+        S("_np_deg2rad", [x34], fam="transc"),
+        S("_np_rad2deg", [x34], fam="transc"),
+        S("_np_deg2rad", [_ii(360, 5)], fam="transc"),
+        S("_np_positive", [x34]),
+        S("_np_signbit", [_c([-1.0, 0.0, -0.0, 2.0])], fam="exact"),
+        S("_np_spacing", [_c([1.0, -2.0, 1e-3, 0.5])], fam="exact"),
+        S("_np_frexp", [_c([1.5, -2.25, 3.0, 0.0, 1e-3])], fam="exact"),
+        S("_np_modf", [_n(3, 4)]),
+        S("_np_nanmax", [x34], {"axis": 1}),
+        S("_np_nanmin", [_c([[1.0, np.nan], [np.nan, np.nan]])],
+          {"axis": 1}, grad=False),
+        S("_np_nanstd", [x34], {"axis": 0}, fam="reduce"),
+        S("_np_nanvar", [_c([[1.0, np.nan, 3.0], [np.nan, 2.0, 4.5]])],
+          {"axis": 1, "ddof": 1}, fam="reduce", grad=False),
+        S("_np_nanargmax", [_c([[1.0, np.nan, 3.0], [0.5, 2.0, 1.0]])],
+          {"axis": 1}, fam="exact"),
+        S("_np_nanargmin", [x34], fam="exact"),
+        S("_np_count_nonzero", [_b(3, 4)], {"axis": 0}, fam="exact"),
+        S("_np_count_nonzero", [_b(3, 4)], fam="exact"),
+        S("_np_argwhere", [_b(3, 4)], fam="exact"),
+        S("_np_flatnonzero", [_b(3, 4)], fam="exact"),
+        S("_np_unwrap", [_c([0.0, 3.0, 6.5, 1.0, -3.5, 0.5])],
+          fam="transc"),
+        S("_np_vander", [_n(4)], {"N": 3}),
+        S("_np_vander", [_n(3)], {"increasing": True}),
+        S("_np_gradient", [_n(4, 5)]),
+        S("_np_gradient", [_n(6)]),
+        S("_np_percentile", [x34], {"q": 30.0, "axis": 1}, fam="reduce"),
+        S("_np_quantile", [_n(10)], {"q": np.array([0.1, 0.5, 0.9])},
+          fam="reduce"),
+        S("_np_cov", [_n(3, 6)], fam="reduce"),
+        S("_np_cov", [_n(6, 3)], {"rowvar": False, "bias": True},
+          fam="reduce"),
+        S("_np_histogram", [_n(20)], {"bins": 5}, fam="reduce"),
+        S("_np_histogram", [_n(20)], {"bins": 4, "range": (-1.0, 1.0)},
+          fam="reduce"),
+        S("_np_digitize", [_n(3, 4), _srt(-1.0, 0.0, 0.5)], fam="exact"),
+        S("_np_digitize", [_c([0.0, 0.5, 0.7]), _srt(-1.0, 0.0, 0.5)],
+          {"right": True}, fam="exact"),
+        S("_np_diff", [x34], {"n": 2, "axis": 1}),
+        S("_np_trapz", [x34], {"dx": 0.5}, fam="reduce"),
+        S("_np_ediff1d", [x34]),
+        # creation ops of the long tail (no array input)
+        S("_np_bartlett", [], {"M": 7}, fam="transc"),
+        S("_np_blackman", [], {"M": 8}, fam="transc"),
+        S("_np_hamming", [], {"M": 6}, fam="transc"),
+        S("_np_hanning", [], {"M": 9}, fam="transc"),
+        S("_np_kaiser", [], {"M": 7, "beta": 4.0}, fam="special"),
+        S("_np_tri", [], {"N": 3, "M": 5, "k": 1}, fam="exact"),
+        S("_np_indices", [], {"dimensions": (2, 3)}, fam="exact"),
+    ]
+    return specs
+
+
+def _qrange(lo, hi):
+    return [_c(np.float32(lo)), _c(np.float32(hi))]
+
+
+def _quant_specs():
+    """The INT8 ops (``ops/quantization.py``): integer outputs, and the
+    float ranges and dequantized values, bit for bit (the tests run the
+    reference unjitted: its jit contracts a multiply-add into an FMA)."""
+    S = Spec
+
+    def q(name, inputs, attrs=None):
+        return S(name, inputs, attrs, fam="exact", grad=False)
+
+    fc_w, fc_b = _q8(5, 16), _q8(5)
+    conv = {"kernel": (3, 3), "num_filter": 6, "no_bias": True}
+    return [
+        q("_contrib_quantize", [_n(4, 7)] + _qrange(-1.5, 2.5),
+          {"out_type": "int8"}),
+        q("_contrib_quantize", [_p(4, 7)] + _qrange(0.4, 2.1),
+          {"out_type": "uint8"}),
+        q("_contrib_quantize_v2", [_n(4, 7)], {"out_type": "int8"}),
+        q("_contrib_quantize_v2", [_n(3, 5)],
+          {"out_type": "int8", "min_calib_range": -1.0,
+           "max_calib_range": 0.75}),
+        q("_contrib_quantize_v2", [_p(3, 5)],
+          {"out_type": "auto", "min_calib_range": 0.5,
+           "max_calib_range": 1.7}),
+        q("_contrib_quantize_v2", [_p(3, 5)], {"out_type": "uint8"}),
+        q("_contrib_dequantize", [_q8(4, 6)] + _qrange(-0.7, 1.3)),
+        q("_contrib_dequantize", [_u8(4, 6)] + _qrange(0.2, 3.1)),
+        q("_contrib_dequantize", [_ii(2 ** 24, 4, 6, lo=-2 ** 24)]
+          + _qrange(-3.0e4, 2.5e4)),
+        q("_contrib_requantize", [_ii(2 ** 28, 4, 6, lo=-2 ** 28)]
+          + _qrange(-812.5, 812.5)),
+        q("_contrib_requantize", [_ii(2 ** 28, 4, 6, lo=-2 ** 28)]
+          + _qrange(-812.5, 812.5),
+          {"min_calib_range": -60.0, "max_calib_range": 45.0}),
+        q("_contrib_quantized_fully_connected",
+          [_q8(8, 16), fc_w, fc_b] + _qrange(-1, 1) + _qrange(-0.5, 0.5)
+          + _qrange(-0.2, 0.2), {"num_hidden": 5}),
+        q("_contrib_quantized_fully_connected",
+          [_q8(19, 16), fc_w] + _qrange(-1, 1) + _qrange(-0.5, 0.5),
+          {"num_hidden": 5, "no_bias": True}),
+        q("_contrib_quantized_fully_connected",
+          [_u8(6, 2, 5, 3), _q8(7, 30)] + _qrange(0, 2.0)
+          + _qrange(-0.5, 0.4), {"num_hidden": 7, "no_bias": True}),
+        q("_contrib_quantized_fully_connected",
+          [_q8(2, 3, 12), _q8(4, 12), _q8(4)] + _qrange(-1, 1)
+          + _qrange(-0.5, 0.5) + _qrange(-0.1, 0.3),
+          {"num_hidden": 4, "flatten": False}),
+        q("_contrib_quantized_conv",
+          [_q8(2, 3, 7, 7), _q8(6, 3, 3, 3)] + _qrange(-1, 1)
+          + _qrange(-0.3, 0.3), conv),
+        q("_contrib_quantized_conv",
+          [_q8(2, 3, 9, 8), _q8(6, 3, 3, 3), _q8(6)] + _qrange(-1, 1)
+          + _qrange(-0.3, 0.3) + _qrange(-0.05, 0.05),
+          {"kernel": (3, 3), "num_filter": 6, "pad": (1, 1),
+           "stride": (2, 2)}),
+        q("_contrib_quantized_conv",
+          [_u8(2, 3, 8, 8), _q8(6, 3, 3, 3)] + _qrange(0, 4.0)
+          + _qrange(-0.3, 0.3), dict(conv, pad=(1, 1))),
+        q("_contrib_quantized_conv",
+          [_q8(1, 4, 9, 9), _q8(6, 2, 3, 3)] + _qrange(-1, 1)
+          + _qrange(-0.3, 0.3),
+          {"kernel": (3, 3), "num_filter": 6, "no_bias": True,
+           "num_group": 2, "dilate": (2, 2), "pad": (2, 1)}),
+        q("_contrib_quantized_conv",
+          [_q8(2, 3, 11, 11), _q8(4, 3, 7, 7)] + _qrange(-1, 1)
+          + _qrange(-0.3, 0.3),
+          {"kernel": (7, 7), "num_filter": 4, "no_bias": True,
+           "pad": (3, 3), "stride": (2, 2)}),
+        q("_contrib_quantized_pooling", [_q8(2, 3, 6, 6)]
+          + _qrange(-1, 1), {"kernel": (2, 2), "stride": (2, 2)}),
+        q("_contrib_quantized_pooling", [_q8(2, 3, 7, 7)]
+          + _qrange(-1, 1), {"kernel": (3, 3), "stride": (2, 2),
+                             "pad": (1, 1)}),
+        q("_contrib_quantized_pooling", [_u8(1, 2, 6, 6)]
+          + _qrange(0, 1), {"kernel": (3, 3), "stride": (1, 1),
+                            "pad": (1, 1)}),
+        q("_contrib_quantized_pooling", [_q8(2, 3, 6, 6)]
+          + _qrange(-1, 1), {"kernel": (2, 2), "stride": (2, 2),
+                             "pool_type": "avg"}),
+        q("_contrib_quantized_pooling", [_q8(2, 3, 5, 4)]
+          + _qrange(-1, 1), {"pool_type": "avg", "global_pool": True}),
+        q("_contrib_quantized_flatten", [_q8(2, 3, 4)] + _qrange(-1, 1)),
+        q("_contrib_quantized_act", [_q8(3, 5)] + _qrange(-1, 1),
+          {"act_type": "relu"}),
+    ]
+
+
 # the op library's specs by the reference module that registers the op
 OP_SPECS = {"elemwise": _elemwise_specs(), "reduce": _reduce_specs(),
             "shape_ops": _shape_specs(), "creation_ops": _creation_specs(),
             "nn": _nn_specs(), "linalg": _linalg_specs(),
             "contrib_misc": _contrib_specs(), "rnn_op": _rnn_specs(),
-            "vision": _vision_specs(), "vision_ext": _vision_ext_specs()}
+            "vision": _vision_specs(), "vision_ext": _vision_ext_specs(),
+            "_np_ops": _np_specs(), "quantization": _quant_specs()}
 
-# reference modules not in this slice of the port, each with its reason
-DEFERRED_MODULES = {
-    "quantization": "int8 quantization flow: ROADMAP.md A.10",
-    "_np_ops": "the numpy-compatible _np_* ops (mx.np): ROADMAP.md A.10",
-}
+# reference op modules the port does not register yet, each with its
+# reason (none: quantization and _np_ops were the last, ROADMAP.md A.9)
+DEFERRED_MODULES = {}
 
 
 def op_names_of(spec_name):

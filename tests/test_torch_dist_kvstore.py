@@ -453,11 +453,36 @@ def test_launcher_stops_the_job_when_a_worker_fails():
     assert rc == 3 and time.time() - t0 < 30, out[-3000:]
 
 
-def test_launcher_modes_not_ported_and_missing_runner(capsys):
+def test_launcher_modes_not_ported_and_missing_runner(capsys,
+                                                      monkeypatch):
+    """The ``http`` mode, ported since, runs the front door's CLI as a
+    ``-c`` entry with the command's tokens and ``-p`` (held on a stand-in
+    for ``Popen``); ``yarn`` is refused; a missing mpi runner gives
+    127."""
     import argparse
     from mxnet_tpu_torch.tools import launch
-    with pytest.raises(NotImplementedError, match="item 8"):
-        launch.main(["--launcher", "http", "python", "x.py"])
+    seen = {}
+
+    class _Proc:
+        def __init__(self, cmd, env=None):
+            seen["cmd"], seen["env"] = cmd, env
+
+        def wait(self):
+            return 0
+
+    import signal
+    before = signal.getsignal(signal.SIGTERM)
+    monkeypatch.setattr(launch.subprocess, "Popen", _Proc)
+    assert launch.main(["--launcher", "http", "-p", "8123", "--",
+                        "--device", "cpu", "--replicas", "2"]) == 0
+    cmd = seen["cmd"]
+    assert cmd[1] == "-c" and "mxnet_tpu_torch.serving.http_frontend" in \
+        cmd[2]
+    assert cmd[3:] == ["--port", "8123", "--device", "cpu", "--replicas",
+                       "2"]
+    assert ROOT in seen["env"]["PYTHONPATH"].split(os.pathsep)
+    assert signal.getsignal(signal.SIGTERM) is before
+    monkeypatch.undo()
     assert launch.main(["-n", "1", "--launcher", "yarn", "x"]) == 2
     args = argparse.Namespace(num_workers=2, num_servers=1, port=None,
                               launcher="mpi")

@@ -18,7 +18,10 @@ def _numpy_later(spec):
     return len(spec.inputs) > 1 and not spec.variadic and spec.ref
 
 
+# the _np_* ops are not in ``nd`` in either package: ``mx.np`` makes
+# arrays of its operands before it calls them
 _LATER = [(fam, i) for fam, specs in sorted(OP_SPECS.items())
+          if fam != "_np_ops"
           for i, s in enumerate(specs) if _numpy_later(s)]
 
 

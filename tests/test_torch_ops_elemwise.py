@@ -73,9 +73,17 @@ def test_every_reference_op_is_ported_and_held():
 
 
 def test_deferred_modules_are_not_ported_yet():
-    """The deferred modules' ops raise ``NotImplementedError`` from
-    ``nd`` (``ROADMAP.md`` A.9)."""
+    """No reference op module is deferred any more
+    (``_torch_port.DEFERRED_MODULES`` is empty): the last two, the INT8
+    ops and the ``_np_*`` ops (``ROADMAP.md`` A.9), are registered, the
+    first in ``nd`` and ``nd.contrib`` as in the reference, the second in
+    the registry only (``mx.np`` calls them), as in the reference."""
     import mxnet_tpu_torch as P
-    for name in ("_contrib_dequantize", "_contrib_quantize", "_np_sum"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            getattr(P.nd, name)
+    from mxnet_tpu_torch.ops import registry as reg
+    assert T.DEFERRED_MODULES == {}
+    for name in ("_contrib_dequantize", "_contrib_quantize", "quantize"):
+        assert callable(getattr(P.nd, name))
+    assert callable(P.nd.contrib.quantized_conv)
+    assert reg.op_exists("_np_sum")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        getattr(P.nd, "_np_sum")

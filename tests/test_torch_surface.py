@@ -44,10 +44,6 @@ from _torch_port import cuda_device  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_QUANT = ["dequantize", "quantize", "quantize_v2", "quantized_act",
-          "quantized_conv", "quantized_flatten", "quantized_fully_connected",
-          "quantized_pooling", "requantize"]
-_CLUSTER = ["ApiKeyTable", "HttpFrontend"]
 _DIST = ["init_moe_ffn", "latest_step", "moe_ffn", "moe_param_shardings",
          "pipeline_apply", "restore_sharded", "ring_attention",
          "save_sharded",
@@ -56,8 +52,6 @@ _DIST = ["init_moe_ffn", "latest_step", "moe_ffn", "moe_param_shardings",
 
 # "module:name" -> the ROADMAP.md section A item that ports it
 DEFERRED = {}
-for _mod in ("mxnet_tpu.ndarray", "mxnet_tpu.symbol"):
-    DEFERRED.update({"%s:%s" % (_mod, n): "A.9" for n in _QUANT})
 DEFERRED.update({"mxnet_tpu.parallel.mesh:init_sharded_opt_state": "A.7b",
                  "mxnet_tpu.parallel.mesh:opt_state_shardings": "A.7b",
                  "mxnet_tpu.parallel.mesh:zero1_sharding": "A.7b",
@@ -66,7 +60,6 @@ DEFERRED.update({"mxnet_tpu.parallel.mesh:init_sharded_opt_state": "A.7b",
                  "mxnet_tpu.callback:MetricsCallback": "A.9",
                  "mxnet_tpu.callback:ProgressBar": "A.9"})
 DEFERRED.update({"mxnet_tpu.parallel:%s" % n: "A.7b" for n in _DIST})
-DEFERRED.update({"mxnet_tpu.serving:%s" % n: "A.8" for n in _CLUSTER})
 DEFERRED["mxnet_tpu:Monitor"] = "A.9"
 
 _SPECS = "a jax.sharding PartitionSpec table; the port's counterpart, if " \

@@ -201,8 +201,15 @@ def test_compose_and_attrs():
 
 
 def test_unported_op_raises():
+    """A name neither registry holds raises ``NotImplementedError`` from
+    ``sym``; the INT8 ops, ported since, are symbol functions (the
+    ``_np_*`` ops stay out of ``sym``, as in the reference)."""
     with pytest.raises(NotImplementedError, match="not ported"):
-        P.sym._contrib_quantize
+        P.sym._np_sum
+    with pytest.raises(NotImplementedError, match="not ported"):
+        P.sym.no_such_operator
+    assert callable(P.sym._contrib_quantize)
+    assert callable(P.sym.contrib.quantized_conv)
 
 
 def _exported_pair(tmp_path):
