@@ -141,6 +141,26 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the repository root.
    bit for bit, and the step time of both in turns; a small f32 BERT
    trains 3 steps on the card and on the CPU from the same weights,
    losses compared;
+6b. drives Mixture-of-Experts on one card (the ``moe`` phase,
+   ``moe_path``), each path with the counters from 0: a one-device mesh
+   first (``ServingEngine(mesh=serving_mesh(1))`` against ``mesh=None``
+   on 8 requests, token-identical; ``make_train_step(mesh=make_mesh(
+   {"dp": 1}))`` against ``mesh=None``, 2 BERT-base steps bit for bit);
+   the ``full`` preset's GPT with 4 experts in every second layer
+   (top-2, capacity 1.25, the experts bf16 under w8) serving the
+   64-request mix op by op and captured, token-identical, tok/s and
+   ms a step beside the dense engine's, the paged kernel once a layer a
+   step, a profiled window of the captured engine and the MoE FFNs'
+   device ms a step (their 6 layers at the step's rows, one CUDA graph);
+   a small f32 MoE GPT at capacity 2.0 through the captured engine,
+   with ``spec_K=2``, and ``generate``, token-identical; BERT-base MoE
+   3 steps op by op against 3 replayed, bit for bit, then 10 steps
+   (ms a step, tokens/s, peak memory, flash launches a step, the aux
+   loss a MoE layer in (0.5, E)) and a profiled window of 4 replayed
+   steps (busy, idle, the kernels that take the time); GPT causal MoE 3 steps op by op
+   against 3 replayed, bit for bit; ``moe_ffn`` in bf16 at BERT-base
+   width against its plain f32 composition on the same inputs
+   (``moe_case``: the same dispatch, y within ``moe_limit``);
 7. drives the Gluon path as an MXNet user writes it (``import
    mxnet_tpu_torch as mx``): ResNet-50 v1 (7x7/s2 stem, 1000 classes,
    f32, NCHW) on ``mx.gpu(0)`` with Xavier init from
@@ -4841,6 +4861,12 @@ CLUSTER_BURST, CLUSTER_WAVES, CLUSTER_WAVE_S = 96, 8, 0.15
 # disaggregated serving (4e): the small f32 model's requests
 DISAGG_SMALL_REQ = 8
 CLUSTER_KILL_S, CLUSTER_CHAOS_STALL_S = 0.45, 0.75
+# the chaos run's watchdog.  A chaos stall sleeps 1.5 x watchdog_s and the
+# monitor polls every watchdog_s / 4, so it sees the stall 1 to 1.25 x
+# watchdog_s after the stalled step began and misses it if the host holds
+# it back by more than watchdog_s / 4 past that (125 ms at 0.5 s, which a
+# busy host can take); 2.0 s leaves it 500 ms
+CLUSTER_CHAOS_WATCHDOG_S = 2.0
 
 
 def step_timers(cl):
@@ -5263,7 +5289,9 @@ def cluster_scaling(G, PA, E, S, dev, card, failures):
         cl = S.ServingCluster(tp, tiny, replicas=1, num_slots=2,
                               page_size=4, prefill_chunk=8,
                               prefix_cache=True, metrics=True,
-                              max_queue=10 ** 6, watchdog_s=0.5, device=dev)
+                              max_queue=10 ** 6,
+                              watchdog_s=CLUSTER_CHAOS_WATCHDOG_S,
+                              device=dev)
         first = len(captures)
         sc = S.Autoscaler(cl, min_size=1, max_size=3, interval_s=0.02,
                           cooldown_s=0.2, up_ticks=1, down_ticks=10,
@@ -5272,18 +5300,38 @@ def cluster_scaling(G, PA, E, S, dev, card, failures):
                                  S.ChaosEvent(CLUSTER_CHAOS_STALL_S,
                                               "stall")], seed=3)
         PA.paged_attention.launches = 0
+
+        def poll(now):
+            """Fire the next chaos event once due and a replica is in
+            rotation, but not while the last kill's victim has yet to take
+            its next step (where it dies), and at most 5 s late: on a host
+            that holds this thread back past both events' times, or that
+            has not yet added a replica when the first one is killed, the
+            stall would otherwise pick the dying replica or none (one
+            failover, not two)."""
+            if drv.done():
+                return
+            due = drv.events[len(drv.applied)].t
+            last = drv.applied[-1] if drv.applied else None
+            dying = last is not None and last["kind"] == "kill" and \
+                last["victim"] is not None and \
+                not cl.replicas[last["victim"]].dead
+            if now > due + 5.0 or (
+                    now >= due and not dying and cl._healthy()):
+                drv.poll(due)
+
         sc.start()
         t0 = time.perf_counter()
         try:
             rids, per = [], CLUSTER_BURST // CLUSTER_WAVES
             for w in range(CLUSTER_WAVES):
                 while time.perf_counter() - t0 < w * CLUSTER_WAVE_S:
-                    drv.poll(time.perf_counter() - t0)
+                    poll(time.perf_counter() - t0)
                     time.sleep(0.005)
                 rids += [submit_patiently(cl, p, n, S.ClusterOverloaded)
                          for p, n in burst[w * per:(w + 1) * per]]
             while not drv.done():
-                drv.poll(time.perf_counter() - t0)
+                poll(time.perf_counter() - t0)
                 time.sleep(0.005)
             outs = [cl.result(r, timeout=300) for r in rids]
             t_burst = time.perf_counter() - t0
@@ -5294,6 +5342,8 @@ def cluster_scaling(G, PA, E, S, dev, card, failures):
             healthy = len(cl._healthy())
             counters = cl.metrics()["counters"]
             events = [dict(e) for e in sc.events]
+            failed_over = [(r.idx, str(r.error)) for r in cl.replicas
+                           if r.dead]
             same_tokens("small f32 cluster under autoscaler and chaos vs "
                         "generate (card)", dict(enumerate(outs)),
                         dict(enumerate(want)), failures)
@@ -5329,15 +5379,23 @@ def cluster_scaling(G, PA, E, S, dev, card, failures):
                             if t != tid and a <= when <= b))
     ups = sum(e["action"] == "up" for e in events)
     downs = sum(e["action"] == "down" for e in events)
-    ok = ups >= 1 and downs >= 1 and healthy == 1 and \
-        counters["cluster_failovers_total"] == 2 and \
-        len(drv.applied) == 2 and all(a["victim"] is not None
-                                      for a in drv.applied) and \
-        any(n > 0 for n in overlaps)
+    unmet = [name for name, held in (
+        ("no scale-up", ups >= 1), ("no scale-down", downs >= 1),
+        ("%d healthy after idling, want 1" % healthy, healthy == 1),
+        ("%d failovers, want 2" % counters["cluster_failovers_total"],
+         counters["cluster_failovers_total"] == 2),
+        ("%d chaos events fired, want 2" % len(drv.applied),
+         len(drv.applied) == 2),
+        ("a chaos event found no victim",
+         all(a["victim"] is not None for a in drv.applied)),
+        ("no replay during a scale-up capture",
+         any(n > 0 for n in overlaps))) if not held]
+    ok = not unmet
     rep = {"card": card, "requests": len(burst), "burst_s": t_burst,
            "scale_ups": ups, "scale_downs": downs, "healthy_after": healthy,
            "chaos": drv.applied, "failovers":
-           counters["cluster_failovers_total"],
+           counters["cluster_failovers_total"], "failed_over": failed_over,
+           "watchdog_s": CLUSTER_CHAOS_WATCHDOG_S,
            "replays_during_scale_up_captures": overlaps,
            "scale_up_capture_ms": [(b - a) * 1e3 for _, a, b
                                    in captures[first:]],
@@ -5346,7 +5404,8 @@ def cluster_scaling(G, PA, E, S, dev, card, failures):
     log("check small f32 cluster, autoscaler and chaos [%s]: %s  %s"
         % (card, json.dumps(rep), "ok" if ok else "FAIL"))
     if not ok:
-        failures.append("small f32 cluster: autoscaler and chaos")
+        failures.append("small f32 cluster: autoscaler and chaos (%s)"
+                        % "; ".join(unmet))
     return rep
 
 
@@ -7008,6 +7067,385 @@ def disaggregated_phase(G, PA, FA, ServingEngine, params, cfg, card,
     log("disaggregated HTTP and the launcher: %.1f s"
         % (time.perf_counter() - t0))
     return rep, workers, flash
+
+
+# ------------------------------------------------------------------- moe --
+# the repo's MoE setting (__graft_entry__.py:62: 4 experts in every
+# second layer) with the config's defaults: top-2, capacity factor 1.25,
+# aux weight 0.01; on the ``full`` serving preset and BERT-base/GPT
+# training.  The small f32 model's capacity factor is E / top_k, so no
+# slot ever drops and generate's, the engine's and the verify's
+# groupings give the same tokens.
+MOE = dict(n_experts=4, moe_every=2)
+# each flash wrapper's device kernels (bf16 tensor-core and f32 builds)
+FLASH_SYMBOLS = {"flash_fwd": ["flash_fwd_tc", "flash_fwd_f32"],
+                 "flash_bwd_dq": ["flash_bwd_dq_tc", "flash_bwd_dq_f32"],
+                 "flash_bwd_dkv": ["flash_bwd_dkv_tc", "flash_bwd_dkv_f32"]}
+MOE_SMALL_CF = 2.0
+MOE_TRAIN_STEPS, MOE_TRAIN_WARM = 10, 3
+MOE_MESH_REQS = 8
+# moe_ffn in bf16 against its f32 composition on the same (bf16-valued)
+# inputs and the same dispatch (the router runs in f32 on both sides):
+# each matmul output is rounded to bf16 (2^-8 relative; allowed twice,
+# for cuBLAS's reduced-precision split-K reductions), each bias add, the
+# gelu (slope at most 1.13, which carries h's error on) and the expert
+# output too, and the combine rounds the gate values and sums in f32,
+# then rounds out.  With u = 2^-8, per token: 1.05 * (sum_j w_j *
+# (e_y_j + u |y_j|) + u |out|) + 1e-5, where e_y = e_a @ |w2| +
+# u (2 |a| @ |w2| + |y|) and e_a = 1.13 u (2 |x| @ |w1| + |h|) + u |a|,
+# from the f32 side's h, a = gelu(h) and y of each expert row.
+# That bound holds whatever the signs, so it is loose where the sums
+# cancel (a 2% error in w2 stays under it at the width of the tests);
+# besides, the whole output's relative RMS error must stay under
+# MOE_RMS: bf16's relative rounding error has an RMS of 2^-8 / sqrt(3)
+# (0.23%), and the path rounds a value 5 times, so 2^-6 (1.6%) leaves
+# room for several times that and still refuses a 2% fault.
+MOE_U = 2.0 ** -8
+MOE_RMS = 2.0 ** -6
+MOE_TOL_TEXT = ("1.05*(sum_j w_j*(e_y_j + u|y_j|) + u|out|) + 1e-5, u = "
+                "2^-8, e_y = e_a@|w2| + u(2|a|@|w2| + |y|), e_a = "
+                "1.13u(2|x|@|w1| + |h|) + u|a|; and ||err||/||out|| <= "
+                "2^-6")
+
+
+def moe_inputs(dev, seed, B=BERT_B, T=BERT_T):
+    """One MoE layer's parameters at BERT-base width (``init_moe_ffn``
+    from ``seed``, biases drawn at 0.05) and a unit-scale bf16 input
+    (B, T, D) on the card.  The input leans 0.5 along the all-ones
+    direction and the router's expert 0 along it too, so that most
+    tokens pick expert 0 and its slots overflow."""
+    from mxnet_tpu_torch.parallel.moe import init_moe_ffn
+    p = init_moe_ffn(seed, D, FF, MOE["n_experts"], device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p["router"][:, 0] += 0.02
+    p["b1"].normal_(0, 0.05, generator=g)
+    p["b2"].normal_(0, 0.05, generator=g)
+    x = (torch.randn(B, T, D, generator=g, device=dev) + 0.5).to(
+        torch.bfloat16)
+    return x, p
+
+
+def moe_limit(xin, p, row, keep, val, out):
+    """``MOE_TOL_TEXT``'s limit for each output element, from the f32
+    composition's buffers ``xin`` and dispatch ``row``/``keep``/``val``
+    (``parallel/moe.py dispatch``) and its output ``out``."""
+    from mxnet_tpu_torch.parallel.moe import combine
+    u, f32 = MOE_U, torch.float32
+    h = torch.bmm(xin, p["w1"]) + p["b1"][:, None]
+    a = F.gelu(h, approximate="tanh")
+    y = torch.bmm(a, p["w2"]) + p["b2"][:, None]
+    e_a = 1.13 * u * (2 * torch.bmm(xin.abs(), p["w1"].abs()) + h.abs()) \
+        + u * a.abs()
+    del h
+    e_y = torch.bmm(e_a, p["w2"].abs()) + u * (
+        2 * torch.bmm(a.abs(), p["w2"].abs()) + y.abs())
+    del e_a, a
+    lim = combine((e_y + u * y.abs()).view(-1, xin.shape[-1]), row, keep,
+                  val, f32)
+    return 1.05 * (lim + u * out.abs()) + 1e-5
+
+
+def moe_case(dev, seed=0):
+    """``moe_ffn`` in bf16 at BERT-base width (B 16 x T 512 as 16
+    groups, E 4, top-2, capacity 1.25) against its f32 composition on
+    the same inputs (the weights rounded to bf16 on both sides, the
+    router's float32): (max |err|, max err / limit, relative RMS error,
+    the two dispatches equal, the share of token slots kept)."""
+    from mxnet_tpu_torch.parallel import moe as M
+    bf, f32 = torch.bfloat16, torch.float32
+    x, p = moe_inputs(dev, seed)
+    kw = dict(n_experts=MOE["n_experts"], top_k=2, capacity_factor=1.25)
+    with torch.no_grad():
+        y16, _ = M.moe_ffn(x, p, dtype=bf, **kw)
+        p32 = {k: v if k == "router" else v.to(bf).float()
+               for k, v in p.items()}
+        args = (p["router"], kw["n_experts"], 2, 1.25)
+        xin, row, keep, val, _ = M.dispatch(x.float(), *args, f32)
+        _, row16, keep16, _, _ = M.dispatch(x, *args, bf)
+        out = M.combine(M.experts(xin, p32, "gelu", f32).view(-1, D), row,
+                        keep, val, f32)
+        limit = moe_limit(xin, p32, row, keep, val, out)
+        err = (y16.float() - out).abs()
+    same = torch.equal(row, row16) and torch.equal(keep, keep16)
+    return (float(err.max()), float((err / limit).max()),
+            float(err.norm() / out.norm()), same, float(keep.float().mean()))
+
+
+def moe_serving_ffn_ms(params, cfg, dev):
+    """Device ms of one engine step's MoE FFNs: every MoE layer's
+    ``moe_ffn`` at the step's rows (SLOTS + CHUNK tokens, each its own
+    group, as ``_step`` routes them), captured as one CUDA graph and
+    replayed 20 times in a profiler window that idles PROFILE_LEAD_S
+    first (``device_kernels``)."""
+    from mxnet_tpu_torch.parallel.moe import moe_ffn
+    x = torch.randn(SLOTS + CHUNK, 1, D, device=dev).to(torch.bfloat16)
+    layers = [lay["moe"] for lay in params["layers"] if "moe" in lay]
+    kw = dict(n_experts=cfg.n_experts, top_k=cfg.expert_top_k,
+              capacity_factor=cfg.capacity_factor, dtype=torch.bfloat16)
+
+    def ffns():
+        for p in layers:
+            moe_ffn(x, p, **kw)
+
+    with torch.inference_mode():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ffns()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            ffns()
+    ops, ms = device_kernels(graph.replay, calls=20)
+    del graph
+    return len(layers), ops, ms
+
+
+def one_device_meshes(G, T_, ServingEngine, params, cfg, reqs, dev,
+                      failures):
+    """The one-device mesh is the single-device path: the engine on
+    ``serving_mesh(1)`` against ``mesh=None`` on MOE_MESH_REQS requests
+    of the mix (captured; token-identical, ``tp == 1``, ``mesh is
+    None``), and BERT-base's train step on ``make_mesh({"dp": 1})``
+    against ``mesh=None``, 2 steps op by op from one seed (losses and
+    parameters bit for bit)."""
+    from mxnet_tpu_torch.convert import tree_leaves
+    from mxnet_tpu_torch.parallel import make_mesh, serving_mesh
+    few = reqs[:MOE_MESH_REQS]
+    outs = []
+    for mesh in (None, serving_mesh(1)):
+        eng = ServingEngine(params, cfg, num_slots=SLOTS, page_size=PAGE,
+                            prefill_chunk=CHUNK, mesh=mesh,
+                            device=dev if mesh is None else None)
+        if mesh is not None and not (eng.tp == 1 and eng.mesh is None
+                                     and eng.device == dev):
+            failures.append("engine on serving_mesh(1): tp %s, mesh %s, "
+                            "device %s" % (eng.tp, eng.mesh, eng.device))
+        rids = [eng.submit(p, n) for p, n in few]
+        res = eng.run()
+        outs.append({i: res[r] for i, r in enumerate(rids)})
+    same_tokens("engine on serving_mesh(1) vs mesh=None, %d requests"
+                % len(few), outs[1], outs[0], failures)
+    bert_cfg = T_.bert_base(**BERT)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in bert_batch().items()}
+    runs = []
+    for mesh in (None, make_mesh({"dp": 1})):
+        init_state, step = T_.make_train_step(bert_cfg, mesh=mesh,
+                                              device=dev if mesh is None
+                                              else None)
+        step._eager = True
+        state = init_state(seed=0)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        losses = [step(state, batch, gen)[1] for _ in range(2)]
+        runs.append((torch.stack(losses), tree_leaves(state[0])))
+        del state, step
+    (l0, p0), (l1, p1) = runs
+    same = torch.equal(l0, l1) and all(torch.equal(a, b)
+                                       for a, b in zip(p0, p1))
+    log("check BERT-base train step on make_mesh({\"dp\": 1}) vs mesh=None, "
+        "2 steps op by op: losses %s vs %s, %d parameters bit for bit: %s"
+        "  %s" % (" ".join("%.6f" % x for x in l1.tolist()),
+                  " ".join("%.6f" % x for x in l0.tolist()), len(p0), same,
+                  "ok" if same else "FAIL"))
+    if not same:
+        failures.append("train step on a one-device mesh")
+    del runs
+    return {"engine_requests": len(few), "train_losses": l0.tolist()}
+
+
+def moe_small(G, ServingEngine, dev, failures):
+    """A small f32 MoE GPT (2 layers, one MoE, d_model 128, 2 heads,
+    capacity MOE_SMALL_CF) on the card: the captured engine, the engine
+    with ``spec_K=2`` and ``generate`` request by request,
+    token-identical."""
+    tiny = G.gpt_tiny(dtype="float32", vocab_size=128, max_len=64,
+                      d_model=128, n_heads=2, d_ff=256, dropout=0.0,
+                      capacity_factor=MOE_SMALL_CF, **MOE)
+    params = G.init_params(3, tiny, device=dev)
+    rng = np.random.RandomState(0)
+    small = [(rng.randint(1, 90, P).astype(np.int32), N)
+             for P, N in [(5, 8), (3, 12), (9, 4), (2, 6), (7, 10), (12, 9)]]
+    want = {i: G.generate(params, tiny, p[None], n, device=dev)[0].cpu()
+            .numpy() for i, (p, n) in enumerate(small)}
+    for kw in ({}, {"spec_K": 2}):
+        eng = ServingEngine(params, tiny, num_slots=3, page_size=4,
+                            prefill_chunk=6, device=dev, **kw)
+        rids = [eng.submit(p, n) for p, n in small]
+        outs = eng.run()
+        same_tokens("small f32 MoE engine%s (captured) vs generate, cf %.1f"
+                    % ("".join(", %s=%s" % x for x in kw.items()),
+                       MOE_SMALL_CF),
+                    {i: outs[r] for i, r in enumerate(rids)}, want, failures)
+        eng.close()
+
+
+def moe_path(G, T_, PA, FA, FO, ServingEngine, dev, card, failures):
+    """The ``moe`` phase (module docstring, 6b).  Returns (report, the
+    serving path's paged launches, the BERT MoE main path's flash
+    launches)."""
+    from mxnet_tpu_torch.convert import tree_leaves
+    t_phase = time.perf_counter()
+    bf = torch.bfloat16
+    cfg = G.gpt_config(vocab_size=VOCAB, max_len=MAX_LEN, d_model=D,
+                       n_heads=HEADS, n_layers=LAYERS, d_ff=FF,
+                       dtype="bfloat16", dropout=0.0)
+    dense = G.prepare_params(G.quantize_decode_params(
+        G.init_params(0, cfg, device=dev)), cfg, dev)
+    reqs = workload(0)
+    report = {"card": card}
+    report["one_device_mesh"] = one_device_meshes(
+        G, T_, ServingEngine, dense, cfg, reqs, dev, failures)
+    # ---- serving: the full preset with MoE layers, w8 (experts bf16)
+    mcfg = G.gpt_config(vocab_size=VOCAB, max_len=MAX_LEN, d_model=D,
+                        n_heads=HEADS, n_layers=LAYERS, d_ff=FF,
+                        dtype="bfloat16", dropout=0.0, **MOE)
+    master = G.init_params(0, mcfg, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(master))
+    mparams = G.prepare_params(G.quantize_decode_params(master), mcfg, dev)
+    del master
+    moe_layers = [i for i, lay in enumerate(mparams["layers"])
+                  if "moe" in lay]
+    if any(lay["moe"]["w1"].dtype != bf or "w1" in lay
+           for lay in (mparams["layers"][i] for i in moe_layers)) or             len(moe_layers) != LAYERS // 2:
+        failures.append("MoE w8 params: experts not bf16 or layers wrong")
+    log("MoE GPT (full preset, %d of %d layers MoE, E %d, top-%d, capacity "
+        "%.2f): %.1f M parameters; experts bf16 under w8"
+        % (len(moe_layers), LAYERS, mcfg.n_experts, mcfg.expert_top_k,
+           mcfg.capacity_factor, n_params / 1e6))
+    _, dense_run = serve(G, ServingEngine, dense, cfg, reqs, False, dev)
+    del dense
+    outs_e, run_e = serve(G, ServingEngine, mparams, mcfg, reqs, False, dev,
+                          eager=True)
+    zero_counters(FA, PA, FO)
+    outs_c, run_c = serve(G, ServingEngine, mparams, mcfg, reqs, False, dev)
+    paged = PA.paged_attention.launches
+    log("MoE serving path launches: paged_attention %d, flash_fwd %d "
+        "(%d steps x %d layers = %d expected)" % (
+            paged, FA.flash_fwd.launches, run_c["steps"], LAYERS,
+            run_c["steps"] * LAYERS))
+    if paged != run_c["steps"] * LAYERS:
+        raise Failed("MoE serving: paged_attention counted %d launches, "
+                     "expected %d" % (paged, run_c["steps"] * LAYERS))
+    same_tokens("MoE bf16/w8 engine, float KV, captured vs eager", outs_c,
+                outs_e, failures)
+
+    def rates(run):
+        return {"tokens_per_s": run["tokens"] / run["seconds"],
+                "ms_per_step": run["seconds"] * 1e3 / run["steps"],
+                "steps": run["steps"]}
+
+    report["serving"] = {"dense_captured": rates(dense_run),
+                         "moe_eager": rates(run_e),
+                         "moe_captured": rates(run_c), "paged_launches":
+                         paged}
+    log("MoE serving, 64-request mix, float KV (%s): captured %.1f tok/s, "
+        "%.3f ms/step; op by op %.1f tok/s, %.3f ms/step; the dense "
+        "engine captured in this call %.1f tok/s, %.3f ms/step"
+        % (card, report["serving"]["moe_captured"]["tokens_per_s"],
+           report["serving"]["moe_captured"]["ms_per_step"],
+           report["serving"]["moe_eager"]["tokens_per_s"],
+           report["serving"]["moe_eager"]["ms_per_step"],
+           report["serving"]["dense_captured"]["tokens_per_s"],
+           report["serving"]["dense_captured"]["ms_per_step"]))
+    n_moe, ops, ffn_ms = moe_serving_ffn_ms(mparams, mcfg, dev)
+    paged_kernels = [(sym, lambda: PA.paged_attention.launches, [sym])
+                     for sym in ("paged_split", "paged_combine")]
+    prof = profile_steps(ServingEngine, mparams, mcfg, reqs, dev, False,
+                         paged_kernels)
+    busy = None if prof is None else prof["busy_ms"]
+    report["serving"].update({"moe_ffn_device_ms_per_step": ffn_ms,
+                              "moe_ffn_device_ops_per_step": ops,
+                              "profile_captured": prof})
+    log("MoE FFN device time a step (%s): %s ms over its %d layers (%s "
+        "device operations; profiler, after %.0f ms idle) of %s ms device "
+        "busy a captured step" % (
+            card, "not measured" if ffn_ms is None else "%.4f" % ffn_ms,
+            n_moe, ops, PROFILE_LEAD_S * 1e3,
+            "not measured" if busy is None else "%.3f" % busy))
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_small(G, ServingEngine, dev, failures)
+    # ---- training: BERT-base and GPT causal with MoE layers
+    bcfg = T_.bert_base(**BERT, **MOE)
+    init_state, step = T_.make_train_step(bcfg, learning_rate=1e-4,
+                                          weight_decay=0.01, device=dev)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in bert_batch().items()}
+    captured_vs_eager("BERT-base MoE train", init_state, step, batch, dev, 0,
+                      failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    state, losses, flash, per = train_path(
+        "BERT-base MoE train", init_state, step, batch, dev,
+        MOE_TRAIN_STEPS, MOE_TRAIN_WARM, FA, PA, FO, LAYERS, seed=0)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        _, aux = T_.forward_with_aux(state[0], batch["tokens"], bcfg,
+                                     type_ids=batch["type_ids"],
+                                     mask=batch["mask"])
+    aux = float(aux) / (LAYERS // 2)
+    ok = math.isfinite(aux) and 0.5 < aux < MOE["n_experts"]
+    log("check BERT-base MoE aux loss a MoE layer after %d steps: %.4f "
+        "(in (0.5, %d))  %s" % (MOE_TRAIN_STEPS, aux, MOE["n_experts"],
+                                "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("BERT-base MoE aux loss")
+    report["bert"] = {"ms_per_step": per * 1e3,
+                      "tokens_per_s": BERT_B * BERT_T / per,
+                      "peak_gib": peak / 2**30,
+                      "held_before_gib": held / 2**30,
+                      "flash_launches_per_step": {
+                          k: n / MOE_TRAIN_STEPS for k, n in flash.items()},
+                      "aux_per_moe_layer": aux, "losses": losses}
+    log("BERT-base MoE train step (%s): %.3f ms, %.1f tokens/s (host clock "
+        "over steps %d-%d, synchronised), peak memory %.2f GiB (%.2f GiB "
+        "held before), flash launches a step %s" % (
+            card, per * 1e3, BERT_B * BERT_T / per, MOE_TRAIN_WARM + 1,
+            MOE_TRAIN_STEPS, peak / 2**30, held / 2**30,
+            json.dumps(report["bert"]["flash_launches_per_step"])))
+    flash_kernels = [(k, lambda k=k: getattr(FA, k).launches, syms)
+                     for k, syms in FLASH_SYMBOLS.items()]
+    gen_p = torch.Generator(device=dev).manual_seed(3)
+    report["bert"]["profile_captured"] = profile_window(
+        lambda: step(state, batch, gen_p), 4,
+        "BERT-base MoE train steps, captured", kernels=flash_kernels)
+    step._graphs.clear()
+    del state, step, init_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    gcfg = G.gpt_config(vocab_size=VOCAB, max_len=MAX_LEN, d_model=D,
+                        n_heads=HEADS, n_layers=LAYERS, d_ff=FF,
+                        dtype="bfloat16", dropout=0.1, remat=False, **MOE)
+    g_init, g_step = G.make_train_step(gcfg, device=dev)
+    rng = np.random.RandomState(1)
+    gmask = np.ones((GPT_B, MAX_LEN), bool)
+    gmask[:2, 400:] = False
+    gbatch = {"tokens": torch.as_tensor(rng.randint(1, VOCAB, (
+        GPT_B, MAX_LEN)) * gmask).to(dev), "mask": torch.as_tensor(gmask)
+        .to(dev)}
+    captured_vs_eager("GPT causal MoE train", g_init, g_step, gbatch, dev, 1,
+                      failures)
+    g_step._graphs.clear()
+    del g_step, g_init
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- moe_ffn against its plain f32 composition
+    err, over, rms, same, kept = moe_case(dev)
+    ok = same and over <= 1.0 and rms <= MOE_RMS
+    log("check moe_ffn bf16 B=%d T=%d D=%d E=%d top-2 cf 1.25 vs its f32 "
+        "composition: max_abs_err %.3e  err/limit %.3f  relative RMS %.5f "
+        "(limit %.5f)  dispatch equal %s  slots kept %.4f  %s"
+        % (BERT_B, BERT_T, D, MOE["n_experts"], err, over, rms, MOE_RMS,
+           same, kept, "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("moe_ffn bf16 vs f32 composition")
+    report["moe_ffn"] = {"max_abs_err": err, "err_over_limit": over,
+                         "relative_rms": rms, "tolerance": MOE_TOL_TEXT,
+                         "dispatch_equal": same, "slots_kept": kept}
+    report["seconds"] = time.perf_counter() - t_phase
+    return report, paged, flash
 
 
 def shared_prefix(seed):
@@ -11422,6 +11860,16 @@ def main(argv):
     check_small_f32(T_, dev, failures)
 
     phase("training")
+    # ---- 6b. Mixture-of-Experts on one card: the one-device meshes, the
+    # MoE serving engine, the small f32 MoE gates, BERT-base and GPT MoE
+    # training, moe_ffn against its f32 composition; counters from 0
+    report["moe"], moe_paged, moe_flash = moe_path(
+        G, T_, PA, FA, FO, ServingEngine, dev, card, failures)
+    log("info: moe phase: %s" % json.dumps(report["moe"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("moe")
     # ---- 7. the Gluon path: ResNet-50 v1 through Trainer, then the
     # grouped update routes on one step's gradients (counters from 0)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
@@ -11577,7 +12025,8 @@ def main(argv):
             "telemetry and tier": tier_launches["paged_attention"],
             **{k.rsplit(", ", 1)[0]: n for k, n in cluster_launches.items()
                if k.endswith("paged_attention")},
-            **http_launches},
+            **http_launches, "moe serving (full preset, MoE, captured)":
+                moe_paged},
         "launches_note": "calls, two kernel launches each",
         "max_abs_err": errs["paged"], "tolerance": PAGED_TOL_TEXT,
         **time_paged(PA, q, pool, s, bt, pos, flush),
@@ -11601,14 +12050,13 @@ def main(argv):
                "http front door (generate beside the oracle)": {
                    "flash_fwd": http_flash},
                "bert": bert_launches, "gpt": gpt_launches,
+               "bert moe (10 steps)": moe_flash,
                "bert remat dots": report["remat"]["dots"]["flash_launches"],
                "bert scan_steps=%d" % SCAN_K: scan_launches}
     sources = {"flash_fwd": ("flash_fwd.cu", 169),
                "flash_bwd_dq": ("flash_bwd.cu", 333),
                "flash_bwd_dkv": ("flash_bwd.cu", 354)}
-    symbols = {"flash_fwd": ["flash_fwd_tc", "flash_fwd_f32"],
-               "flash_bwd_dq": ["flash_bwd_dq_tc", "flash_bwd_dq_f32"],
-               "flash_bwd_dkv": ["flash_bwd_dkv_tc", "flash_bwd_dkv_f32"]}
+    symbols = FLASH_SYMBOLS
     dh256 = time_dh256(FA, dev, flush)
     for name, row in time_training_kernels(FA, dev, flush).items():
         src, line = sources[name]

@@ -13,6 +13,14 @@ the q/k/v weights once), which gives the same values bit for bit
 because both casts round to nearest even.  Every function below that
 takes ``params`` expects a prepared tree.
 
+An MoE layer's FFN (``parallel/moe.py``) routes its tokens in the
+reference's groups at each call site: a prompt at a time in the
+prefill, a sequence's verify block at a time in :func:`_decode_block`,
+and each token alone in :func:`_decode_one` and the serving step.
+Expert capacity depends on the group, so under a capacity factor that
+drops slots these functions may disagree with each other, as the
+reference's do; each is held to its reference counterpart.
+
 The full-sequence prefill attention goes through the flash-forward
 kernel (``kernels/flash_attention.py``); the single-row decode
 attention (:func:`_attend_rows`) and the block attention of the
@@ -35,6 +43,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..kernels.flash_attention import flash_attention
+from ..parallel.moe import moe_ffn
 from . import transformer as T
 
 __all__ = ["gpt_config", "gpt_tiny", "init_params", "forward",
@@ -100,6 +109,8 @@ def quantize_decode_params(params):
     bit-exact with the reference: per-output-channel symmetric s8
     ``{"q": int8, "s": f32}`` for every 2-D weight, per-row for
     ``tok_emb`` (one table serves the lookup and the tied logits).
+    The attention weights of every layer are quantized, the FFN weights
+    only in dense layers: an MoE layer's experts stay float.
     ``torch.round`` rounds half to even like ``jnp.round``."""
     def q_cols(w):                       # (in, out): per-column scale
         s = torch.clamp_min(w.abs().amax(dim=0) / 127.0, 1e-8)
@@ -117,7 +128,8 @@ def quantize_decode_params(params):
     layers = []
     for layer in params["layers"]:
         nl = dict(layer)
-        for k in ("wq", "wk", "wv", "wo", "w1", "w2"):
+        for k in ("wq", "wk", "wv", "wo") + (
+                () if "moe" in layer else ("w1", "w2")):
             nl[k] = q_cols(layer[k])
         layers.append(nl)
     out["layers"] = layers
@@ -131,13 +143,12 @@ def prepare_params(params, cfg, device=None):
     float32 (``mlm_bias``, the int8 embedding's per-row scales) kept
     in float32.  Weight-only int8 ``{"q", "s"}`` weights keep their
     structure with both parts in the compute dtype, exactly the
-    operands the reference's ``_wmm`` builds per call.  Idempotent."""
+    operands the reference's ``_wmm`` builds per call.  An MoE layer's
+    ``moe`` subtree takes the dtypes its ``moe_ffn`` reads: the router
+    float32, the experts the compute dtype.  Idempotent."""
     dev = resolve_device(device)
     cdt = T.torch_dtype(cfg.dtype)
     f32 = torch.float32
-    if any("moe" in layer for layer in params["layers"]):
-        raise NotImplementedError("mxnet_tpu_torch: MoE layers are not "
-                                  "ported yet")
 
     def w(x):
         if isinstance(x, dict):
@@ -173,12 +184,16 @@ def prepare_params(params, cfg, device=None):
            "layers": []}
     for layer in params["layers"]:
         wqkv, bqkv = fuse(layer)
-        out["layers"].append({
-            "wqkv": wqkv, "bqkv": bqkv,
-            "wo": w(layer["wo"]), "bo": layer["bo"].to(dev, cdt),
-            "ln1": ln(layer["ln1"]), "ln2": ln(layer["ln2"]),
-            "w1": w(layer["w1"]), "b1": layer["b1"].to(dev, cdt),
-            "w2": w(layer["w2"]), "b2": layer["b2"].to(dev, cdt)})
+        nl = {"wqkv": wqkv, "bqkv": bqkv,
+              "wo": w(layer["wo"]), "bo": layer["bo"].to(dev, cdt),
+              "ln1": ln(layer["ln1"]), "ln2": ln(layer["ln2"])}
+        if "moe" in layer:
+            nl["moe"] = {k: v.to(dev, f32 if k == "router" else cdt)
+                         for k, v in layer["moe"].items()}
+        else:
+            nl.update({"w1": w(layer["w1"]), "b1": layer["b1"].to(dev, cdt),
+                       "w2": w(layer["w2"]), "b2": layer["b2"].to(dev, cdt)})
+        out["layers"].append(nl)
     return out
 
 
@@ -202,7 +217,16 @@ def _qkv(layer, x):
     return _wmm(x, layer["wqkv"]) + layer["bqkv"]
 
 
-def _ffn(layer, x):
+def _ffn(layer, x, cfg):
+    """The FFN of a dense or an MoE layer.  MoE routes the reference's
+    groups: x (B, S, D) as B groups of S tokens, x (R, D) as R groups
+    of one token."""
+    if "moe" in layer:
+        g = x if x.dim() == 3 else x[:, None, :]
+        h, _ = moe_ffn(g, layer["moe"], n_experts=cfg.n_experts,
+                       top_k=cfg.expert_top_k,
+                       capacity_factor=cfg.capacity_factor, dtype=x.dtype)
+        return h.view(x.shape)
     h = F.gelu(_wmm(x, layer["w1"]) + layer["b1"], approximate="tanh")
     return _wmm(h, layer["w2"]) + layer["b2"]
 
@@ -264,11 +288,11 @@ def _attend_rows(q, ckv, cs, pos, dh):
     return torch.bmm(p[:, None, :], v)[:, 0, :]        # (R, dh)
 
 
-def _layer(layer, x, attn_fn):
+def _layer(layer, x, attn_fn, cfg):
     """One decoder layer around an attention callable (post-LN)."""
     attn = _wmm(attn_fn(_qkv(layer, x)), layer["wo"]) + layer["bo"]
     x = T._layer_norm(x + attn, layer["ln1"]["g"], layer["ln1"]["b"])
-    return T._layer_norm(x + _ffn(layer, x), layer["ln2"]["g"],
+    return T._layer_norm(x + _ffn(layer, x, cfg), layer["ln2"]["g"],
                          layer["ln2"]["b"])
 
 
@@ -312,7 +336,7 @@ def _prefill_full(params, cfg, tokens, total, kv_int8=False):
                                    v.contiguous(), causal=True) \
                 .reshape(B, P, D)
 
-        x = _layer(layer, x, attend)
+        x = _layer(layer, x, attend, cfg)
         caches.append(kv)
     return _lm_head(params, x[:, -1], cdt), caches
 
@@ -343,7 +367,7 @@ def _decode_one(params, cfg, token, pos, caches):
                 attn = _attend_rows(q, cache["kv"], None, pos, dh)
             return attn.to(cdt).reshape(B, D)
 
-        x = _layer(layer, x, attend)
+        x = _layer(layer, x, attend, cfg)
     return _lm_head(params, x, cdt), caches
 
 
@@ -449,7 +473,7 @@ def _decode_block(params, cfg, tokens, pos, caches):
             return attn.to(cdt).reshape(B, H, S, dh).permute(0, 2, 1, 3) \
                 .reshape(B, S, D)
 
-        x = _layer(layer, x, attend)
+        x = _layer(layer, x, attend, cfg)
     return _lm_head(params, x, cdt), caches
 
 

@@ -11,10 +11,15 @@ cannot be reproduced in torch, so parity tests convert the JAX tree.
 
 Attention goes through ``kernels/flash_attention.py`` (the flash
 forward and backward kernels on the card) when ``cfg.use_flash``, and
-through the reference's dense path otherwise.  The reference's mesh
-paths (tp/dp/sp sharding, ring/Ulysses attention, the GPipe ``pp``
-stack, FSDP, ZeRO-1, bucketed overlap) and MoE layers are not ported;
-they raise ``NotImplementedError``.
+through the reference's dense path otherwise.  With ``cfg.n_experts``
+every ``moe_every``-th layer's FFN is a Mixture-of-Experts
+(``parallel/moe.py``) and the forward returns its load-balancing loss.
+
+A mesh whose axes all have size 1 is the single-device path, as in the
+reference (``parallel/mesh.py mesh_device``).  The reference's paths
+over a live mesh axis (tp/dp/sp sharding, ring/Ulysses attention, the
+GPipe ``pp`` stack, FSDP, ZeRO-1, bucketed overlap, expert parallelism)
+are not ported; they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,8 +36,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .. import resolve_device
 from .._graphs import GraphCache, Program, warm_up
+from ..base import MXNetError
 from ..convert import tree_leaves, tree_map
 from ..kernels.flash_attention import dense_keep_mask, flash_attention
+from ..parallel.mesh import check_one_device, live_axis, mesh_device
+from ..parallel.moe import init_moe_ffn, moe_ffn
 
 __all__ = ["TransformerConfig", "init_params", "forward",
            "forward_with_aux", "mlm_loss", "make_train_step", "bert_base",
@@ -91,10 +99,9 @@ def init_params(seed, cfg: TransformerConfig, *, device=None):
     """Random parameters with the reference tree and shapes: weights
     ``N(0, 0.02)``, biases 0, layer-norm gains 1.  Drawn on the CPU
     from a ``torch.Generator`` seeded with ``seed`` (so a seed gives
-    the same tree on every device), then moved to ``device``."""
-    if cfg.n_experts:
-        raise NotImplementedError("mxnet_tpu_torch: MoE layers are not "
-                                  "ported yet")
+    the same tree on every device), then moved to ``device``.  Layer i
+    is an MoE layer (a ``moe`` subtree, :func:`init_moe_ffn`, in place
+    of ``w1``/``b1``/``w2``/``b2``) where :func:`_is_moe_layer`."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(int(seed))
     pdt = torch_dtype(cfg.param_dtype)
@@ -119,16 +126,25 @@ def init_params(seed, cfg: TransformerConfig, *, device=None):
         "mlm_bias": zeros(cfg.vocab_size),
         "layers": [],
     }
-    for _ in range(cfg.n_layers):
-        params["layers"].append({
+    for i in range(cfg.n_layers):
+        layer = {
             "wq": dense(D, D), "wk": dense(D, D), "wv": dense(D, D),
             "wo": dense(D, D),
             "bq": zeros(D), "bk": zeros(D), "bv": zeros(D), "bo": zeros(D),
             "ln1": ln(), "ln2": ln(),
-            "w1": dense(D, F), "b1": zeros(F),
-            "w2": dense(F, D), "b2": zeros(D),
-        })
+        }
+        if _is_moe_layer(cfg, i):
+            layer["moe"] = init_moe_ffn(gen, D, F, cfg.n_experts,
+                                        cfg.param_dtype, device=dev)
+        else:
+            layer.update({"w1": dense(D, F), "b1": zeros(F),
+                          "w2": dense(F, D), "b2": zeros(D)})
+        params["layers"].append(layer)
     return params
+
+
+def _is_moe_layer(cfg: TransformerConfig, i: int) -> bool:
+    return cfg.n_experts > 0 and i % cfg.moe_every == cfg.moe_every - 1
 
 
 def _layer_norm(x, g, b, eps=1e-12):
@@ -140,14 +156,12 @@ def _layer_norm(x, g, b, eps=1e-12):
 
 
 # ---------------------------------------------------------------- forward --
-def _not_ported(what):
-    raise NotImplementedError("mxnet_tpu_torch: %s is not ported yet" % what)
-
-
 def _attention(q, k, v, mask, cfg: TransformerConfig, mesh=None,
                dropout_seed=None):
     """(B, T, H, dh) attention: the reference ``_attention`` without its
-    sequence-parallel branch.  With ``cfg.use_flash`` the flash kernels
+    sequence-parallel branch, which it takes only on a live ``sp`` axis
+    (``cfg.seq_parallel`` alone is the plain path, as there); a live
+    mesh axis raises.  With ``cfg.use_flash`` the flash kernels
     (dropout fused into them); otherwise the dense path (-1e9 masking,
     f32 softmax cast to q's dtype, ``dense_keep_mask``).
 
@@ -159,8 +173,8 @@ def _attention(q, k, v, mask, cfg: TransformerConfig, mesh=None,
     if dropout_seed is not None and not 0.0 <= float(cfg.dropout) < 1.0:
         raise ValueError("attention dropout must be in [0, 1), got %r"
                          % (cfg.dropout,))
-    if mesh is not None or cfg.seq_parallel:
-        _not_ported("sequence-parallel (mesh) attention")
+    if mesh is not None:
+        check_one_device(mesh, "sequence-parallel (mesh) attention")
     drop = dropout_seed is not None and cfg.dropout > 0
     if cfg.use_flash:
         return flash_attention(q, k, v, mask=mask, causal=cfg.causal,
@@ -197,12 +211,12 @@ def _layer_draws(cfg: TransformerConfig, B, T, generator, device):
 
 def _encoder_layer(x, layer, mask, cfg: TransformerConfig, train,
                    draws=None):
-    """One post-LN encoder layer, the reference ``_encoder_layer`` with
-    a dense FFN.  ``draws`` (from :func:`_layer_draws`) carries the
-    layer's randomness when training with dropout; it is drawn outside
-    so that a remat recompute drops the same units as the forward."""
-    if "moe" in layer:
-        _not_ported("MoE layers")
+    """One post-LN encoder layer, the reference ``_encoder_layer``:
+    returns ``(x, aux)``, aux the float32 load-balancing loss of an MoE
+    layer (the batch rows its token groups) and 0 for a dense one.
+    ``draws`` (from :func:`_layer_draws`) carries the layer's randomness
+    when training with dropout; it is drawn outside so that a remat
+    recompute drops the same units as the forward."""
     B, T, D = x.shape
     H = cfg.n_heads
     dh = D // H
@@ -222,11 +236,18 @@ def _encoder_layer(x, layer, mask, cfg: TransformerConfig, train,
     if drop:
         attn = torch.where(draws["attn_keep"], attn / (1 - r), 0).to(cdt)
     x = _layer_norm(x + attn, dn(layer["ln1"]["g"]), dn(layer["ln1"]["b"]))
-    h = F.gelu(x @ dn(layer["w1"]) + dn(layer["b1"]), approximate="tanh")
-    h = h @ dn(layer["w2"]) + dn(layer["b2"])
+    if "moe" in layer:
+        h, aux = moe_ffn(x, layer["moe"], n_experts=cfg.n_experts,
+                         top_k=cfg.expert_top_k,
+                         capacity_factor=cfg.capacity_factor, dtype=cdt)
+    else:
+        h = F.gelu(x @ dn(layer["w1"]) + dn(layer["b1"]), approximate="tanh")
+        h = h @ dn(layer["w2"]) + dn(layer["b2"])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if drop:
         h = torch.where(draws["ffn_keep"], h / (1 - r), 0).to(cdt)
-    return _layer_norm(x + h, dn(layer["ln2"]["g"]), dn(layer["ln2"]["b"]))
+    return (_layer_norm(x + h, dn(layer["ln2"]["g"]), dn(layer["ln2"]["b"])),
+            aux)
 
 
 # the matmuls of the layer: what ``jax.checkpoint_policies.dots_saveable``
@@ -304,9 +325,10 @@ def forward(params, tokens, cfg: TransformerConfig, *, type_ids=None,
 def forward_with_aux(params, tokens, cfg: TransformerConfig, *,
                      type_ids=None, mask=None, train=False, generator=None,
                      mesh=None):
-    """Like :func:`forward` but also returns the auxiliary loss: a zero
-    float32 scalar, since it is the MoE load-balancing loss in the
-    reference and MoE is not ported.
+    """Like :func:`forward` but also returns the auxiliary loss, the
+    float32 sum of the MoE layers' load-balancing losses (0 for an
+    all-dense stack).  ``mesh``: None or a mesh whose axes all have
+    size 1 (the same path); a live axis raises ``not_ported``.
 
     ``train=True`` with ``cfg.dropout > 0`` draws each layer's dropout
     from ``generator`` (a ``torch.Generator`` on the tokens' device):
@@ -316,7 +338,9 @@ def forward_with_aux(params, tokens, cfg: TransformerConfig, *,
     reference's by design; the attention mask, given the same seed, is
     the reference's bit for bit."""
     if mesh is not None:
-        _not_ported("the mesh (tp/dp/sp/pp) forward")
+        if live_axis(mesh, "pp"):
+            _check_pipeline(cfg, len(params["layers"]))
+        check_one_device(mesh, "the mesh (tp/dp/sp/pp/ep) forward")
     cdt = torch_dtype(cfg.dtype)
     tokens = tokens.long()
     B, T = tokens.shape
@@ -331,12 +355,26 @@ def forward_with_aux(params, tokens, cfg: TransformerConfig, *,
         raise ValueError("forward: train=True with dropout > 0 needs a "
                          "torch.Generator")
     layer_fn = _make_layer_fn(cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params["layers"]:
         draws = _layer_draws(cfg, B, T, generator, x.device) if drop \
             else None
-        x = layer_fn(x, layer, mask, cfg, train, draws)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _mlm_head(params, x), aux
+        x, aux = layer_fn(x, layer, mask, cfg, train, draws)
+        aux_total = aux_total + aux
+    return _mlm_head(params, x), aux_total
+
+
+def _check_pipeline(cfg: TransformerConfig, n_layers):
+    """The reference's argument errors of its ``pp`` stack
+    (``_pipelined_layers``), raised before the port refuses the live
+    axis."""
+    if cfg.n_experts and 1 < cfg.moe_every <= n_layers:
+        raise MXNetError("pipeline parallelism needs a homogeneous layer "
+                         "stack; mixed dense/MoE (moe_every>1) is "
+                         "unsupported — use moe_every=1 or drop 'pp'")
+    if cfg.seq_parallel:
+        raise MXNetError("seq_parallel attention cannot nest inside the "
+                         "'pp' shard_map; drop one of sp/pp")
 
 
 # ------------------------------------------------------------- train step --
@@ -349,13 +387,13 @@ def _mlm_head_loss(outer, x, batch, cfg: TransformerConfig):
 
 def mlm_loss(params, batch, generator, cfg: TransformerConfig, mesh=None):
     """Masked-LM objective: mean token NLL over the masked positions
-    (``labels`` -100 ≡ unmasked); the reference's MoE auxiliary term is
-    zero here.  ``batch``: dict of tensors ``tokens``, ``labels`` and
-    optionally ``mask`` and ``type_ids``."""
-    logits = forward(params, batch["tokens"], cfg,
-                     type_ids=batch.get("type_ids"), mask=batch.get("mask"),
-                     train=True, generator=generator, mesh=mesh)
-    return _masked_nll(logits, batch["labels"])
+    (``labels`` -100 ≡ unmasked) plus ``cfg.moe_aux_weight`` times the
+    MoE auxiliary loss.  ``batch``: dict of tensors ``tokens``,
+    ``labels`` and optionally ``mask`` and ``type_ids``."""
+    logits, aux = forward_with_aux(
+        params, batch["tokens"], cfg, type_ids=batch.get("type_ids"),
+        mask=batch.get("mask"), train=True, generator=generator, mesh=mesh)
+    return _masked_nll(logits, batch["labels"]) + cfg.moe_aux_weight * aux
 
 
 @contextlib.contextmanager
@@ -566,20 +604,21 @@ def make_train_step(cfg: TransformerConfig, mesh=None, learning_rate=1e-4,
     old ``p``, so the two are the same update up to rounding.  A leaf
     the loss does not reach (``type_emb`` without ``type_ids``) gets a
     zero gradient, as under ``jax.grad``, so it is decayed like the
-    reference's.  The mesh options raise ``NotImplementedError``."""
-    for name, on in (("mesh", mesh is not None),
-                     ("shard_optimizer", shard_optimizer),
-                     ("fsdp", fsdp), ("bucket_overlap", bucket_overlap)):
-        if on:
-            _not_ported("make_train_step(%s=...)" % name)
+    reference's.
+
+    ``mesh``: a mesh whose axes all have size 1 is this path on its one
+    device (the reference binds no sharding there), and
+    ``shard_optimizer`` without a live ``dp`` axis is the plain AdamW,
+    as there.  The reference's argument errors (``bucket_overlap``,
+    ``fsdp`` without a live ``dp`` axis) raise its ``MXNetError``s; a
+    live mesh axis raises ``not_ported``."""
+    _check_mesh_options(cfg, mesh, fsdp, bucket_overlap)
+    dev = mesh_device(mesh, "make_train_step", device)
     if scan_steps is not None and (isinstance(scan_steps, bool) or
                                    int(scan_steps) != scan_steps or
                                    scan_steps < 1):
         raise ValueError("make_train_step: scan_steps must be a positive "
                          "int, got %r" % (scan_steps,))
-    if cfg.n_experts:
-        _not_ported("MoE layers")
-    dev = resolve_device(device)
     pdt = torch_dtype(cfg.param_dtype)
 
     def init_state(seed=0, params=None):
@@ -597,3 +636,27 @@ def make_train_step(cfg: TransformerConfig, mesh=None, learning_rate=1e-4,
     return init_state, _TrainStep(
         cfg, dev, scan_steps=None if scan_steps is None else int(scan_steps),
         scan_superbatch=scan_superbatch)
+
+
+def _check_mesh_options(cfg, mesh, fsdp, bucket_overlap):
+    """The reference ``make_train_step``'s argument errors, in its
+    order, before any mesh work."""
+    if bucket_overlap not in (False, True, "fused"):
+        raise MXNetError(
+            "make_train_step: bucket_overlap must be False, True, or "
+            "'fused', got %r" % (bucket_overlap,))
+    if bucket_overlap:
+        if not fsdp:
+            raise MXNetError(
+                "make_train_step: bucket_overlap requires fsdp=True "
+                "(the per-layer buckets ARE the FSDP reduce-scatters)")
+        if cfg.n_experts or cfg.seq_parallel or live_axis(mesh, "pp"):
+            raise MXNetError(
+                "make_train_step: bucket_overlap needs a homogeneous "
+                "dense layer stack with no nested shard_map — MoE / "
+                "seq_parallel / pp configs use bucket_overlap=False")
+    if fsdp and live_axis(mesh, "dp") is None:
+        raise MXNetError(
+            "make_train_step(fsdp=True) needs a mesh with a live "
+            "'dp' axis (size > 1); got %s"
+            % (dict(mesh.shape) if mesh is not None else None))

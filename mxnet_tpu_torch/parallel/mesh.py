@@ -6,9 +6,12 @@ Port of ``mxnet_tpu/parallel/mesh.py``: :func:`make_mesh`,
 axes of a numpy array of ``torch.device`` s, as ``jax.sharding.Mesh``
 names an array of JAX devices.  With no devices given, a mesh takes the
 visible CUDA devices and raises when there are none; the tests pass
-``devices=[torch.device("cpu")]``.  A program over a mesh of more than
-one device (``torch.distributed``) is not ported: its consumers raise
-on one (:func:`check_one_device`).
+``devices=[torch.device("cpu")]``.  The reference's rule for a mesh
+(:func:`live_axis`) is the port's too: a mesh whose axes all have size
+1 is the single-device path on its one device (:func:`mesh_device`).
+A program over a mesh of more than one device (``torch.distributed``)
+is not ported: its consumers raise on a live axis
+(:func:`check_one_device`).
 """
 from __future__ import annotations
 
@@ -17,11 +20,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..base import MXNetError, not_ported
 
 __all__ = ["Mesh", "make_mesh", "default_mesh", "serving_mesh",
            "current_mesh", "mesh_scope", "live_axis", "shard_map_compat",
-           "check_one_device"]
+           "check_one_device", "mesh_device"]
 
 _CURRENT = []
 
@@ -143,6 +147,21 @@ def check_one_device(mesh, what):
                          % (what, mesh.size, mesh.shape),
                          "mxnet_tpu.parallel (GSPMD over a jax Mesh)")
     return mesh.devices.ravel()[0]
+
+
+def mesh_device(mesh, what, device=None):
+    """The device an entry point given ``mesh`` and ``device`` runs on:
+    ``resolve_device(device)`` without a mesh, else the mesh's one
+    device (a mesh whose axes all have size 1 binds no sharding in the
+    reference either); a live axis raises ``not_ported``, and a
+    ``device`` other than the mesh's raises ``ValueError``."""
+    if mesh is None:
+        return resolve_device(device)
+    dev = check_one_device(mesh, what)
+    if device is not None and resolve_device(device) != dev:
+        raise ValueError("%s: device=%s, but the mesh's one device is %s"
+                         % (what, device, dev))
+    return dev
 
 
 def shard_map_compat(fn, *, mesh, in_specs, out_specs, axis_names=None,

@@ -84,6 +84,7 @@ import torch
 
 from .. import profiler, resolve_device
 from ..models import gpt as G
+from ..parallel.mesh import mesh_device
 from .engine import ServingEngine
 from .prefix_cache import ClusterPrefixIndex, chain_keys
 from .transport import PUT_STATS
@@ -295,9 +296,11 @@ class ServingCluster:
     committed tokens however many a step produced.  The whole engine
     configuration is kept once (``_engine_kwargs``), so a resubmission
     lands on a replica set up as the one that died.  ``kernel``, ``tp``
-    and ``mesh`` go to the engines, which refuse them (not ported).
-    ``device``: None means the CUDA device, ``"cpu"`` runs the engines'
-    plain versions.
+    and ``mesh`` go to the engines, which take a mesh whose axes all
+    have size 1 (every replica on its device) and refuse ``kernel`` and
+    ``tp > 1`` (not ported).  ``device``: None means the CUDA device
+    (or the mesh's), ``"cpu"`` runs the engines' plain versions.  MoE
+    params reach every replica like any other: the one prepared tree.
     """
 
     def __init__(self, params, cfg, *, replicas=2, num_slots,
@@ -350,7 +353,7 @@ class ServingCluster:
             metrics = registry is not None or \
                 os.environ.get("MXNET_SERVING_METRICS", "0") == "1"
         self._obs = _ClusterObs(registry) if metrics else None
-        self.device = resolve_device(device)
+        self.device = mesh_device(mesh, "ServingCluster", device)
         # the weights, prepared once: every replica's engine (one added
         # later too) takes these tensors as they are (prepare_params is
         # idempotent), so a replica adds its pool and buffers only

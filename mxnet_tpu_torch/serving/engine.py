@@ -76,8 +76,14 @@ Under float32 greedy decode the outputs are token-identical to
 the options, drafter, batch mix, admission order, page reuse,
 preemption, spill or swap.
 
-Not ported yet (the constructor raises ``NotImplementedError``):
-``tp > 1``/``mesh`` and ``kernel``.
+MoE params (``cfg.n_experts``) take the same step: each row of a step
+is its own token group for the experts (the reference's
+``x[:, None, :]``), so no row is ever dropped for capacity.
+
+A ``mesh`` whose axes all have size 1 (``serving_mesh(1)``) is the
+single-device path on its one device, as in the reference.  Not ported
+yet (the constructor raises ``NotImplementedError``): ``tp > 1`` (a
+live mesh axis) and ``kernel``.
 """
 from __future__ import annotations
 
@@ -92,7 +98,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from .. import profiler, resolve_device
+from .. import profiler
 from .._graphs import GraphCache, Program, warm_up
 from ..engine import Engine as _HostEngine
 from ..kernels.paged_attention import paged_attention
@@ -100,6 +106,7 @@ from ..models import gpt as G
 from ..models.transformer import _layer_norm, torch_dtype
 from ..obs import (MetricsRegistry, RequestTraceEmitter,
                    register_engine_registry)
+from ..parallel.mesh import mesh_device
 from . import drafters
 from .paged_kv import PagedKVCache
 from .prefix_cache import PrefixCache
@@ -203,7 +210,7 @@ def _step(params, cfg, pools, tokens, row_slot, row_pos, row_live, bt,
                                    page_size=page_size)
             return attn.to(cdt).reshape(T, D)
 
-        x = G._layer(layer, x, attend)
+        x = G._layer(layer, x, attend, cfg)
     logits = G._lm_head(params, x, cdt)                # (T, V) f32
     return torch.argmax(logits[slot_rows.long()], dim=-1)
 
@@ -609,6 +616,9 @@ class ServingEngine:
         it with the process-wide Prometheus scrape.
     device : where the engine runs; None means the CUDA device (and
         raises without one), ``"cpu"`` runs the plain versions.
+    tp, mesh : tensor parallelism; ``tp=1`` and a mesh whose ``tp`` axis
+        (and every other) has size 1 run here on the mesh's device, with
+        ``engine.mesh`` None as in the reference.  ``tp > 1`` raises.
     rid_start : the first request id this engine gives (a
         ``ServingCluster`` gives each replica a block of its own, so
         request ids and their trace lanes are unique in the cluster).
@@ -621,13 +631,36 @@ class ServingEngine:
                  device=None, tier_bytes=None, metrics=None,
                  registry=None, rid_start=0, tp=1, mesh=None,
                  kernel=None):
-        unported = {"tp": tp != 1, "mesh": mesh is not None,
-                    "kernel": kernel is not None}
-        for name, on in unported.items():
-            if on:
-                raise NotImplementedError(
-                    "ServingEngine: %s is not ported to mxnet_tpu_torch "
-                    "yet (ROADMAP.md)" % name)
+        if kernel is not None:
+            raise NotImplementedError(
+                "ServingEngine: kernel is not ported to mxnet_tpu_torch "
+                "yet (ROADMAP.md)")
+        if mesh is not None:
+            if "tp" not in mesh.axis_names:
+                raise ValueError("ServingEngine: mesh has no 'tp' axis "
+                                 "(build one with parallel.serving_mesh)")
+            if tp not in (1, int(mesh.shape["tp"])):
+                raise ValueError(
+                    "ServingEngine: tp=%d disagrees with the mesh's tp "
+                    "axis (%d)" % (tp, mesh.shape["tp"]))
+            tp = int(mesh.shape["tp"])
+        if tp < 1:
+            raise ValueError("ServingEngine: tp must be >= 1")
+        if tp > 1:
+            if cfg.n_heads % tp:
+                raise ValueError(
+                    "ServingEngine: n_heads=%d not divisible by tp=%d — "
+                    "the KV pools shard the heads axis" % (cfg.n_heads, tp))
+            if any("moe" in layer for layer in params["layers"]):
+                raise ValueError(
+                    "ServingEngine: MoE decode params are tp=1-only "
+                    "(expert dispatch is not validated under the serving "
+                    "mesh; experts would replicate with only the FFN "
+                    "hidden dim sharded)")
+            raise NotImplementedError(
+                "ServingEngine: tp=%d is not ported to mxnet_tpu_torch "
+                "yet (ROADMAP.md)" % tp)
+        self.tp, self.mesh = 1, None
         if not cfg.causal:
             cfg = dataclasses.replace(cfg, causal=True)
         if num_slots < 1:
@@ -639,7 +672,7 @@ class ServingEngine:
         if spec_drafter != "ngram" and not callable(spec_drafter):
             raise ValueError("ServingEngine: spec_drafter must be "
                              "'ngram' or a callable")
-        self.device = resolve_device(device)
+        self.device = mesh_device(mesh, "ServingEngine", device)
         if pages_per_slot is None:
             pages_per_slot = -(-cfg.max_len // page_size)
         if num_pages is None:

@@ -42,7 +42,12 @@ def numpy_params(jcfg, seed):
     tree["mlm_bias"] = bias(tree["mlm_bias"].size)
     for layer in tree["layers"]:
         for k in ("bq", "bk", "bv", "bo", "b1", "b2"):
-            layer[k] = bias(layer[k].size)
+            if k in layer:                # an MoE layer has no b1/b2
+                layer[k] = bias(layer[k].size)
+        for k in ("b1", "b2"):            # its experts' (E, n) biases
+            if "moe" in layer:
+                m = layer["moe"]
+                m[k] = bias(m[k].size).reshape(m[k].shape)
         layer["ln1"] = ln(layer["ln1"])
         layer["ln2"] = ln(layer["ln2"])
     return tree

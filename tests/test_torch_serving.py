@@ -150,13 +150,18 @@ def test_forced_preempt_resumes_exact():
 
 
 @pytest.mark.parametrize("opt", [dict(tier_bytes=1 << 20), dict(tp=2),
-                                 dict(mesh=object()), dict(metrics=True),
+                                 dict(mesh={"tp": 2}), dict(metrics=True),
                                  dict(kernel="pallas")])
 def test_unported_options_raise(opt):
-    """The options not ported yet raise; ``tier_bytes`` and ``metrics``
-    are ported (tests/test_torch_serving_tier.py and
+    """The options not ported yet raise (a mesh with a live ``tp`` axis;
+    a one-device mesh is ported, tests/test_torch_mesh_one_device.py);
+    ``tier_bytes`` and ``metrics`` are ported
+    (tests/test_torch_serving_tier.py and
     tests/test_torch_serving_metrics.py) and must be honoured."""
     _, tcfg, tree = _setup(0)
+    if "mesh" in opt:
+        from mxnet_tpu_torch.parallel import make_mesh
+        opt = dict(mesh=make_mesh(opt["mesh"], devices=["cpu", "cpu"]))
     if "tier_bytes" in opt or "metrics" in opt:
         eng = _engine(tree, tcfg, num_slots=1, page_size=4, **opt)
         assert eng.tier is not None if "tier_bytes" in opt \

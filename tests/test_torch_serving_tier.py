@@ -534,7 +534,9 @@ def test_env_and_constructor(monkeypatch):
         port_engine(tree, tcfg, num_slots=2)
     monkeypatch.delenv("MXNET_SERVE_TIER_BYTES")
     assert port_engine(tree, tcfg, num_slots=2).tier is None
-    for kw in (dict(tp=2), dict(mesh=object()), dict(kernel="pallas")):
+    from mxnet_tpu_torch.parallel import make_mesh
+    live = make_mesh({"tp": 2}, devices=["cpu", "cpu"])
+    for kw in (dict(tp=2), dict(mesh=live), dict(kernel="pallas")):
         with pytest.raises(NotImplementedError):
             port_engine(tree, tcfg, num_slots=2, **kw)
 

@@ -44,7 +44,7 @@ from _torch_port import cuda_device  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_DIST = ["init_moe_ffn", "moe_ffn", "moe_param_shardings",
+_DIST = ["moe_param_shardings",
          "pipeline_apply", "ring_attention",
          "sequence_parallel_attention", "stack_layer_params",
          "ulysses_attention"]
@@ -55,7 +55,10 @@ DEFERRED.update({"mxnet_tpu.parallel.mesh:init_sharded_opt_state": "A.7b",
                  "mxnet_tpu.parallel.mesh:opt_state_shardings": "A.7b",
                  "mxnet_tpu.parallel.mesh:zero1_sharding": "A.7b",
                  "mxnet_tpu.parallel.multihost:global_mesh": "A.7b",
-                 "mxnet_tpu.parallel.multihost:host_staged_put": "A.7b"})
+                 "mxnet_tpu.parallel.multihost:host_staged_put": "A.7b",
+                 # the sharding tables of expert parallelism over ep > 1
+                 "mxnet_tpu.parallel.moe:moe_param_shardings": "A.7b",
+                 "mxnet_tpu.parallel.moe:moe_param_specs": "A.7b"})
 DEFERRED.update({"mxnet_tpu.parallel:%s" % n: "A.7b" for n in _DIST})
 
 _SPECS = "a jax.sharding PartitionSpec table; the port's counterpart, if " \

@@ -245,13 +245,17 @@ def test_dropout_draws_follow_the_generator():
 
 
 def test_unported_options_raise():
+    """The mesh options over a live axis raise (a one-device mesh and
+    the reference's argument errors: tests/test_torch_mesh_one_device.py)."""
     from mxnet_tpu_torch.models import transformer as T
+    from mxnet_tpu_torch.parallel import make_mesh
     _, tcfg = _cfgs()
+    dp, sp = (make_mesh({a: 2}, devices=["cpu", "cpu"]) for a in ("dp", "sp"))
     for kw in (dict(fsdp=True), dict(shard_optimizer=True),
-               dict(bucket_overlap=True), dict(mesh=object())):
+               dict(bucket_overlap=True, fsdp=True), dict()):
         with pytest.raises(NotImplementedError):
-            T.make_train_step(tcfg, device="cpu", **kw)
+            T.make_train_step(tcfg, mesh=dp, **kw)
     x = torch.zeros(1, 4, 2, 64)
     with pytest.raises(NotImplementedError):
         T._attention(x, x, x, None,
-                     dataclasses.replace(tcfg, seq_parallel="ring"))
+                     dataclasses.replace(tcfg, seq_parallel="ring"), mesh=sp)
